@@ -1,0 +1,78 @@
+"""Build and bind the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles ``csrc/*.cu`` into one shared library with a
+plain C interface under ``build/`` (keyed by a hash of the sources and
+flags), which ctypes then loads.  Nothing is built when a module is
+imported, and nothing comes from outside the checkout but the CUDA
+toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_SRC_DIR = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # Every mul and add rounds on its own, like the plain PyTorch versions.
+    "-fmad=false",
+    "-Xptxas", "-v",
+)
+
+_lib = None
+# What the last build did: seconds spent in nvcc (0.0 when the library was
+# already built) and the ptxas resource report.
+build_info = {"seconds": None, "ptxas": ""}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _bind(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    common = [p] * 12 + [i, i, i, f, f]
+    lib.sweep_nearest.argtypes = common + [p, p, p, p]
+    lib.sweep_nearest.restype = i
+    lib.sweep_any_hit.argtypes = common + [p, p]
+    lib.sweep_any_hit.restype = i
+    return lib
+
+
+def load():
+    """The bound kernel library, built on first call."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    so = os.path.join(_BUILD_DIR, f"libportrayer_kernels_{h.hexdigest()[:16]}.so")
+    t0 = time.perf_counter()
+    if not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)
+        build_info["ptxas"] = proc.stderr
+    build_info["seconds"] = time.perf_counter() - t0
+    _lib = _bind(ctypes.CDLL(so))
+    return _lib

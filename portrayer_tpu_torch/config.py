@@ -1,0 +1,93 @@
+"""Render configuration (counterpart of ``portrayer_tpu/config.py``).
+
+The reference constants and the ``SAMPLES`` env semantics are the JAX
+package's.  The TPU tuning knobs (Pallas block/slab sizes, queue slicing,
+remat, scan unrolling) have no meaning here and are gone; ``device`` and
+``accel`` choose where and through which sweep the port runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Tuple, Union
+
+import torch
+
+# Mirrors EPSILON in the reference (src/math.rs:15).
+EPSILON = 1e-5
+
+# Gamma used for encode/decode (src/math.rs:20).
+GAMMA = 2.2
+
+# Maximum ray recursion depth (src/material.rs:12).
+MAX_RECURSION_DEPTH = 10
+
+# Indices of refraction (src/material.rs:15-23).
+AIR_REFRACTION_INDEX = 1.00
+WATER_REFRACTION_INDEX = 1.33
+WINDOW_GLASS_REFRACTION_INDEX = 1.51
+OPTICAL_GLASS_REFRACTION_INDEX = 1.92
+DIAMOND_REFRACTION_INDEX = 2.42
+
+ACCELS = ("flat", "cuda")
+
+
+def _env_samples(default: int = 100) -> int:
+    """SAMPLES env var semantics of the reference: positive int or default."""
+    val = os.environ.get("SAMPLES")
+    if val is not None:
+        try:
+            parsed = int(val)
+            if parsed > 0:
+                return parsed
+        except ValueError:
+            pass
+    return default
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class RenderConfig:
+    """Sampling, robustness epsilons, launch shape, device and sweep.
+
+    ``device`` has no default: a render names the device it runs on, so
+    nothing silently falls back to the CPU.
+    """
+
+    device: Union[str, torch.device]
+
+    # Samples per pixel (jittered); None reads SAMPLES, else 100.
+    samples: Optional[int] = None
+
+    # Maximum recursion depth for reflect/refract rays.
+    max_depth: int = MAX_RECURSION_DEPTH
+
+    # Absolute epsilon for t-range starts (parity with the reference).
+    epsilon: float = EPSILON
+
+    # Relative start offset of secondary/shadow rays: max(eps, eps_rel*|p|).
+    eps_rel: float = 3e-4
+
+    # Self-intersection guard in the local units of the source node.
+    self_eps_local: float = 2e-3
+
+    # Pixels per render tile (height, width).
+    tile: Tuple[int, int] = (128, 128)
+
+    # Max rays per launch; spp are chunked so tile_px * spp_chunk fits.
+    max_rays_per_launch: int = 131072
+
+    # RNG seed for the jitter draws.
+    seed: int = 0
+
+    # "cuda": the hand-written sweep kernel on CUDA tensors (its plain
+    # PyTorch version on CPU tensors); "flat": the brute-force oracle.
+    accel: str = "cuda"
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", torch.device(self.device))
+        if self.accel not in ACCELS:
+            raise ValueError(f"accel must be one of {ACCELS}, got {self.accel!r}")
+
+    def resolved_samples(self) -> int:
+        return self.samples if self.samples is not None else _env_samples()

@@ -1,0 +1,351 @@
+// Ray x packed-chunk sweep for Hopper (sm_90a): nearest-hit and any-hit.
+//
+// Replaces the TPU kernel of portrayer_tpu/ops/pallas_intersect.py
+// (_make_kernel, launched by intersect_scene_pallas through pl.pallas_call)
+// together with the XLA cull prologue around it.  It computes what that
+// kernel computes -- per ray, the nearest (t, node, tri) over the packed
+// chunk table, or whether any in-range hit exists -- and is not a
+// block-by-block copy of it:
+//
+//  * One thread per ray.  The loop runs over the chunks in table order and
+//    tests each chunk's AABB in the kernel, with the prologue's conservative
+//    slab rule, so the TPU version's per-block candidate lists, argsort and
+//    SMEM counts are gone.
+//  * t stays exact f32 and the ids are read directly, with a strict-< fold:
+//    ties go to the earlier (chunk, lane).  The TPU kernel's 2^-16
+//    lane-tagged key was a workaround for the TPU's lane reductions.
+//  * Any-hit mode returns at the first in-range hit.
+//
+// Bound on this card: a thread's work is ~100-200 f32 ops per candidate and
+// 5-13 table words per candidate; a warp's threads read the same table
+// column, so those reads are L1/L2 broadcasts and the kernel is bound by
+// issue rate and by divergence where the rays of a warp cross different
+// chunks.  Staging chunks in shared memory and culling per warp are later
+// work.
+//
+// Numerics: built with -fmad=false and written in the op order of the plain
+// PyTorch version (ops/cuda_intersect.py: intersect_scene_sweep_ref), whose
+// every op rounds once; IEEE division and sqrt (nvcc defaults).  Selects
+// are written as ternaries with the same NaN behaviour as torch.where.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kChunk = 128;   // columns per chunk (PACK_CHUNK)
+constexpr int kThreads = 128;
+
+// Packed chunk kinds (scene/flatten.py).
+constexpr int kCubeG = 2, kCylinderG = 3, kConeG = 4, kSphereW = 7;
+
+struct Tables {
+  const float* pf;        // [21, ncol] row-major
+  const int* pid;         // [2, ncol]: node id, tri id
+  const int* chunk_kind;  // [n_chunks]
+  const float* cmin;      // [n_chunks, 3]
+  const float* cmax;      // [n_chunks, 3]
+  int n_chunks;
+  int ncol;
+};
+
+__device__ __forceinline__ float fmin_sel(float a, float b) { return a < b ? a : b; }
+__device__ __forceinline__ float fmax_sel(float a, float b) { return a > b ? a : b; }
+
+// n / d where d != 0, else +inf (_gd).
+__device__ __forceinline__ float guarded_div(float n, float d) {
+  return d != 0.0f ? n / d : CUDART_INF_F;
+}
+
+__device__ __forceinline__ bool in_range(float t, float t_min, float t_max) {
+  return (t >= t_min) && (t < t_max);
+}
+
+// Smallest root of a t^2 + b t + c in [t_min, t_max) (math3d's
+// smallest_root_in_range; linear fallback at a == 0).
+__device__ __forceinline__ float smallest_root(float a, float b, float c,
+                                               float t_min, float t_max) {
+  const float inf = CUDART_INF_F;
+  float disc = b * b - 4.0f * a * c;
+  float sq = sqrtf(fmax_sel(disc, 0.0f));
+  float sgn = b >= 0.0f ? 1.0f : -1.0f;
+  float q = -0.5f * (b + sgn * sq);
+  float safe_a = a == 0.0f ? 1.0f : a;
+  float safe_q = q == 0.0f ? 1.0f : q;
+  float ra = a == 0.0f ? inf : q / safe_a;
+  float rb = q == 0.0f ? -b / (2.0f * safe_a) : c / safe_q;
+  float r0 = fmin_sel(ra, rb);
+  float r1 = fmax_sel(ra, rb);
+  float safe_b = b == 0.0f ? 1.0f : b;
+  float lin = b == 0.0f ? inf : -c / safe_b;
+  bool quad_ok = (a != 0.0f) && (disc >= 0.0f);
+  r0 = a == 0.0f ? lin : (quad_ok ? r0 : inf);
+  r1 = a == 0.0f ? inf : (quad_ok ? r1 : inf);
+  bool ok0 = (r0 >= t_min) && (r0 < t_max);
+  bool ok1 = (r1 >= t_min) && (r1 < t_max);
+  return ok0 ? r0 : (ok1 ? r1 : inf);
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, t_min, t_max;
+  int src, srct;
+};
+
+struct Local {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+__device__ __forceinline__ float row(const Tables& tb, int r, int col) {
+  return __ldg(tb.pf + (size_t)r * tb.ncol + col);
+}
+
+__device__ __forceinline__ Local local_frame(const Tables& tb, int col, const Ray& ry) {
+  float m[12];
+#pragma unroll
+  for (int r = 0; r < 12; ++r) m[r] = row(tb, r, col);
+  Local l;
+  l.ox = m[0] * ry.ox + m[1] * ry.oy + m[2] * ry.oz + m[3];
+  l.oy = m[4] * ry.ox + m[5] * ry.oy + m[6] * ry.oz + m[7];
+  l.oz = m[8] * ry.ox + m[9] * ry.oy + m[10] * ry.oz + m[11];
+  l.dx = m[0] * ry.dx + m[1] * ry.dy + m[2] * ry.dz;
+  l.dy = m[4] * ry.dx + m[5] * ry.dy + m[6] * ry.dz;
+  l.dz = m[8] * ry.dx + m[9] * ry.dy + m[10] * ry.dz;
+  return l;
+}
+
+// Self-intersection raise of the t-range start, in the source node's local
+// units: max(t_min, self_eps / sqrt(max(|d_local|^2, 1e-30))).
+__device__ __forceinline__ float general_tmin(float ld2, bool is_src, float t_min,
+                                              float self_eps) {
+  if (!is_src) return t_min;
+  float t_self = self_eps * (1.0f / sqrtf(fmax_sel(ld2, 1e-30f)));
+  return fmax_sel(t_min, t_self);
+}
+
+// cube_g: the 6-face fold in cube.rs FACES order; containment skips the
+// solved axis (on the plane by construction).
+__device__ float cube_g(const Tables& tb, int col, const Ray& ry, bool is_src,
+                        float eps_r, float self_eps) {
+  Local l = local_frame(tb, col, ry);
+  float ld2 = l.dx * l.dx + l.dy * l.dy + l.dz * l.dz;
+  float t_min_e = general_tmin(ld2, is_src, ry.t_min, self_eps);
+  const float o3[3] = {l.ox, l.oy, l.oz};
+  const float d3[3] = {l.dx, l.dy, l.dz};
+  float best = CUDART_INF_F;
+#pragma unroll
+  for (int face = 0; face < 6; ++face) {
+    const int axis = face >> 1;
+    const float sign = (face & 1) ? -0.5f : 0.5f;
+    const float sg = (face & 1) ? -1.0f : 1.0f;
+    float t = guarded_div(-(o3[axis] - sign) * sg, d3[axis] * sg);
+    float p[3] = {l.ox + t * l.dx, l.oy + t * l.dy, l.oz + t * l.dz};
+    bool contains = true;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax)
+      if (ax != axis) contains = contains && (fabsf(p[ax]) <= eps_r);
+    bool ok = in_range(t, t_min_e, ry.t_max) && contains && (t < best);
+    best = ok ? t : best;
+  }
+  return best;
+}
+
+// cylinder_g: body quadratic (r = 0.5, |y| <= 0.5) and the two caps.
+__device__ float cylinder_g(const Tables& tb, int col, const Ray& ry, bool is_src,
+                            float self_eps) {
+  Local l = local_frame(tb, col, ry);
+  const float R2 = 0.25f;
+  float a = l.dx * l.dx + l.dz * l.dz;
+  float b = 2.0f * (l.ox * l.dx + l.oz * l.dz);
+  float c = l.ox * l.ox + l.oz * l.oz - R2;
+  float ld2 = a + l.dy * l.dy;
+  float t_min_e = general_tmin(ld2, is_src, ry.t_min, self_eps);
+  float t_body = smallest_root(a, b, c, t_min_e, ry.t_max);
+  float y = l.oy + t_body * l.dy;
+  float best = (!(y > 0.5f) && !(y < -0.5f)) ? t_body : CUDART_INF_F;
+#pragma unroll
+  for (int cap = 0; cap < 2; ++cap) {
+    const float h = cap == 0 ? 0.5f : -0.5f;
+    float t = guarded_div(h - l.oy, l.dy);
+    float px = l.ox + t * l.dx;
+    float pz = l.oz + t * l.dz;
+    bool ok = in_range(t, t_min_e, ry.t_max) && !(px * px + pz * pz > R2);
+    t = ok ? t : CUDART_INF_F;
+    best = t < best ? t : best;
+  }
+  return best;
+}
+
+// cone_g: body quadratic (apex at y = +0.5, r = 0.5 at y = -0.5) and the
+// base cap (cone.rs:28-187).
+__device__ float cone_g(const Tables& tb, int col, const Ray& ry, bool is_src,
+                        float self_eps) {
+  Local l = local_frame(tb, col, ry);
+  const float r2 = 0.25f;
+  float a = 4.0f * l.dy * l.dy * r2 - 4.0f * (l.dx * l.dx + l.dz * l.dz);
+  float b = -8.0f * (l.dx * l.ox + l.dz * l.oz)
+            - 1.0f * (l.dy * 1.0f - 2.0f * l.dy * l.oy);
+  float c = -4.0f * (l.ox * l.ox + l.oz * l.oz)
+            + r2 * (1.0f - 4.0f * l.oy + 4.0f * l.oy * l.oy);
+  float ld2 = l.dx * l.dx + l.dy * l.dy + l.dz * l.dz;
+  float t_min_e = general_tmin(ld2, is_src, ry.t_min, self_eps);
+  float t_body = smallest_root(a, b, c, t_min_e, ry.t_max);
+  float y = l.oy + t_body * l.dy;
+  t_body = (!(y > 0.5f) && !(y < -0.5f)) ? t_body : CUDART_INF_F;
+  float t_cap = guarded_div(-0.5f - l.oy, l.dy);
+  float px = l.ox + t_cap * l.dx;
+  float pz = l.oz + t_cap * l.dz;
+  bool okc = in_range(t_cap, t_min_e, ry.t_max) && !(px * px + pz * pz > r2);
+  t_cap = okc ? t_cap : CUDART_INF_F;
+  return t_cap < t_body ? t_cap : t_body;
+}
+
+// sphere_w: world sphere (center rows 0..2, r^2 row 3, scale row 4);
+// roots of t^2 + b t + c for unit directions.
+__device__ float sphere_w(const Tables& tb, int col, const Ray& ry, bool is_src,
+                          float self_eps) {
+  float ocx = ry.ox - row(tb, 0, col);
+  float ocy = ry.oy - row(tb, 1, col);
+  float ocz = ry.oz - row(tb, 2, col);
+  float b = 2.0f * (ocx * ry.dx + ocy * ry.dy + ocz * ry.dz);
+  float c = ocx * ocx + ocy * ocy + ocz * ocz - row(tb, 3, col);
+  float t_min_e = ry.t_min;
+  if (is_src) t_min_e = fmax_sel(ry.t_min, self_eps * row(tb, 4, col));
+  float disc = b * b - 4.0f * c;
+  float sq = sqrtf(fmax_sel(disc, 0.0f));
+  float sgn = b >= 0.0f ? 1.0f : -1.0f;
+  float q = -0.5f * (b + sgn * sq);
+  float safe_q = q == 0.0f ? 1.0f : q;
+  float cq = c / safe_q;
+  float r0 = fmin_sel(q, cq);
+  float r1 = fmax_sel(q, cq);
+  bool ok = disc >= 0.0f;
+  bool ok0 = ok && (r0 >= t_min_e) && (r0 < ry.t_max);
+  bool ok1 = ok && (r1 >= t_min_e) && (r1 < ry.t_max);
+  return ok0 ? r0 : (ok1 ? r1 : CUDART_INF_F);
+}
+
+// Conservative slab test of chunk ci's AABB (the TPU prologue's rule).
+__device__ __forceinline__ bool crosses(const Tables& tb, int ci, const Ray& ry,
+                                        const float rcp[3]) {
+  const float o3[3] = {ry.ox, ry.oy, ry.oz};
+  float ten = -CUDART_INF_F, tex = CUDART_INF_F;
+#pragma unroll
+  for (int axis = 0; axis < 3; ++axis) {
+    float ta = (__ldg(tb.cmin + ci * 3 + axis) - o3[axis]) * rcp[axis];
+    float tb_ = (__ldg(tb.cmax + ci * 3 + axis) - o3[axis]) * rcp[axis];
+    ten = fmax_sel(ten, fmin_sel(ta, tb_));
+    tex = fmin_sel(tex, fmax_sel(ta, tb_));
+  }
+  float te = ten - (1e-4f * fabsf(ten) + 1e-5f);
+  te = te > 0.0f ? te : 0.0f;
+  return (ten <= tex) && (tex >= ry.t_min) && (te <= ry.t_max);
+}
+
+__device__ __forceinline__ float safe_rcp(float dc) {
+  float tiny = dc < 0.0f ? -1e-30f : 1e-30f;
+  return 1.0f / (fabsf(dc) < 1e-30f ? tiny : dc);
+}
+
+// src_node/src_tri null: no ray has a source surface (all -1).
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(kThreads)
+sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
+             const float* __restrict__ t_min, const float* __restrict__ t_max,
+             const bool* __restrict__ active, const int* __restrict__ src_node,
+             const int* __restrict__ src_tri, Tables tb, int n_rays, float eps_r,
+             float self_eps, float* __restrict__ out_t, int* __restrict__ out_node,
+             int* __restrict__ out_tri, int* __restrict__ out_found) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  float best_t = CUDART_INF_F;
+  int best_node = -1, best_tri = -1;
+  if (active[i]) {
+    Ray ry;
+    ry.ox = o[3 * i]; ry.oy = o[3 * i + 1]; ry.oz = o[3 * i + 2];
+    ry.dx = d[3 * i]; ry.dy = d[3 * i + 1]; ry.dz = d[3 * i + 2];
+    ry.t_min = t_min[i];
+    ry.t_max = t_max[i];
+    ry.src = src_node != nullptr ? src_node[i] : -1;
+    ry.srct = src_tri != nullptr ? src_tri[i] : -1;
+    const float rcp[3] = {safe_rcp(ry.dx), safe_rcp(ry.dy), safe_rcp(ry.dz)};
+    for (int ci = 0; ci < tb.n_chunks; ++ci) {
+      if (!crosses(tb, ci, ry, rcp)) continue;
+      const int kind = __ldg(tb.chunk_kind + ci);
+      for (int lane = 0; lane < kChunk; ++lane) {
+        const int col = ci * kChunk + lane;
+        const int node = __ldg(tb.pid + col);
+        if (node < 0) continue;
+        const int tri = __ldg(tb.pid + tb.ncol + col);
+        const bool is_src = node == ry.src && tri == ry.srct;
+        float t;
+        switch (kind) {
+          case kSphereW: t = sphere_w(tb, col, ry, is_src, self_eps); break;
+          case kCubeG: t = cube_g(tb, col, ry, is_src, eps_r, self_eps); break;
+          case kCylinderG: t = cylinder_g(tb, col, ry, is_src, self_eps); break;
+          case kConeG: t = cone_g(tb, col, ry, is_src, self_eps); break;
+          default: t = CUDART_INF_F; break;  // refused at table build
+        }
+        if (ANY_HIT) {
+          if (t < CUDART_INF_F) {
+            out_found[i] = 1;
+            return;
+          }
+        } else if (t < best_t) {
+          best_t = t;
+          best_node = node;
+          best_tri = tri;
+        }
+      }
+    }
+  }
+  if (ANY_HIT) {
+    out_found[i] = 0;
+  } else {
+    out_t[i] = best_t;
+    out_node[i] = best_node;
+    out_tri[i] = best_tri;
+  }
+}
+
+template <bool ANY_HIT>
+int launch(const float* o, const float* d, const float* t_min, const float* t_max,
+           const bool* active, const int* src_node, const int* src_tri, const float* pf,
+           const int* pid, const int* chunk_kind, const float* cmin, const float* cmax,
+           int n_rays, int n_chunks, int ncol, float eps_r, float self_eps, float* out_t,
+           int* out_node, int* out_tri, int* out_found, void* stream) {
+  if (n_rays <= 0) return 0;
+  Tables tb{pf, pid, chunk_kind, cmin, cmax, n_chunks, ncol};
+  dim3 grid((n_rays + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sweep_kernel<ANY_HIT><<<grid, kThreads, 0, s>>>(
+      o, d, t_min, t_max, active, src_node, src_tri, tb, n_rays, eps_r, self_eps, out_t,
+      out_node, out_tri, out_found);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  Each returns cudaGetLastError()
+// after the launch; src_node/src_tri may be null (no self-intersection raise).
+extern "C" int sweep_nearest(const float* o, const float* d, const float* t_min,
+                             const float* t_max, const bool* active, const int* src_node,
+                             const int* src_tri, const float* pf, const int* pid,
+                             const int* chunk_kind, const float* cmin, const float* cmax,
+                             int n_rays, int n_chunks, int ncol, float eps_r,
+                             float self_eps, float* out_t, int* out_node, int* out_tri,
+                             void* stream) {
+  return launch<false>(o, d, t_min, t_max, active, src_node, src_tri, pf, pid, chunk_kind,
+                       cmin, cmax, n_rays, n_chunks, ncol, eps_r, self_eps, out_t,
+                       out_node, out_tri, nullptr, stream);
+}
+
+extern "C" int sweep_any_hit(const float* o, const float* d, const float* t_min,
+                             const float* t_max, const bool* active, const int* src_node,
+                             const int* src_tri, const float* pf, const int* pid,
+                             const int* chunk_kind, const float* cmin, const float* cmax,
+                             int n_rays, int n_chunks, int ncol, float eps_r,
+                             float self_eps, int* out_found, void* stream) {
+  return launch<true>(o, d, t_min, t_max, active, src_node, src_tri, pf, pid, chunk_kind,
+                      cmin, cmax, n_rays, n_chunks, ncol, eps_r, self_eps, nullptr,
+                      nullptr, nullptr, out_found, stream);
+}

@@ -1,0 +1,353 @@
+"""The packed-chunk sweep: hand-written CUDA kernel and its plain version
+(counterpart of ``portrayer_tpu/ops/pallas_intersect.py``).
+
+``intersect_scene_cuda`` has the contract of ``intersect_scene_pallas``:
+nearest (t, node, tri) per ray over ``st.packed`` or, with ``any_hit``,
+only whether an in-range hit exists.  On CUDA tensors it launches
+``csrc/sweep.cu`` (built at first use) or raises; on CPU tensors it runs
+``intersect_scene_sweep_ref``, the same computation in PyTorch ops: the
+same per-ray chunk cull, the same branch formulas in the same op order,
+and the same fold, in which ties go to the earlier (chunk, lane).
+Unlike the TPU kernel's 2^-16 quantised key, t is exact f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..scene.flatten import (
+    SceneTables, PACK_CHUNK, CUBE, CYLINDER, CONE, PACKED_SPHERE_W,
+)
+from .intersect import Hit
+
+INF = math.inf
+
+# Kernel launches per mode, and plain-version calls on CUDA tensors.  A
+# caller zeroes them (reset_counts) before a run and reads them after it.
+COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0}
+
+
+def reset_counts():
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, so kernel and plain version see one value."""
+    return float(np.float32(x))
+
+
+def _rays(o, t_min, t_max, active):
+    R = o.shape[0]
+    full = lambda x: torch.as_tensor(x, dtype=torch.float32, device=o.device).expand(R)
+    if active is None:
+        active = torch.ones(R, dtype=torch.bool, device=o.device)
+    return full(t_min), full(t_max), active
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def _smallest_root(a, b, c, t_min, t_max):
+    """Smallest root of a t^2 + b t + c in [t_min, t_max) (sweep.cu)."""
+    disc = b * b - 4.0 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sgn = torch.where(b >= 0.0, 1.0, -1.0)
+    q = -0.5 * (b + sgn * sq)
+    safe_a = torch.where(a == 0.0, 1.0, a)
+    safe_q = torch.where(q == 0.0, 1.0, q)
+    ra = torch.where(a == 0.0, INF, q / safe_a)
+    rb = torch.where(q == 0.0, -b / (2.0 * safe_a), c / safe_q)
+    r0 = torch.minimum(ra, rb)
+    r1 = torch.maximum(ra, rb)
+    safe_b = torch.where(b == 0.0, 1.0, b)
+    lin = torch.where(b == 0.0, INF, -c / safe_b)
+    quad_ok = (a != 0.0) & (disc >= 0.0)
+    r0 = torch.where(a == 0.0, lin, torch.where(quad_ok, r0, INF))
+    r1 = torch.where(a == 0.0, INF, torch.where(quad_ok, r1, INF))
+    ok0 = (r0 >= t_min) & (r0 < t_max)
+    ok1 = (r1 >= t_min) & (r1 < t_max)
+    return torch.where(ok0, r0, torch.where(ok1, r1, INF))
+
+
+def _gd(n, d):
+    return torch.where(d != 0.0, n / d, INF)
+
+
+def _in_range(t, t_min, t_max):
+    return (t >= t_min) & (t < t_max)
+
+
+class _Chunk:
+    """One chunk's columns ([1,128] rows) against a subset of rays ([k,1])."""
+
+    def __init__(self, pf_cols, node, ray, is_src, eps_r, self_eps):
+        self.m = pf_cols
+        self.node = node
+        self.ox, self.oy, self.oz, self.dx, self.dy, self.dz, self.t_min, self.t_max = ray
+        self.is_src = is_src
+        self.eps_r = eps_r
+        self.self_eps = self_eps
+
+    def row(self, r):
+        return self.m[r:r + 1]
+
+    def local_frame(self):
+        m = [self.row(r) for r in range(12)]
+        ox, oy, oz, dx, dy, dz = self.ox, self.oy, self.oz, self.dx, self.dy, self.dz
+        return (m[0] * ox + m[1] * oy + m[2] * oz + m[3],
+                m[4] * ox + m[5] * oy + m[6] * oz + m[7],
+                m[8] * ox + m[9] * oy + m[10] * oz + m[11],
+                m[0] * dx + m[1] * dy + m[2] * dz,
+                m[4] * dx + m[5] * dy + m[6] * dz,
+                m[8] * dx + m[9] * dy + m[10] * dz)
+
+    def general_tmin(self, ld2):
+        t_self = self.self_eps * (1.0 / torch.sqrt(torch.clamp(ld2, min=1e-30)))
+        return torch.where(self.is_src, torch.maximum(self.t_min, t_self), self.t_min)
+
+    def cube_g(self):
+        lox, loy, loz, ldx, ldy, ldz = self.local_frame()
+        ld2 = ldx * ldx + ldy * ldy + ldz * ldz
+        t_min_e = self.general_tmin(ld2)
+        o3, d3 = (lox, loy, loz), (ldx, ldy, ldz)
+        best = None
+        for axis, sign in ((0, 0.5), (0, -0.5), (1, 0.5), (1, -0.5), (2, 0.5), (2, -0.5)):
+            sg = 1.0 if sign > 0 else -1.0
+            t = _gd(-(o3[axis] - sign) * sg, d3[axis] * sg)
+            p = (lox + t * ldx, loy + t * ldy, loz + t * ldz)
+            contains = None
+            for ax in range(3):
+                if ax != axis:
+                    c = torch.abs(p[ax]) <= self.eps_r
+                    contains = c if contains is None else contains & c
+            ok = _in_range(t, t_min_e, self.t_max) & contains
+            if best is None:
+                best = torch.where(ok, t, INF)
+            else:
+                best = torch.where(ok & (t < best), t, best)
+        return best
+
+    def cylinder_g(self):
+        lox, loy, loz, ldx, ldy, ldz = self.local_frame()
+        R2 = 0.25
+        a = ldx * ldx + ldz * ldz
+        b = 2.0 * (lox * ldx + loz * ldz)
+        c = lox * lox + loz * loz - R2
+        ld2 = a + ldy * ldy
+        t_min_e = self.general_tmin(ld2)
+        t_body = _smallest_root(a, b, c, t_min_e, self.t_max)
+        y = loy + t_body * ldy
+        best = torch.where(~(y > 0.5) & ~(y < -0.5), t_body, INF)
+        for h in (0.5, -0.5):
+            t = _gd(h - loy, ldy)
+            px = lox + t * ldx
+            pz = loz + t * ldz
+            ok = _in_range(t, t_min_e, self.t_max) & ~(px * px + pz * pz > R2)
+            t = torch.where(ok, t, INF)
+            best = torch.where(t < best, t, best)
+        return best
+
+    def cone_g(self):
+        lox, loy, loz, ldx, ldy, ldz = self.local_frame()
+        r2 = 0.25
+        a = 4.0 * ldy * ldy * r2 - 4.0 * (ldx * ldx + ldz * ldz)
+        b = -8.0 * (ldx * lox + ldz * loz) - 1.0 * (ldy * 1.0 - 2.0 * ldy * loy)
+        c = -4.0 * (lox * lox + loz * loz) + r2 * (1.0 - 4.0 * loy + 4.0 * loy * loy)
+        ld2 = ldx * ldx + ldy * ldy + ldz * ldz
+        t_min_e = self.general_tmin(ld2)
+        t_body = _smallest_root(a, b, c, t_min_e, self.t_max)
+        y = loy + t_body * ldy
+        t_body = torch.where(~(y > 0.5) & ~(y < -0.5), t_body, INF)
+        t_cap = _gd(-0.5 - loy, ldy)
+        px = lox + t_cap * ldx
+        pz = loz + t_cap * ldz
+        okc = _in_range(t_cap, t_min_e, self.t_max) & ~(px * px + pz * pz > r2)
+        t_cap = torch.where(okc, t_cap, INF)
+        return torch.where(t_cap < t_body, t_cap, t_body)
+
+    def sphere_w(self):
+        ocx = self.ox - self.row(0)
+        ocy = self.oy - self.row(1)
+        ocz = self.oz - self.row(2)
+        b = 2.0 * (ocx * self.dx + ocy * self.dy + ocz * self.dz)
+        c = ocx * ocx + ocy * ocy + ocz * ocz - self.row(3)
+        t_min_e = torch.where(
+            self.is_src, torch.maximum(self.t_min, self.self_eps * self.row(4)), self.t_min)
+        disc = b * b - 4.0 * c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        sgn = torch.where(b >= 0.0, 1.0, -1.0)
+        q = -0.5 * (b + sgn * sq)
+        safe_q = torch.where(q == 0.0, 1.0, q)
+        cq = c / safe_q
+        r0 = torch.minimum(q, cq)
+        r1 = torch.maximum(q, cq)
+        ok = disc >= 0.0
+        ok0 = ok & (r0 >= t_min_e) & (r0 < self.t_max)
+        ok1 = ok & (r1 >= t_min_e) & (r1 < self.t_max)
+        return torch.where(ok0, r0, torch.where(ok1, r1, INF))
+
+
+_BRANCHES = {
+    PACKED_SPHERE_W: _Chunk.sphere_w,
+    CUBE: _Chunk.cube_g,
+    CYLINDER: _Chunk.cylinder_g,
+    CONE: _Chunk.cone_g,
+}
+
+
+def _cull(o, d, t_min, t_max, active, pk):
+    """[R, Nc] bool: rays whose slab test crosses each chunk's AABB, with
+    the TPU prologue's conservative rule (1e-30 reciprocal guard, slack
+    1e-4|t_enter| + 1e-5)."""
+    tiny = torch.where(d < 0.0, -1e-30, 1e-30)
+    rcp = 1.0 / torch.where(torch.abs(d) < 1e-30, tiny, d)
+    ten = torch.full((o.shape[0], pk.n_chunks), -INF, dtype=o.dtype, device=o.device)
+    tex = torch.full_like(ten, INF)
+    for axis in range(3):
+        ta = (pk.chunk_min[None, :, axis] - o[:, None, axis]) * rcp[:, None, axis]
+        tb = (pk.chunk_max[None, :, axis] - o[:, None, axis]) * rcp[:, None, axis]
+        ten = torch.maximum(ten, torch.minimum(ta, tb))
+        tex = torch.minimum(tex, torch.maximum(ta, tb))
+    te = ten - (1e-4 * torch.abs(ten) + 1e-5)
+    te = torch.where(te > 0.0, te, 0.0)
+    return ((ten <= tex) & (tex >= t_min[:, None]) & (te <= t_max[:, None])
+            & active[:, None])
+
+
+def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
+                              active=None, src_node=None, src_tri=None,
+                              any_hit=False) -> Hit:
+    """Plain PyTorch version of the sweep kernel (same contract)."""
+    if o.device.type == "cuda":
+        COUNTS["plain_on_cuda"] += 1
+    pk = st.packed
+    R = o.shape[0]
+    dev = o.device
+    t_min, t_max, active = _rays(o, t_min, t_max, active)
+    # Without a source surface (or with the raise off) every ray's is -1,
+    # which no node id matches.
+    if src_node is None or cfg.self_eps_local <= 0.0:
+        src_node = src_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    elif src_tri is None:
+        src_tri = torch.full_like(src_node, -1)
+    eps_r = _f32(0.5 + cfg.epsilon)
+    self_eps = _f32(cfg.self_eps_local)
+    cross = _cull(o, d, t_min, t_max, active, pk)
+    kinds = [k for k, _, n in pk.kind_ranges for _ in range(n)]
+
+    best_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
+    best_node = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    found = torch.zeros(R, dtype=torch.bool, device=dev)
+    for ci, kind in enumerate(kinds):
+        sel = cross[:, ci]
+        if any_hit:
+            sel = sel & ~found
+        idx = torch.nonzero(sel).squeeze(1)
+        if idx.numel() == 0:
+            continue
+        cols = slice(ci * PACK_CHUNK, (ci + 1) * PACK_CHUNK)
+        node = pk.ids[0, cols][None, :]
+        tri = pk.ids[1, cols][None, :]
+        ray = tuple(x[idx, None] for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                                           d[:, 2], t_min, t_max))
+        is_src = (node == src_node[idx, None]) & (tri == src_tri[idx, None])
+        chunk = _Chunk(pk.f32[:, cols], node, ray, is_src, eps_r, self_eps)
+        t = torch.where(node >= 0, _BRANCHES[kind](chunk), INF)
+        if any_hit:
+            found[idx] = (t < INF).any(dim=1)
+            continue
+        tj, j = torch.min(t, dim=1)
+        better = tj < best_t[idx]
+        best_t[idx] = torch.where(better, tj, best_t[idx])
+        best_node[idx] = torch.where(better, node[0, j], best_node[idx])
+        best_tri[idx] = torch.where(better, tri[0, j], best_tri[idx])
+
+    if any_hit:
+        return _any_hit_result(found & active)
+    hit = torch.isfinite(best_t) & active
+    neg = torch.full_like(best_node, -1)
+    return Hit(t=best_t, node=torch.where(hit, best_node, neg),
+               tri=torch.where(hit, best_tri, neg), hit=hit)
+
+
+def _any_hit_result(hit):
+    neg = torch.full(hit.shape, -1, dtype=torch.int32, device=hit.device)
+    return Hit(t=torch.where(hit, 0.0, INF), node=neg, tri=neg, hit=hit)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _check(name, x, dtype, shape):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_cuda:
+        raise ValueError(f"{name}: expected CUDA {dtype} {tuple(shape)}, got "
+                         f"{x.device} {x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
+                         active=None, src_node=None, src_tri=None,
+                         any_hit=False) -> Hit:
+    """Nearest hit (or, with any_hit, occlusion) through the sweep kernel.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  Only `.hit` is meaningful in any-hit mode."""
+    if o.device.type == "cpu":
+        return intersect_scene_sweep_ref(o, d, t_min, t_max, st, cfg, active=active,
+                                         src_node=src_node, src_tri=src_tri,
+                                         any_hit=any_hit)
+    from .. import _build
+
+    lib = _build.load()
+    R = o.shape[0]
+    pk = st.packed
+    t_min, t_max, active = _rays(o, t_min, t_max, active)
+    o = _check("o", o, torch.float32, (R, 3))
+    d = _check("d", d, torch.float32, (R, 3))
+    t_min = _check("t_min", t_min, torch.float32, (R,))
+    t_max = _check("t_max", t_max, torch.float32, (R,))
+    active = _check("active", active, torch.bool, (R,))
+    ncol = pk.n_chunks * PACK_CHUNK
+    pf = _check("packed.f32", pk.f32, torch.float32, (21, ncol))
+    pid = _check("packed.ids", pk.ids, torch.int32, (2, ncol))
+    kinds = _check("packed.chunk_kind", pk.chunk_kind, torch.int32, (pk.n_chunks,))
+    cmin = _check("packed.chunk_min", pk.chunk_min, torch.float32, (pk.n_chunks, 3))
+    cmax = _check("packed.chunk_max", pk.chunk_max, torch.float32, (pk.n_chunks, 3))
+    src_ptr = srct_ptr = None
+    if src_node is not None and cfg.self_eps_local > 0.0:
+        src_node = _check("src_node", src_node, torch.int32, (R,))
+        if src_tri is None:
+            src_tri = torch.full_like(src_node, -1)
+        src_tri = _check("src_tri", src_tri, torch.int32, (R,))
+        src_ptr, srct_ptr = src_node.data_ptr(), src_tri.data_ptr()
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    args = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            active.data_ptr(), src_ptr, srct_ptr, pf.data_ptr(), pid.data_ptr(),
+            kinds.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), R, pk.n_chunks, ncol,
+            _f32(0.5 + cfg.epsilon), _f32(cfg.self_eps_local))
+    if any_hit:
+        found = torch.empty(R, dtype=torch.int32, device=o.device)
+        rc = lib.sweep_any_hit(*args, found.data_ptr(), stream)
+        mode = "any_hit"
+    else:
+        t = torch.empty(R, dtype=torch.float32, device=o.device)
+        node = torch.empty(R, dtype=torch.int32, device=o.device)
+        tri = torch.empty(R, dtype=torch.int32, device=o.device)
+        rc = lib.sweep_nearest(*args, t.data_ptr(), node.data_ptr(), tri.data_ptr(), stream)
+        mode = "nearest"
+    if rc != 0:
+        raise RuntimeError(f"sweep kernel ({mode}) launch failed: CUDA error {rc}")
+    if R:
+        COUNTS[mode] += 1
+    if any_hit:
+        return _any_hit_result((found != 0) & active)
+    hit = torch.isfinite(t) & active
+    return Hit(t=t, node=node, tri=tri, hit=hit)

@@ -1,0 +1,509 @@
+"""Scene intersection: the plain oracle and the sweep dispatch
+(counterpart of ``portrayer_tpu/ops/intersect.py``).
+
+Rays are SoA batches [R,3].  The flat sweep walks each primitive group in
+node chunks, computes every (ray, node) candidate in the node's local frame
+and folds the nearest hit; ``hit_detail`` then recomputes the winner's t,
+normal, uv and tangent frame from the tables.  Selection follows the
+reference: half-open range t_min <= t < t_max, the smallest quadratic root
+in range with cap checks and no second-root fallback, strict-< folds over
+cube faces (cube.rs:70-82) and over cylinder/cone parts.
+
+``accel="cuda"`` sends nearest and any-hit queries to the sweep in
+``cuda_intersect`` (its kernel on CUDA tensors, its plain version on CPU
+tensors); ``accel="flat"`` keeps them here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import math3d as m3
+from ..config import RenderConfig
+from ..scene.flatten import (
+    SceneTables, SPHERE, CUBE, CYLINDER, CONE, KIND_NAMES, REC_KIND,
+)
+
+INF = math.inf
+
+# Nodes per step of the flat (oracle) sweep: bounds its [R, chunk] temps.
+# The result does not depend on it (first minimum within a step, strict <
+# across steps).
+NODE_CHUNK = 512
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor       # [R] hit parameter (inf when no hit)
+    node: torch.Tensor    # [R] int32 node id (-1 when no hit)
+    tri: torch.Tensor     # [R] int32 triangle id (-1 for analytic prims)
+    hit: torch.Tensor     # [R] bool
+
+
+class HitDetail(NamedTuple):
+    point: torch.Tensor    # [R,3] world hit point
+    normal: torch.Tensor   # [R,3] world normal (not normalized, ray.rs:19-22)
+    uv: torch.Tensor       # [R,2]
+    has_uv: torch.Tensor   # [R] bool
+    nmt: torch.Tensor      # [R,3,3] normal-map transform (primitive-local)
+    has_nmt: torch.Tensor  # [R] bool
+    material: torch.Tensor  # [R] int32
+    rec: torch.Tensor      # [R,34] the hit node's fused record
+    margin: torch.Tensor   # [R] silhouette margin (inf: soft visibility is
+    #                        a later slice)
+
+
+def _guarded_div(n, d):
+    """n / d where d != 0, else +inf."""
+    ok = d != 0.0
+    return torch.where(ok, n / torch.where(ok, d, torch.ones_like(d)),
+                       torch.full_like(n, INF))
+
+
+def _finite(t):
+    """inf/nan -> 0 before point arithmetic (validity tests already reject
+    such t, so the forward result is unchanged)."""
+    return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+
+
+def _in_range(t, t_min, t_max):
+    return (t >= t_min) & (t < t_max)
+
+
+def _quadratic_roots(a, b, c):
+    """(r0, r1), r0 <= r1, +inf where invalid; exact a == 0 falls back to
+    the linear equation (the roots crate, src/math.rs:107-114)."""
+    disc = b * b - 4.0 * a * c
+    sq = m3.safe_sqrt(disc)
+    sgn = torch.where(b >= 0.0, 1.0, -1.0)
+    q = -0.5 * (b + sgn * sq)
+    one = torch.ones_like(a)
+    inf = torch.full_like(a, INF)
+    safe_a = torch.where(a == 0.0, one, a)
+    safe_q = torch.where(q == 0.0, one, q)
+    ra = torch.where(a == 0.0, inf, q / safe_a)
+    rb = torch.where(q == 0.0, -b / (2.0 * safe_a), c / safe_q)
+    r0 = torch.minimum(ra, rb)
+    r1 = torch.maximum(ra, rb)
+    safe_b = torch.where(b == 0.0, one, b)
+    lin = torch.where(b == 0.0, inf, -c / safe_b)
+    quad_ok = (a != 0.0) & (disc >= 0.0)
+    r0 = torch.where(a == 0.0, lin, torch.where(quad_ok, r0, inf))
+    r1 = torch.where(a == 0.0, inf, torch.where(quad_ok, r1, inf))
+    return r0, r1
+
+
+def smallest_root_in_range(a, b, c, t_min, t_max):
+    """Smallest root with t_min <= t < t_max (src/math.rs:94-96): (t, ok)."""
+    r0, r1 = _quadratic_roots(a, b, c)
+    ok0 = (r0 >= t_min) & (r0 < t_max)
+    ok1 = (r1 >= t_min) & (r1 < t_max)
+    t = torch.where(ok0, r0, torch.where(ok1, r1, torch.full_like(r1, INF)))
+    return t, ok0 | ok1
+
+
+# ---------------------------------------------------------------------------
+# Candidate-t functions.  o, d: [..., 3] local rays; t_min/t_max
+# broadcastable.  Return t [...] with inf where invalid.
+# ---------------------------------------------------------------------------
+
+def sphere_candidate(o, d, t_min, t_max, eps):
+    a = m3.dot(d, d)
+    b = 2.0 * m3.dot(o, d)
+    c = m3.dot(o, o) - 1.0
+    t, ok = smallest_root_in_range(a, b, c, t_min, t_max)
+    return torch.where(ok, t, INF)
+
+
+# Cube faces (axis, point) in the FACES order of cube.rs:46-65
+# (right, left, top, bottom, near, far).
+_CUBE_FACES = ((0, +0.5), (0, -0.5), (1, +0.5), (1, -0.5), (2, +0.5), (2, -0.5))
+
+
+def _cube_face_fold(o, d, t_min, t_max, eps):
+    """(best_t, best_face) over the 6 faces, strictly-smaller wins.  The
+    containment test skips the solved axis (on the plane by construction;
+    checking it in f32 rejects hits on thin-scaled cubes)."""
+    r = 0.5 + eps
+    best_t = torch.full(o.shape[:-1], INF, dtype=o.dtype, device=o.device)
+    best_face = torch.full(o.shape[:-1], -1, dtype=torch.int32, device=o.device)
+    for fi, (axis, sign) in enumerate(_CUBE_FACES):
+        sg = 1.0 if sign > 0 else -1.0
+        t = _guarded_div(-(o[..., axis] - sign) * sg, d[..., axis] * sg)
+        p = o + _finite(t)[..., None] * d
+        contains = torch.ones_like(t, dtype=torch.bool)
+        for ax in range(3):
+            if ax != axis:
+                contains = contains & (torch.abs(p[..., ax]) <= r)
+        ok = _in_range(t, t_min, t_max) & contains & (t < best_t)
+        best_face = torch.where(ok, fi, best_face)
+        best_t = torch.where(ok, t, best_t)
+    return best_t, best_face
+
+
+def cube_candidate(o, d, t_min, t_max, eps):
+    return _cube_face_fold(o, d, t_min, t_max, eps)[0]
+
+
+def _cyl_parts(o, d, t_min, t_max):
+    """Cylinder candidates (body, top cap, bottom cap); r=0.5, h=1."""
+    R2 = 0.25
+    a = d[..., 0] ** 2 + d[..., 2] ** 2
+    b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 2] * d[..., 2])
+    c = o[..., 0] ** 2 + o[..., 2] ** 2 - R2
+    t_body, ok = smallest_root_in_range(a, b, c, t_min, t_max)
+    y = o[..., 1] + _finite(t_body) * d[..., 1]
+    ok = ok & ~(y > 0.5) & ~(y < -0.5)
+    t_body = torch.where(ok, t_body, INF)
+
+    def cap(h):
+        t = _guarded_div(h - o[..., 1], d[..., 1])
+        tc = _finite(t)
+        px = o[..., 0] + tc * d[..., 0]
+        pz = o[..., 2] + tc * d[..., 2]
+        okc = _in_range(t, t_min, t_max) & ~(px * px + pz * pz > R2)
+        return torch.where(okc, t, INF)
+
+    return t_body, cap(0.5), cap(-0.5)
+
+
+def cylinder_candidate(o, d, t_min, t_max, eps):
+    t_body, t_top, t_bot = _cyl_parts(o, d, t_min, t_max)
+    t = t_body
+    t = torch.where(t_top < t, t_top, t)
+    t = torch.where(t_bot < t, t_bot, t)
+    return t
+
+
+def _cone_parts(o, d, t_min, t_max):
+    """Cone candidates (body, bottom cap); r=0.5, h=1, apex at y=+0.5."""
+    H = 1.0
+    h2 = H * H
+    r2 = 0.25
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    a = 4.0 * dy * dy * r2 - 4.0 * h2 * (dx * dx + dz * dz)
+    b = -8.0 * h2 * (dx * ox + dz * oz) - 4.0 * r2 * (dy * H - 2.0 * dy * oy)
+    c = -4.0 * h2 * (ox * ox + oz * oz) + r2 * (h2 - 4.0 * H * oy + 4.0 * oy * oy)
+    t_body, ok = smallest_root_in_range(a, b, c, t_min, t_max)
+    y = oy + _finite(t_body) * dy
+    ok = ok & ~(y > 0.5) & ~(y < -0.5)
+    t_body = torch.where(ok, t_body, INF)
+
+    t_cap = _guarded_div(-0.5 - oy, dy)
+    tcc = _finite(t_cap)
+    px = ox + tcc * dx
+    pz = oz + tcc * dz
+    okc = _in_range(t_cap, t_min, t_max) & ~(px * px + pz * pz > r2)
+    t_cap = torch.where(okc, t_cap, INF)
+    return t_body, t_cap
+
+
+def cone_candidate(o, d, t_min, t_max, eps):
+    t_body, t_cap = _cone_parts(o, d, t_min, t_max)
+    return torch.where(t_cap < t_body, t_cap, t_body)
+
+
+_ANALYTIC_CANDIDATES = {
+    SPHERE: sphere_candidate,
+    CUBE: cube_candidate,
+    CYLINDER: cylinder_candidate,
+    CONE: cone_candidate,
+}
+
+
+def _candidate_fn(kind):
+    fn = _ANALYTIC_CANDIDATES.get(kind)
+    if fn is None:
+        raise NotImplementedError(
+            f"{KIND_NAMES[kind]} intersection: later slice of the port")
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Flat sweep
+# ---------------------------------------------------------------------------
+
+def _local_rays(inv34, o, d):
+    """Rays [R,3] into the local frames of nodes [C,3,4] -> [R,C,3]."""
+    m = inv34[None]                                    # [1,C,3,4]
+    oo = o[:, None, None, :]
+    dd = d[:, None, None, :]
+    ld = m[..., 0] * dd[..., 0] + m[..., 1] * dd[..., 1] + m[..., 2] * dd[..., 2]
+    lo = m[..., 0] * oo[..., 0] + m[..., 1] * oo[..., 1] + m[..., 2] * oo[..., 2] + m[..., 3]
+    return lo, ld
+
+
+def _as_rays(x, R, like):
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(R)
+
+
+def _flat_intersect(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
+                    active=None, src_node=None):
+    R = o.shape[0]
+    dev = o.device
+    t_min = _as_rays(t_min, R, o)
+    t_max = _as_rays(t_max, R, o)
+    best_t = torch.full((R,), INF, dtype=o.dtype, device=dev)
+    best_node = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    eps = cfg.epsilon
+    use_src = src_node is not None and cfg.self_eps_local > 0.0
+
+    for kind, start, count in st.groups:
+        cand_fn = _candidate_fn(kind)
+        for c0 in range(start, start + count, NODE_CHUNK):
+            c1 = min(c0 + NODE_CHUNK, start + count)
+            ids = torch.arange(c0, c1, dtype=torch.int32, device=dev)
+            lo, ld = _local_rays(st.inv[c0:c1], o, d)
+            tmin = t_min[:, None]
+            if use_src:
+                is_src = ids[None, :] == src_node[:, None]
+                d_norm = m3.norm(ld, eps=1e-20)
+                t_self = cfg.self_eps_local / torch.clamp(d_norm, min=1e-30)
+                tmin = torch.where(is_src, torch.maximum(tmin, t_self), tmin)
+            t = cand_fn(lo, ld, tmin, t_max[:, None], eps)
+            tj, j = torch.min(t, dim=1)
+            better = tj < best_t
+            best_node = torch.where(better, ids[j], best_node)
+            best_t = torch.where(better, tj, best_t)
+
+    hit = torch.isfinite(best_t)
+    if active is not None:
+        hit = hit & active
+    neg = torch.full_like(best_node, -1)
+    return Hit(t=best_t, node=torch.where(hit, best_node, neg), tri=neg.clone(), hit=hit)
+
+
+def intersect_scene(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
+                    active=None, src_node=None, src_tri=None) -> Hit:
+    """Nearest hit for world rays [R,3].  t_min/t_max: [R] or scalar;
+    `active` [R] bool masks rays out; src_node/src_tri [R] int32 name the
+    surface each ray left, whose t-range start is raised to
+    ``self_eps_local / |d_local|`` in that node's local units."""
+    if cfg.accel == "cuda":
+        from .cuda_intersect import intersect_scene_cuda
+
+        return intersect_scene_cuda(o, d, t_min, t_max, st, cfg, active=active,
+                                    src_node=src_node, src_tri=src_tri)
+    return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node)
+
+
+def occluded(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
+             active=None, src_node=None, src_tri=None):
+    """Any-hit query for shadow rays.  The reference casts the full query
+    with an unbounded range (material.rs:174-179): objects beyond the light
+    occlude too, which is preserved."""
+    if cfg.accel == "cuda":
+        from .cuda_intersect import intersect_scene_cuda
+
+        return intersect_scene_cuda(o, d, t_min, t_max, st, cfg, active=active,
+                                    src_node=src_node, src_tri=src_tri,
+                                    any_hit=True).hit
+    return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node).hit
+
+
+# ---------------------------------------------------------------------------
+# Hit detail — recompute t, normal, uv and tangent frame for the winners.
+# ---------------------------------------------------------------------------
+
+def _vec(v, like):
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _sphere_detail(p, eps):
+    """p: [R,3] local hit point on the unit sphere."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    u = (math.pi + torch.atan2(-z, x)) / (2.0 * math.pi)
+    v = torch.acos(torch.clamp(y, -1.0, 1.0)) / math.pi
+    uv = torch.stack([u, v], dim=-1)
+    normal = p
+    # tangent basis (sphere.rs:72-96): to_top = normalize((0,1,0) - p)
+    to_top = m3.normalize(torch.stack([-x, 1.0 - y, -z], dim=-1), eps=1e-30)
+    degenerate = (torch.abs(to_top[..., 0]) < eps) & (torch.abs(to_top[..., 2]) < eps)
+    h_tan = m3.cross(to_top, normal)
+    v_tan = m3.cross(normal, h_tan)
+    pole_col2 = torch.where((y > 0.0)[..., None], _vec([0.0, 0.0, 1.0], p),
+                            _vec([0.0, 0.0, -1.0], p))
+    right = _vec([1.0, 0.0, 0.0], p).expand_as(p)
+    col0 = torch.where(degenerate[..., None], right, h_tan)
+    col2 = torch.where(degenerate[..., None], pole_col2, v_tan)
+    nmt = torch.stack([col0, normal, col2], dim=-1)
+    ones = torch.ones(p.shape[:-1], dtype=torch.bool, device=p.device)
+    return normal, uv, ones, nmt, ones
+
+
+# Cube face uv data (cube.rs FACES): (axis, sign, uv_axis(u,v), uv_offset(u,v))
+_CUBE_FACE_UV = (
+    (0, +0.5, (-1.0, 1.0), (1.0 / 2.0, 1.0 / 3.0)),   # right
+    (0, -0.5, (1.0, 1.0), (0.0, 1.0 / 3.0)),          # left
+    (1, +0.5, (1.0, -1.0), (1.0 / 4.0, 0.0)),         # top
+    (1, -0.5, (1.0, 1.0), (1.0 / 4.0, 2.0 / 3.0)),    # bottom
+    (2, +0.5, (1.0, 1.0), (1.0 / 4.0, 1.0 / 3.0)),    # near
+    (2, -0.5, (-1.0, 1.0), (3.0 / 4.0, 1.0 / 3.0)),   # far
+)
+
+
+def _cube_detail(o, d, t_min, t_max, p, eps):
+    _, face = _cube_face_fold(o, d, t_min, t_max, eps)
+    face = torch.clamp(face, min=0)
+    n = torch.zeros_like(p)
+    u = torch.zeros_like(p[..., 0])
+    v = torch.zeros_like(p[..., 0])
+    for fi, (axis, sign, uvax, uvoff) in enumerate(_CUBE_FACE_UV):
+        mask = face == fi
+        nvec = [0.0, 0.0, 0.0]
+        nvec[axis] = 1.0 if sign > 0 else -1.0
+        n = torch.where(mask[:, None], _vec(nvec, p), n)
+        # face_uv: normal.x!=0 -> (z,y); normal.y!=0 -> (x,z); else (x,y)
+        s0, s1 = (2, 1) if axis == 0 else ((0, 2) if axis == 1 else (0, 1))
+        norm_u = p[..., s0] * uvax[0] + 0.5
+        norm_v = 0.5 - p[..., s1] * uvax[1]
+        u = torch.where(mask, norm_u / 4.0 + uvoff[0], u)
+        v = torch.where(mask, norm_v / 3.0 + uvoff[1], v)
+    uv = torch.stack([u, v], dim=-1)
+    # tangent basis (cube.rs:111-136): to_top = normalize((0,1,0) - p)
+    to_top = m3.normalize(
+        torch.stack([-p[..., 0], 1.0 - p[..., 1], -p[..., 2]], dim=-1), eps=1e-30)
+    degenerate = (torch.abs(to_top[..., 0]) < eps) & (torch.abs(to_top[..., 2]) < eps)
+    h_tan = m3.cross(to_top, n)
+    v_tan = m3.cross(n, h_tan)
+    pole_col2 = torch.where((n[..., 1] > 0.0)[..., None], _vec([0.0, 0.0, 1.0], p),
+                            _vec([0.0, 0.0, -1.0], p))
+    right = _vec([1.0, 0.0, 0.0], p).expand_as(p)
+    col0 = torch.where(degenerate[..., None], right, h_tan)
+    col2 = torch.where(degenerate[..., None], pole_col2, v_tan)
+    nmt = torch.stack([col0, n, col2], dim=-1)
+    ones = torch.ones_like(u, dtype=torch.bool)
+    return n, uv, ones, nmt, ones
+
+
+def _no_uv(p, n):
+    zeros = torch.zeros(p.shape[:-1], dtype=torch.bool, device=p.device)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[0], 3, 3)
+    return n, torch.zeros_like(p[..., :2]), zeros, eye, zeros
+
+
+def _cylinder_detail(o, d, t_min, t_max, p):
+    t_body, t_top, t_bot = _cyl_parts(o, d, t_min, t_max)
+    t = t_body
+    part = torch.zeros_like(t, dtype=torch.int32)
+    part = torch.where(t_top < t, 1, part)
+    t = torch.minimum(t, t_top)
+    part = torch.where(t_bot < t, 2, part)
+    n_body = torch.stack([p[..., 0], torch.zeros_like(p[..., 1]), p[..., 2]], dim=-1)
+    n = torch.where((part == 0)[..., None], n_body,
+                    torch.where((part == 1)[..., None], _vec([0.0, 1.0, 0.0], p),
+                                _vec([0.0, -1.0, 0.0], p)))
+    return _no_uv(p, n)
+
+
+def _cone_detail(o, d, t_min, t_max, p):
+    t_body, t_cap = _cone_parts(o, d, t_min, t_max)
+    is_cap = t_cap < t_body
+    # body normal (cone.rs:78-104)
+    tangent1 = _vec([0.0, 0.5, 0.0], p) - p
+    across = torch.stack([-2.0 * p[..., 0], torch.zeros_like(p[..., 1]),
+                          -2.0 * p[..., 2]], dim=-1)
+    tangent2 = m3.cross(tangent1, across)
+    n_body = m3.cross(tangent1, tangent2)
+    n = torch.where(is_cap[..., None], _vec([0.0, -1.0, 0.0], p), n_body)
+    return _no_uv(p, n)
+
+
+def _winner_candidate_t(lo, ld, ray_kind, t_min, t_max, eps, present):
+    """Per-ray candidate t of each ray's selected primitive, recomputed in
+    its local frame."""
+    t_re = torch.full(lo.shape[:-1], INF, dtype=lo.dtype, device=lo.device)
+    for kind in sorted(present):
+        tk = _candidate_fn(kind)(lo, ld, t_min, t_max, eps)
+        t_re = torch.where(ray_kind == kind, tk, t_re)
+    return t_re
+
+
+def _winner_frame(o, d, node, st, cfg, t_min, src_node, src_tri, tri):
+    """(rec, inv, lo, ld, t_min_e) for per-ray winners."""
+    R = o.shape[0]
+    rec = st.rec[torch.clamp(node, min=0).long()]
+    inv = rec[:, 0:12].reshape(R, 3, 4)
+    lo = m3.transform_point(inv, o)
+    ld = m3.transform_dir(inv, d)
+    t_min = _as_rays(t_min, R, o)
+    if src_node is not None and cfg.self_eps_local > 0.0:
+        is_src = node == src_node
+        if src_tri is not None:
+            is_src = is_src & (tri == src_tri)
+        dn = m3.norm(ld, eps=1e-20)
+        t_self = cfg.self_eps_local / torch.clamp(dn, min=1e-30)
+        t_min = torch.where(is_src, torch.maximum(t_min, t_self), t_min)
+    return rec, inv, lo, ld, t_min
+
+
+def winner_t(o, d, node, tri, st: SceneTables, cfg: RenderConfig,
+             t_min, t_max=INF, src_node=None, src_tri=None):
+    """Exact candidate t for per-ray winners (node, tri); INF where float
+    asymmetry loses the winner's root."""
+    rec, _, lo, ld, t_min = _winner_frame(o, d, node, st, cfg, t_min,
+                                          src_node, src_tri, tri)
+    t_max = _as_rays(t_max, o.shape[0], o)
+    present = {k for (k, _, _) in st.groups}
+    return _winner_candidate_t(lo, ld, rec[:, REC_KIND].to(torch.int32),
+                               t_min, t_max, cfg.epsilon, present)
+
+
+def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
+               src_node=None, src_tri=None) -> HitDetail:
+    """World hit point, normal, uv and tangent frame of the winners.  The
+    winner's t is recomputed from the tables and becomes the value used
+    downstream; the sweep's t is the fallback where the recompute loses the
+    root to float asymmetry."""
+    R = o.shape[0]
+    t = torch.where(hit.hit, hit.t, torch.ones_like(hit.t))
+    rec, inv, lo, ld, t_min = _winner_frame(o, d, hit.node, st, cfg, t_min,
+                                            src_node, src_tri, hit.tri)
+    # Normal matrix = transposed rotation of world->local (scene.rs:204).
+    nmat = inv[:, :, :3].transpose(1, 2)
+    t_max = torch.full((R,), INF, dtype=o.dtype, device=o.device)
+    ray_kind = rec[:, REC_KIND].to(torch.int32)
+    present = {k for (k, _, _) in st.groups}
+    eps = cfg.epsilon
+
+    t_re = _winner_candidate_t(lo, ld, ray_kind, t_min, t_max, eps, present)
+    t = torch.where(hit.hit & torch.isfinite(t_re), t_re, t)
+
+    p_local = lo + t[:, None] * ld
+    point = o + t[:, None] * d
+
+    normal = torch.zeros_like(o)
+    uv = torch.zeros_like(o[:, :2])
+    has_uv = torch.zeros(R, dtype=torch.bool, device=o.device)
+    nmt = torch.eye(3, dtype=o.dtype, device=o.device).expand(R, 3, 3)
+    has_nmt = has_uv
+    for kind in sorted(present):
+        if kind == SPHERE:
+            parts = _sphere_detail(p_local, eps)
+        elif kind == CUBE:
+            parts = _cube_detail(lo, ld, t_min, t_max, p_local, eps)
+        elif kind == CYLINDER:
+            parts = _cylinder_detail(lo, ld, t_min, t_max, p_local)
+        elif kind == CONE:
+            parts = _cone_detail(lo, ld, t_min, t_max, p_local)
+        else:
+            _candidate_fn(kind)  # raises for kinds of later slices
+        mask = ray_kind == kind
+        n_k, uv_k, huv_k, nmt_k, hnmt_k = parts
+        normal = torch.where(mask[:, None], n_k, normal)
+        uv = torch.where(mask[:, None], uv_k, uv)
+        has_uv = torch.where(mask, huv_k, has_uv)
+        nmt = torch.where(mask[:, None, None], nmt_k, nmt)
+        has_nmt = torch.where(mask, hnmt_k, has_nmt)
+
+    normal_w = m3.matvec3(nmat, normal)
+    material = rec[:, 24].to(torch.int32)
+    return HitDetail(
+        point=point, normal=normal_w, uv=uv, has_uv=has_uv, nmt=nmt,
+        has_nmt=has_nmt,
+        material=torch.where(hit.hit, material, torch.zeros_like(material)),
+        rec=rec, margin=torch.full((R,), INF, dtype=o.dtype, device=o.device),
+    )

@@ -1,0 +1,112 @@
+"""Shading (counterpart of ``portrayer_tpu/ops/shade.py``), point lights.
+
+Ambient + per light [Lambert diffuse + Blinn-Phong specular with the 4x
+shininess compensation (material.rs:196-204)] / attenuation, with the
+occlusion deferred: ``shade_pre`` returns the per-light contributions,
+directions and shadow-need masks, and the trace loop resolves all lights'
+shadow rays in one any-hit launch.  Children are the mirror reflections
+(material.rs:216-220); their throughput multipliers are all the round-0
+render needs of them.  Glossy, refraction, textures, normal maps and area
+lights are later slices and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import math3d as m3
+from ..config import RenderConfig
+from ..scene.flatten import SceneTables
+from .intersect import Hit, HitDetail
+
+
+class Children(NamedTuple):
+    origin: torch.Tensor     # [R,3]
+    refl_dir: torch.Tensor   # [R,3]
+    refl_mult: torch.Tensor  # [R] throughput multiplier
+    refr_dir: torch.Tensor   # [R,3]
+    refr_mult: torch.Tensor  # [R]
+
+
+class ShadePre(NamedTuple):
+    """Occlusion-independent shading results (deferred lighting)."""
+    base: torch.Tensor           # [R,3] ambient term
+    light_contrib: torch.Tensor  # [L,R,3] per-light (diffuse+spec)/attn
+    shadow_dir: torch.Tensor     # [L,R,3] unit dirs to the lights
+    shadow_need: torch.Tensor    # [L,R] bool: lanes whose contribution != 0
+    t_eps: torch.Tensor          # [R] secondary-ray start offsets
+
+
+def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, active):
+    """Occlusion-independent shading: returns (ShadePre, Children)."""
+    if any(st.area_flags):
+        raise NotImplementedError("area lights: later slice of the port")
+    if st.any_refractive or st.any_glossy:
+        raise NotImplementedError("refraction and glossy reflection: later slice of the port")
+    R = d.shape[0]
+    p = det.point
+    rec = det.rec
+    mat_diffuse = rec[:, 12:15]
+    mat_specular = rec[:, 15:18]
+    mat_shininess = rec[:, 18]
+
+    view = -d
+    n = m3.normalize(det.normal, eps=1e-30)
+    color = st.ambient[None, :] * mat_diffuse
+
+    # Secondary-ray start offset: EPSILON plus a relative term for f32
+    # robustness on large scenes (the reference is f64 with plain EPSILON).
+    if cfg.eps_rel:
+        t_eps = torch.clamp(cfg.eps_rel * m3.norm(p, eps=1e-20), min=cfg.epsilon)
+    else:
+        t_eps = torch.full((R,), cfg.epsilon, dtype=d.dtype, device=d.device)
+
+    # A shadow ray matters only where the light can contribute: diffuse
+    # needs n.l > 0; specular needs a specular material and n.h > 0, or
+    # shininess 0 (x^0 == 1 even for n.h <= 0).
+    spec_possible = torch.amax(mat_specular, dim=-1) > 0.0
+    dirs, contribs, needs = [], [], []
+    for li in range(st.n_lights):
+        lpos = st.light_pos[li]
+        lcol = st.light_color[li]
+        c0, c1, c2 = st.light_falloff[li]
+        hit_to_light = lpos - p
+        light_dist = m3.norm(hit_to_light, eps=1e-20)
+        ldir = hit_to_light / torch.clamp(light_dist, min=1e-30)[..., None]
+        dirs.append(ldir)
+        attn = c0 + c1 * light_dist + c2 * light_dist * light_dist
+        nl = torch.clamp(m3.dot(n, ldir), min=0.0)
+        diffuse = mat_diffuse * lcol[None, :] * nl[..., None]
+        half = m3.normalize(view + ldir, eps=1e-30)
+        nh_raw = m3.dot(n, half)
+        # max(n.h, 0)^(4s) is exactly 0 for n.h <= 0 when s > 0.
+        spec_on = (nh_raw > 0.0) | (mat_shininess == 0.0)
+        nh = torch.where(spec_on, torch.clamp(nh_raw, min=1e-20) ** (4.0 * mat_shininess),
+                         0.0)
+        specular = mat_specular * lcol[None, :] * nh[..., None]
+        contribs.append((diffuse + specular) / attn[..., None])
+        needs.append((nl > 0.0) | (spec_possible & spec_on))
+    if st.n_lights:
+        shadow_dir = torch.stack(dirs)
+        light_contrib = torch.stack(contribs)
+        shadow_need = torch.stack(needs) & active[None]
+    else:
+        shadow_dir = torch.zeros((0, R, 3), dtype=d.dtype, device=d.device)
+        light_contrib = torch.zeros((0, R, 3), dtype=d.dtype, device=d.device)
+        shadow_need = torch.zeros((0, R), dtype=torch.bool, device=d.device)
+
+    pre = ShadePre(base=color, light_contrib=light_contrib, shadow_dir=shadow_dir,
+                   shadow_need=shadow_need, t_eps=t_eps)
+    zeros = torch.zeros((R,), dtype=d.dtype, device=d.device)
+    if not st.any_reflective:
+        return pre, Children(origin=p, refl_dir=d, refl_mult=zeros, refr_dir=d,
+                             refr_mult=zeros)
+    mat_reflect = rec[:, 19]
+    dn = m3.dot(d, n)
+    reflect_dir = d - 2.0 * dn[..., None] * n
+    refl_mult = torch.where((mat_reflect > 0.0) & active, mat_reflect, 0.0)
+    return pre, Children(origin=p, refl_dir=m3.normalize(reflect_dir, eps=1e-30),
+                         refl_mult=refl_mult, refr_dir=m3.normalize(d, eps=1e-30),
+                         refr_mult=zeros)

@@ -1,0 +1,61 @@
+"""Counter-based random draws, bit-equal to ``jax.random`` (threefry2x32,
+``jax_threefry_partitionable=True``) for the calls the renderer makes:
+``PRNGKey``, ``fold_in`` and f32 ``uniform``.
+
+Keys are int64 tensors of shape [2] holding two 32-bit words.  All words
+travel as int64 masked to 32 bits, since torch has no uint32 arithmetic.
+The hash is elementwise, so it runs on CPU and CUDA tensors alike.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 hash of counter words (x1, x2) under key (k1, k2).
+
+    k1, k2: Python ints; x1, x2: int64 tensors of 32-bit words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M
+    x2 = (x2 + ks[1]) & _M
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1 = (x1 + x2) & _M
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M
+    return x1, x2
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """jax.random.PRNGKey for a 32-bit seed: words (0, seed mod 2^32)."""
+    return torch.tensor([0, int(seed) & _M], dtype=torch.int64)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """jax.random.fold_in: hash of the counter pair (0, data) under key."""
+    k1, k2 = (int(v) for v in key.tolist())
+    x1, x2 = threefry2x32(
+        k1, k2, torch.zeros(1, dtype=torch.int64),
+        torch.tensor([int(data) & _M], dtype=torch.int64))
+    return torch.cat([x1, x2])
+
+
+def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32) in [0, 1), drawn on device."""
+    k1, k2 = (int(v) for v in key.tolist())
+    n = 1
+    for s in shape:
+        n *= int(s)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    mant = ((b1 ^ b2) >> 9) | 0x3F800000
+    return (mant.to(torch.int32).view(torch.float32) - 1.0).reshape(tuple(shape))

@@ -1,0 +1,37 @@
+"""The port's threefry draws are bit-equal to jax.random (partitionable
+threefry) for the renderer's call shapes: PRNGKey(seed), the tile/chunk
+key chain fold_in(fold_in(fold_in(key, x0), y0), ci), and the jitter
+uniform(fold_in(ckey, 0), (R, 2))."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from portrayer_tpu_torch import rng
+
+
+def _bits(k):
+    return np.asarray(k).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 1234, 2**31 - 1])
+def test_prng_key_and_fold_in_bit_equal(seed):
+    kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed)
+    np.testing.assert_array_equal(_bits(kj), kt.numpy())
+    for x0, y0, ci in ((0, 0, 0), (128, 896, 1), (1920, 64, 7), (2**31 + 5, 3, 2**32 - 1)):
+        kj2 = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(kj, x0), y0), ci)
+        kt2 = rng.fold_in(rng.fold_in(rng.fold_in(kt, x0), y0), ci)
+        np.testing.assert_array_equal(_bits(kj2), kt2.numpy())
+
+
+@pytest.mark.parametrize("R", [1, 33, 4225, 65536])
+def test_uniform_bit_equal(R):
+    kj = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(0), 64), 0)
+    kt = rng.fold_in(rng.fold_in(rng.PRNGKey(0), 64), 0)
+    uj = np.asarray(jax.random.uniform(kj, (R, 2), jnp.float32))
+    ut = rng.uniform(kt, (R, 2), "cpu")
+    assert ut.dtype == torch.float32 and tuple(ut.shape) == (R, 2)
+    np.testing.assert_array_equal(uj.view(np.uint32), ut.numpy().view(np.uint32))
+    assert (ut >= 0).all() and (ut < 1).all()

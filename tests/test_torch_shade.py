@@ -1,0 +1,149 @@
+"""The port's shading and one-round trace against the JAX package
+(accel="flat") on the same camera rays and the same tables (carried across
+by tables_from_numpy), on the CPU.
+
+Tolerances, with their reasons: shade_pre rtol 1e-4 / atol 1e-5, except
+the specular term, x^(4*shininess) = x^100 on the scenes here, which turns
+f32 rounding of n.h into 100x that relative error: rtol 1e-3.  A traced
+tile's per-pixel means: atol 1e-4.  The JAX side runs without jit: fused,
+XLA contracts mul+add into FMA, and its rounding moves.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+import scenes
+import portrayer_tpu as P
+from portrayer_tpu.camera import Camera as JaxCamera
+from portrayer_tpu.ops import intersect as jx
+from portrayer_tpu.ops.shade import shade_pre as jax_shade_pre
+from portrayer_tpu.ops.trace import trace as jax_trace
+import portrayer_tpu_torch as T
+from portrayer_tpu_torch.ops import intersect as tx
+from portrayer_tpu_torch.ops.shade import shade_pre
+from portrayer_tpu_torch.ops.trace import trace
+from portrayer_tpu_torch import rng, scenes as tscenes
+from portrayer_tpu_torch.camera import Camera
+from portrayer_tpu_torch.render import _tile_rays
+
+from _torch_jax import jax_arrays
+
+J_FLAT = P.RenderConfig(accel="flat")
+T_CPU = T.RenderConfig(device="cpu")
+SIZES = {"simple": (64, 64), "big-scene": (160, 82)}
+
+
+def _specs(name):
+    """(JAX spec, port spec, max_depth).  "simple-mirror" is simple with its
+    ground sphere's material made a half mirror, rendered at max_depth 0:
+    the reflections are cut off to the background, as the JAX package does
+    at the depth limit."""
+    base = name.removesuffix("-mirror")
+    jspec, tspec = scenes.load(base), tscenes.load(base)
+    if name == base:
+        return jspec, tspec, T_CPU.max_depth
+    for spec in (jspec, tspec):
+        spec.scene.root.children[2].geometry.material.reflectivity = 0.5
+    return jspec, tspec, 0
+
+
+def _camera_rays(name, n=512, seed=3):
+    spec = _specs(name)[0]
+    w, h = spec.size
+    js = P.flatten_scene(spec.scene, dtype=jnp.float32)
+    ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
+    rng = np.random.default_rng(seed)
+    px = jnp.asarray(rng.uniform(0, w, n), jnp.float32)
+    py = jnp.asarray(rng.uniform(0, h, n), jnp.float32)
+    o, d = (np.array(a) for a in JaxCamera(spec.camera, (w, h)).rays_at(px, py))
+    return js, ts, o, d
+
+
+@pytest.mark.parametrize("name", ["simple", "big-scene", "simple-mirror"])
+def test_shade_pre_matches_jax(name):
+    js, ts, o, d = _camera_rays(name)
+    hit = jx.intersect_scene(o, d, 1e-5, jnp.inf, js, J_FLAT)
+    det = jx.hit_detail(o, d, hit, js, J_FLAT, 1e-5)
+    pre, jchildren = jax_shade_pre(d, hit, det, js, J_FLAT, jax.random.PRNGKey(0), hit.hit)
+    thit = tx.Hit(*(torch.from_numpy(np.array(x)) for x in hit))
+    tdet = tx.hit_detail(torch.from_numpy(o), torch.from_numpy(d), thit, ts, T_CPU, 1e-5)
+    tpre, children = shade_pre(torch.from_numpy(d), thit, tdet, ts, T_CPU, thit.hit)
+    m = np.asarray(hit.hit)
+
+    def close(got, ref, rtol):
+        got, ref = got.numpy(), np.asarray(ref)
+        if got.ndim == 3:  # [L, R, 3]: select rays on the middle axis
+            got, ref = got[:, m], ref[:, m]
+        else:
+            got, ref = got[m], ref[m]
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=1e-5)
+
+    close(tpre.base, pre.base, 1e-4)
+    close(tpre.t_eps, pre.t_eps, 1e-4)
+    close(tpre.shadow_dir, pre.shadow_dir, 1e-4)
+    close(tpre.light_contrib, pre.light_contrib, 1e-3)
+    np.testing.assert_array_equal(tpre.shadow_need.numpy(), np.asarray(pre.shadow_need))
+    for f in ("refl_mult", "refr_mult"):
+        np.testing.assert_array_equal(getattr(children, f).numpy(),
+                                      np.asarray(getattr(jchildren, f)), err_msg=f)
+    assert children.refl_mult.any() == name.endswith("-mirror")
+    close(children.refl_dir, jchildren.refl_dir, 1e-4)
+
+
+# Tile origin per scene: a 64x64 tile of the self-golden frame with
+# silhouettes and shadows in it.
+TILES = {"simple": (0, 0), "big-scene": (64, 0)}
+
+
+@pytest.mark.parametrize("name", ["simple", "big-scene", "simple-mirror"])
+def test_trace_matches_jax_on_same_rays(name):
+    """One 64x64 tile of the self-golden render (4 spp, seed 0), its rays
+    built by the port's render loop, traced by both packages: the per-pixel
+    means agree to atol 1e-4."""
+    jspec, spec, max_depth = _specs(name)
+    js = P.flatten_scene(jspec.scene, dtype=jnp.float32)
+    ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
+    assert ts.any_reflective == name.endswith("-mirror")
+    cfg = T.RenderConfig(device="cpu", samples=4, tile=(64, 64), seed=0, max_depth=max_depth)
+    size = SIZES[name.removesuffix("-mirror")]
+    x0, y0 = TILES[name.removesuffix("-mirror")]
+    tkey = rng.fold_in(rng.fold_in(rng.PRNGKey(cfg.seed), x0), y0)
+    rays = _tile_rays(rng.fold_in(tkey, 0), Camera(spec.camera, size, "cpu"), x0, y0, 0,
+                      cfg=cfg, background=spec.background, tile_h=64, tile_w=64, spp=4,
+                      samples=4)
+    n = 64 * 64
+    # One node-chunk shape for every kind: fewer op-by-op compilations.
+    jcfg = P.RenderConfig(accel="flat", max_depth=max_depth, node_chunk=128)
+    with jax.disable_jit():
+        ref = np.asarray(jax_trace(jax.random.PRNGKey(0), *(x.numpy() for x in rays[:4]),
+                                   n, js, jcfg, w0=rays[4].numpy(), spp_contiguous=4)) / 4.0
+    o, d, pix, bg, w0 = rays
+    got = trace(o, d, pix, bg, n, ts, cfg, w0=w0, spp_contiguous=4).numpy() / 4.0
+    hit = tx.intersect_scene(o, d, cfg.epsilon, float("inf"), ts, cfg).hit
+    assert 0.05 < hit.float().mean() < 0.99
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("reflectivity, area, match", [
+    (0.5, None, "bounce rounds"),
+    (0.0, T.Parallelogram(a=(1.0, 0.0, 0.0), b=(0.0, 0.0, 1.0)), "area lights"),
+    (0.5, None, "refraction"),
+])
+def test_later_slice_features_raise(reflectivity, area, match):
+    """Bounce rounds (reflective materials below max_depth > 0), refraction
+    and area lights are later slices: a render that needs them is refused,
+    not approximated."""
+    mat = T.Material(diffuse=(0.5, 0.5, 0.5), reflectivity=reflectivity,
+                     refraction_index=1.5 if match == "refraction" else 0.0)
+    light = T.Light(position=(0.0, 5.0, 0.0), color=(1.0, 1.0, 1.0))
+    if area is not None:
+        light.area = area
+    scene = T.Scene(T.SceneNode([T.SceneNode(T.Geometry(T.Sphere(), mat))
+                                 .scaled(2.0).translated((0.0, 0.0, -5.0))]), [light], 0.1)
+    cam = T.CameraSettings(eye=(0.0, 0.0, 0.0), center=(0.0, 0.0, -1.0))
+    with pytest.raises(NotImplementedError, match=match):
+        T.render_u8(scene, cam, (8, 8), cfg=T.RenderConfig(
+            device="cpu", samples=1, max_depth=0 if match == "refraction" else 10))

@@ -1,0 +1,89 @@
+"""The port's scene lowering produces the JAX package's tables array for
+array; tables_from_numpy carries the JAX tables across unchanged; scenes
+whose packing needs a sweep branch of a later slice are refused."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+import scenes
+import portrayer_tpu as P
+from portrayer_tpu.scene.flatten import node_record as jax_node_record
+import portrayer_tpu_torch as T
+from portrayer_tpu_torch import scenes as tscenes
+from portrayer_tpu_torch.scene.flatten import TABLE_FIELDS, PACKED_FIELDS, tables_from_numpy
+
+from _torch_jax import jax_arrays
+
+
+def _assert_tables_equal(js, ts):
+    for f in TABLE_FIELDS:
+        a, b = np.asarray(getattr(js, f)), getattr(ts, f).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for f in PACKED_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(js.packed, f)),
+                                      getattr(ts.packed, f).numpy(), err_msg=f)
+    assert ts.groups == js.groups
+    assert ts.packed.kind_ranges == js.packed.kind_ranges
+    assert ts.packed.n_chunks == js.packed.n_chunks
+    for f in ("n_lights", "area_flags", "any_reflective", "any_refractive", "any_glossy"):
+        assert getattr(ts, f) == getattr(js, f), f
+    np.testing.assert_array_equal(np.asarray(jax_node_record(js)), ts.rec.numpy())
+
+
+@pytest.mark.parametrize("name", ["simple", "big-scene"])
+def test_lowering_equals_flatten_scene(name):
+    js = P.flatten_scene(scenes.load(name).scene, dtype=jnp.float32)
+    ts = T.flatten_scene(tscenes.load(name).scene, "cpu")
+    _assert_tables_equal(js, ts)
+
+
+def test_big_scene_kind_runs():
+    """big-scene drives four sweep branches: sphere_w, cube_g, cone_g,
+    cylinder_g, in 9 chunks."""
+    ts = T.flatten_scene(tscenes.load("big-scene").scene, "cpu")
+    assert ts.packed.kind_ranges == ((7, 0, 2), (2, 2, 3), (3, 5, 2), (4, 7, 2))
+    assert ts.n_lights == 3 and not ts.any_reflective
+
+
+@pytest.mark.parametrize("name", ["simple", "big-scene"])
+def test_tables_from_numpy_round_trip(name):
+    js = P.flatten_scene(scenes.load(name).scene, dtype=jnp.float32)
+    arrays, meta = jax_arrays(js)
+    ts = tables_from_numpy(arrays, meta, "cpu")
+    _assert_tables_equal(js, ts)
+    assert ts.device == torch.device("cpu")
+
+
+def _one(prim, trans=None):
+    node = T.SceneNode(T.Geometry(prim, T.Material(diffuse=(1.0, 1.0, 1.0))))
+    node.scaled(trans if trans is not None else (1.0, 2.0, 3.0)).rotated_x(0.3)
+    return T.Scene(T.SceneNode([node]), [], 0.1)
+
+
+@pytest.mark.parametrize("scene, kind", [
+    (_one(T.Sphere), "sphere_g"),
+    (_one(T.Plane), "plane_g"),
+    (_one(T.Torus(1.0, 0.25)), "torus_g"),
+    (T.Scene(T.SceneNode([T.SceneNode(T.Geometry(T.Cube, T.Material())).scaled(2.0)]),
+             [], 0.1), "aabox"),
+])
+def test_unported_kinds_raise(scene, kind):
+    with pytest.raises(NotImplementedError, match=kind):
+        T.flatten_scene(scene, "cpu")
+
+
+def test_unported_tri_w_raises_through_bridge():
+    js = P.flatten_scene(scenes.load("single-triangle").scene, dtype=jnp.float32)
+    arrays, meta = jax_arrays(js)
+    with pytest.raises(NotImplementedError, match="tri_w"):
+        tables_from_numpy(arrays, meta, "cpu")
+
+
+def test_textures_raise():
+    mat = T.Material(diffuse=(1.0, 1.0, 1.0), texture=object())
+    scene = T.Scene(T.SceneNode([T.SceneNode(T.Geometry(T.Sphere, mat))]), [], 0.1)
+    with pytest.raises(NotImplementedError, match="textures"):
+        T.flatten_scene(scene, "cpu")
