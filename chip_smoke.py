@@ -4,20 +4,29 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs four
-phases, each printing its own line; any failure raises and exits non-zero:
+phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, kernel
-   build seconds and the ptxas resource report;
+   build seconds and, per kernel instantiation, ptxas registers and spills;
 2. each sweep kernel (nearest, any-hit) against its plain PyTorch version
-   on the card, on big-scene and simple camera rays and their shadow rays,
-   under the gates of the JAX package's kernel tests, then both versions'
-   times at the render path's launch shapes (CUDA events);
-3. renders of simple (64x64) and big-scene (160x82) against the committed
-   self-goldens (fewer than 0.1% of pixels off by more than 2/255);
-4. the full 1980x1020 big-scene frame through ``Image.render``, with the
-   kernel launch counts of that run and its primary-ray rate; then simple
-   at its 256x256 through ``render_linear``, held against the flat
-   oracle's render on the card.
+   on the card: camera rays of big-scene, simple, torus-showcase,
+   glossy-reflection, primitives-simple and an inline scene of ellipsoids,
+   their shadow rays, and the child rays of a real bounce round 0 (with
+   their source surfaces) and those rays' shadow rays.  Gates: the JAX
+   package's kernel gates, and on torus chunks its torus gate; every
+   difference is counted.  Then both versions' times at the render's launch
+   shapes of big-scene, torus-showcase and glossy-reflection (CUDA events),
+   beside the bound of each launch;
+3. renders of simple (64x64), big-scene (160x82) and torus-showcase
+   (64x64) against the committed self-goldens (on torus-showcase, the
+   pixels of TORUS_JIT_PIXELS aside);
+4. the main paths through ``Image.render``, each with the kernel launch
+   counts of its run: big-scene's full 1980x1020 frame, torus-showcase at
+   256x256 and glossy-reflection at 910x512, all at 16 spp, with live rays
+   per bounce round, host syncs and dropped throughput (from the render's
+   TraceStats, which cost one host sync per chunk more); then simple at
+   256x256 and glossy-reflection at 4 spp through ``render_linear``, held
+   against the flat oracle's render on the card.
 
 The last two lines are a JSON object of per-kernel numbers and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
@@ -37,12 +46,67 @@ KERNEL_SOURCE = "portrayer_tpu_torch/csrc/sweep.cu"
 TPU_KERNEL = "portrayer_tpu/ops/pallas_intersect.py:159"
 FULL_FRAME_SPP = 16
 SIMPLE_SPP = 4
+GLOSSY_LINEAR_SPP = 4
+LAUNCH_RAYS = 131072
+TORUS_TOL = 1e-3  # the JAX package's torus gate (tests/test_torus.py)
+# Pixels (row-major) of the torus-showcase self-golden (64x64, 4 spp, seed
+# 0) that the JAX package's own render, run op by op without jit, has off
+# by more than 2/255: the golden was rendered jitted, and XLA's FMAs move
+# the f32 torus roots.  tests/test_torch_trace.py finds them with JAX.
+TORUS_JIT_PIXELS = (535, 678, 743, 985, 1199, 1239, 1816, 1993, 2029, 2055, 2180, 2243,
+                    2306, 2368)
+
+# H100 SXM peaks at 700 W (NVIDIA data sheet): f32 outside the tensor cores
+# and HBM bandwidth.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations per (ray, primitive) of each branch, counted in sweep.cu
+# for a ray without a source surface: add, sub, mul, div, sqrt,
+# min/max/clamp and expf/logf/cosf count one each; negation, fabs, compares
+# and selects none.  The chunk cull costs CULL_FLOPS per (ray, chunk).
+BRANCH_FLOPS = {"sphere_g": 66, "plane_g": 43, "cube_g": 86, "cylinder_g": 82,
+                "cone_g": 91, "torus_g": 429, "sphere_w": 26, "aabox": 22}
+CULL_FLOPS = 28
 
 
-def _gate_nearest(k, p, label):
+def _ellipsoids():
+    """Non-uniformly scaled, rotated spheres (packed as sphere_g), one a
+    mirror, over a floor plane: (scene, camera settings, size)."""
+    import portrayer_tpu_torch as T
+
+    mat = T.Material(diffuse=(0.5, 0.5, 0.5), specular=(0.3, 0.3, 0.3), shininess=20.0)
+    mirror = T.Material(diffuse=(0.2, 0.3, 0.5), specular=(0.5, 0.5, 0.5), shininess=30.0,
+                        reflectivity=0.5)
+    nodes = [
+        T.SceneNode(T.Geometry(T.Sphere(), mirror if i == 2 else mat))
+        .scaled((1.0 + 0.5 * (i % 3), 2.0 - 0.25 * i, 0.8 + 0.3 * i))
+        .rotated_y(0.4 * i).translated((3.0 * i - 6.0, 0.0, -2.0 * i))
+        for i in range(5)
+    ]
+    nodes.append(T.SceneNode(T.Geometry(T.Plane(), mat)).scaled(40.0)
+                 .translated((0.0, -2.0, 0.0)))
+    scene = T.Scene(T.SceneNode(nodes),
+                    [T.Light(position=(0.0, 10.0, 10.0), color=(1.0, 1.0, 1.0))],
+                    (0.2, 0.2, 0.2))
+    cam = T.CameraSettings(eye=(0.0, 3.0, 14.0), center=(0.0, 0.0, -4.0), fovy=0.8)
+    return scene, cam, (256, 256)
+
+
+def _torus_ids(st):
+    import torch
+    from portrayer_tpu_torch.scene.flatten import TORUS
+
+    ids = [i for kind, start, count in st.groups if kind == TORUS
+           for i in range(start, start + count)]
+    return torch.tensor(ids, dtype=torch.int32, device=st.device)
+
+
+def _gate_nearest(k, p, label, torus=None):
     """The JAX package's kernel gates (tests/test_pallas.py): .hit equal;
     node mismatches on <= 0.2% of hits, only within 2*2^-16 relative t;
-    elsewhere t within rtol 1e-4 / atol 1e-5.  Returns max |dt|."""
+    elsewhere t within rtol 1e-4 / atol 1e-5, and on hits of the node ids
+    in `torus` the torus gate, rtol 1e-3 / atol 1e-3.  Returns (max |dt|,
+    number of rays whose (hit, node, tri, t) differ at all)."""
     import torch
 
     if not torch.equal(k.hit, p.hit):
@@ -53,15 +117,22 @@ def _gate_nearest(k, p, label):
     frac = mism.float().mean().item() if both.any() else 0.0
     if frac > 0.002:
         raise AssertionError(f"{label}: node mismatch on {frac:.4%} of hits")
+    on_torus = torch.zeros_like(mism)
+    if torus is not None and torus.numel():
+        on_torus = torch.isin(p.node[both], torus)
     if mism.any():
         quantum = 2.0 ** -16 * torch.maximum(kt[mism].abs(), pt[mism].abs())
+        quantum = torch.where(on_torus[mism], TORUS_TOL * pt[mism].abs(), quantum)
         if not ((kt[mism] - pt[mism]).abs() <= 2.0 * quantum + 1e-5).all():
             raise AssertionError(f"{label}: node mismatch outside the tie quantum")
     same = ~mism
     if not torch.equal(k.tri[both][same], p.tri[both][same]):
         raise AssertionError(f"{label}: tri differs")
-    torch.testing.assert_close(kt[same], pt[same], rtol=1e-4, atol=1e-5)
-    return (kt[same] - pt[same]).abs().max().item() if same.any() else 0.0
+    plain, tor = same & ~on_torus, same & on_torus
+    torch.testing.assert_close(kt[plain], pt[plain], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(kt[tor], pt[tor], rtol=TORUS_TOL, atol=TORUS_TOL)
+    n_diff = int(mism.sum()) + int((kt[same] != pt[same]).sum())
+    return ((kt[same] - pt[same]).abs().max().item() if same.any() else 0.0), n_diff
 
 
 def _shadow_rays(o, d, hit, st, cfg):
@@ -80,6 +151,28 @@ def _shadow_rays(o, d, hit, st, cfg):
             hit.node.repeat(L), hit.tri.repeat(L))
 
 
+def _bounce_rays(o, d, st, cfg):
+    """The live child rays of a real round 0 of the trace loop on camera
+    rays o, d: (o, d, t_min, src_node, src_tri)."""
+    import torch
+    from portrayer_tpu_torch import rng
+    from portrayer_tpu_torch.ops import trace as tr
+
+    R = o.shape[0]
+    dev = o.device
+    q = tr._Queue(o=o, d=d, w=torch.ones(R, device=dev),
+                  pix=torch.arange(R, dtype=torch.int32, device=dev),
+                  t_min=torch.full((R,), cfg.epsilon, device=dev),
+                  src_node=torch.full((R,), -1, dtype=torch.int32, device=dev),
+                  src_tri=torch.full((R,), -1, dtype=torch.int32, device=dev),
+                  sid=torch.arange(R, dtype=torch.int32, device=dev))
+    bg = torch.zeros((R, 3), device=dev)
+    hit = tr._nearest(q, st, cfg)
+    acc, child, _ = tr._round_shade(q, hit, bg, bg, st, cfg, rng.PRNGKey(3), is_last=False)
+    q1 = tr._compact(child, 2 * R, acc, bg)[0]
+    return q1.o, q1.d, q1.t_min, q1.src_node, q1.src_tri
+
+
 def _time_ms(fn, iters):
     import torch
 
@@ -95,6 +188,32 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _bound_ms(args, kw, st, cfg, any_hit):
+    """Least time of one sweep launch on these inputs: the larger of its
+    f32 operations over PEAK_F32 and its bytes (rays, the packed table and
+    the outputs, each once) over PEAK_BYTES.  Operations are those this
+    run's data needs, as the plain version counts them: CULL_FLOPS per
+    (ray, chunk) slab test and BRANCH_FLOPS per (ray, primitive) the cull
+    lets through, padding lanes left out, in any-hit mode up to a ray's
+    first hit.  Returns (ms, "operations" or "bytes")."""
+    from portrayer_tpu_torch.scene.flatten import PACKED_KIND_NAMES, PACK_CHUNK
+    from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_sweep_ref
+
+    R = args[0].shape[0]
+    pk = st.packed
+    work = {}
+    intersect_scene_sweep_ref(*args, st, cfg, any_hit=any_hit, work=work, **kw)
+    flops = CULL_FLOPS * work.pop("cull") + sum(
+        BRANCH_FLOPS[PACKED_KIND_NAMES[k]] * n for k, n in work.items())
+    ray_bytes = 4 * (3 + 3 + 1 + 1) + 1 + (8 if kw.get("src_node") is not None else 0)
+    ncol = pk.n_chunks * PACK_CHUNK
+    table_bytes = ncol * (21 * 4 + 2 * 4) + pk.n_chunks * (4 + 6 * 4)
+    out_bytes = 4 if any_hit else 12
+    nbytes = R * (ray_bytes + out_bytes) + table_bytes
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def phase_card(dev):
     import torch
     from portrayer_tpu_torch import _build
@@ -105,90 +224,132 @@ def phase_card(dev):
     ).stdout.strip().splitlines()[dev.index or 0]
     print(smi, flush=True)
     _build.load()
-    regs = [ln.strip() for ln in _build.build_info["ptxas"].splitlines() if "registers" in ln]
     print(f"[1 card] {torch.cuda.get_device_name(dev)} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda} | kernel build {_build.build_info['seconds']:.2f} s | "
-          f"ptxas: {' ; '.join(regs)}", flush=True)
+          f"cuda {torch.version.cuda} | kernel build {_build.build_info['seconds']:.2f} s",
+          flush=True)
+    for name, regs, st_bytes, ld_bytes in _build.ptxas_kernels(_build.build_info["ptxas"]):
+        # Mangled sweep_kernel<ANY_HIT, HAS_TORUS>: ...ILb<0|1>ELb<0|1>EE...
+        flags = name[name.index("sweep_kernel") + len("sweep_kernel"):][:12]
+        mode = "any_hit" if flags.startswith("ILb1") else "nearest"
+        torus = "with torus" if "ELb1E" in flags else "no torus"
+        print(f"[1 ptxas] sweep_kernel {mode}, {torus}: {regs} registers, spill stores "
+              f"{st_bytes} B, spill loads {ld_bytes} B", flush=True)
     return smi
 
 
+def _scene_cases():
+    from portrayer_tpu_torch import scenes
+
+    cases = []
+    # The timed scenes draw at least LAUNCH_RAYS camera rays.
+    for name, n_rays in (("big-scene", 262144), ("simple", 65536), ("torus-showcase", 131072),
+                         ("glossy-reflection", 131072), ("primitives-simple", 65536)):
+        spec = scenes.load(name)
+        cases.append((name, n_rays, spec.scene, spec.camera, spec.size))
+    cases.append(("ellipsoids", 65536) + _ellipsoids())
+    return cases
+
+
 def phase_kernels(dev):
-    """Kernel vs plain version on the card; returns per-mode numbers."""
+    """Kernel vs plain version on the card; returns (errors and difference
+    counts per mode, timings per scene, branches seen)."""
     import torch
-    from portrayer_tpu_torch import RenderConfig, flatten_scene, rng, scenes
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, rng
     from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.scene.flatten import PACKED_KIND_NAMES
     from portrayer_tpu_torch.ops.cuda_intersect import (
         intersect_scene_cuda, intersect_scene_sweep_ref)
 
     cfg = RenderConfig(device=dev)
     inf = float("inf")
     err = {"nearest": 0.0, "any_hit": 0.0}
+    diffs = {"nearest": 0, "any_hit": 0}
+    branches = set()
     timing = {}
-    for name, n_rays in (("big-scene", 262144), ("simple", 65536)):
-        spec = scenes.load(name)
-        w, h = spec.size
-        st = flatten_scene(spec.scene, dev)
-        cam = Camera(spec.camera, spec.size, dev)
+
+    def check(label, o, d, t_min, st, kw, torus):
+        """Nearest and any-hit, kernel against plain version."""
+        k = intersect_scene_cuda(o, d, t_min, inf, st, cfg, **kw)
+        p = intersect_scene_sweep_ref(o, d, t_min, inf, st, cfg, **kw)
+        e, n = _gate_nearest(k, p, f"{label} nearest", torus)
+        err["nearest"] = max(err["nearest"], e)
+        diffs["nearest"] += n
+        ka = intersect_scene_cuda(o, d, t_min, inf, st, cfg, any_hit=True, **kw)
+        pa = intersect_scene_sweep_ref(o, d, t_min, inf, st, cfg, any_hit=True, **kw)
+        n_any = int((ka.hit != pa.hit).sum())
+        if n_any:
+            raise AssertionError(f"{label} any-hit: hit differs on {n_any} rays")
+        return k
+
+    for name, n_rays, scene, camset, size in _scene_cases():
+        w, h = size
+        st = flatten_scene(scene, dev)
+        torus = _torus_ids(st)
+        branches.update(PACKED_KIND_NAMES[k] for k, _, _ in st.packed.kind_ranges)
+        cam = Camera(camset, size, dev)
         u = rng.uniform(rng.PRNGKey(7), (n_rays, 2), dev)
         o, d = cam.rays_at(u[:, 0] * w, u[:, 1] * h)
         src = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
-        near = {}
-        for label, kw in (("nearest", {}), ("nearest+src", {"src_node": src, "src_tri": src})):
-            k = intersect_scene_cuda(o, d, cfg.epsilon, inf, st, cfg, **kw)
-            p = intersect_scene_sweep_ref(o, d, cfg.epsilon, inf, st, cfg, **kw)
-            torch.cuda.synchronize()
-            err["nearest"] = max(err["nearest"], _gate_nearest(k, p, f"{name} {label}"))
-            near = k
+        check(f"{name} camera", o, d, cfg.epsilon, st, {}, torus)
+        near = check(f"{name} camera+src", o, d, cfg.epsilon, st,
+                     {"src_node": src, "src_tri": src}, torus)
         so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
-        ka = intersect_scene_cuda(so, sd, st_min, inf, st, cfg, active=sact,
-                                  src_node=snode, src_tri=stri, any_hit=True)
-        pa = intersect_scene_sweep_ref(so, sd, st_min, inf, st, cfg, active=sact,
-                                       src_node=snode, src_tri=stri, any_hit=True)
-        if not torch.equal(ka.hit, pa.hit):
-            raise AssertionError(f"{name} any-hit: hit differs on "
-                                 f"{(ka.hit != pa.hit).sum().item()} rays")
-        err["any_hit"] = max(err["any_hit"],
-                             (ka.hit.float() - pa.hit.float()).abs().max().item())
-        ks = intersect_scene_cuda(so, sd, st_min, inf, st, cfg, active=sact,
-                                  src_node=snode, src_tri=stri)
-        ps = intersect_scene_sweep_ref(so, sd, st_min, inf, st, cfg, active=sact,
-                                       src_node=snode, src_tri=stri)
-        err["nearest"] = max(err["nearest"], _gate_nearest(ks, ps, f"{name} shadow nearest"))
-        print(f"[2 kernels] {name}: {n_rays} camera rays, {near.hit.float().mean():.3f} hit; "
-              f"{int(sact.sum())} shadow rays, {ka.hit.float().mean():.3f} occluded; "
-              f"nearest and any-hit agree with the plain version", flush=True)
+        skw = dict(active=sact, src_node=snode, src_tri=stri)
+        check(f"{name} shadow", so, sd, st_min, st, skw, torus)
+        line = (f"[2 kernels] {name} {st.packed.kind_ranges}: {n_rays} camera rays, "
+                f"{near.hit.float().mean():.3f} hit; {int(sact.sum())} shadow rays")
+        if st.any_reflective:
+            bo, bd, bt, bn, btri = _bounce_rays(o, d, st, cfg)
+            bhit = check(f"{name} bounce", bo, bd, bt, st,
+                         {"src_node": bn, "src_tri": btri}, torus)
+            so, sd, st_min, sact, snode, stri = _shadow_rays(bo, bd, bhit, st, cfg)
+            check(f"{name} bounce shadow", so, sd, st_min, st,
+                  dict(active=sact, src_node=snode, src_tri=stri), torus)
+            line += (f"; {bo.shape[0]} round-0 child rays, {bhit.hit.float().mean():.3f} hit, "
+                     f"{int(sact.sum())} of their shadow rays")
+        print(line + "; kernel and plain version agree", flush=True)
 
-        if name == "big-scene":
-            # Launch shapes of the render path: 131072 primary rays (tile
-            # 128x128 x 8 spp) and one any-hit launch over 3 x 131072.
-            R = 131072
-            a = (o[:R].contiguous(), d[:R].contiguous(), cfg.epsilon, inf, st, cfg)
-            skw = dict(src_node=src[:R], src_tri=src[:R])
-            sel = torch.cat([torch.arange(R, device=dev) + li * n_rays
-                             for li in range(st.n_lights)])
-            b = (so[sel].contiguous(), sd[sel].contiguous(), st_min[sel].contiguous(), inf,
-                 st, cfg)
-            bkw = dict(active=sact[sel], src_node=snode[sel], src_tri=stri[sel], any_hit=True)
-            runs = {
-                "nearest": (lambda: intersect_scene_cuda(*a, **skw),
-                            lambda: intersect_scene_sweep_ref(*a, **skw)),
-                "any_hit": (lambda: intersect_scene_cuda(*b, **bkw),
-                            lambda: intersect_scene_sweep_ref(*b, **bkw)),
-            }
-            _gate_nearest(runs["nearest"][0](), runs["nearest"][1](), "nearest at 131072")
-            if not torch.equal(runs["any_hit"][0]().hit, runs["any_hit"][1]().hit):
-                raise AssertionError("any-hit at 3x131072: hit differs")
-            for mode, (kern, plain) in runs.items():
-                # plain, kernel, kernel, plain: both versions in turns.
-                p1 = _time_ms(plain, 3)
-                k1 = _time_ms(kern, 20)
-                k2 = _time_ms(kern, 20)
-                p2 = _time_ms(plain, 3)
-                timing[mode] = ((k1 + k2) / 2, (p1 + p2) / 2)
-                print(f"[2 timing] {mode} ({'3x' if mode == 'any_hit' else ''}{R} rays): "
-                      f"kernel {timing[mode][0]:.3f} ms, plain {timing[mode][1]:.3f} ms",
-                      flush=True)
-    return err, timing
+        if name in ("big-scene", "torus-showcase", "glossy-reflection"):
+            timing[name] = _time_launches(name, o, d, src, near, st, cfg, n_rays)
+    return err, diffs, timing, sorted(branches)
+
+
+def _time_launches(name, o, d, src, near, st, cfg, n_rays):
+    """Both versions at the render path's launch shapes: LAUNCH_RAYS
+    primary rays (a 128x128 tile x 8 spp) and one any-hit launch over L x
+    LAUNCH_RAYS shadow rays; plain, kernel, kernel, plain in turns.
+    Returns {mode: (kernel ms, plain ms, bound ms, bound_by)}."""
+    import torch
+    from portrayer_tpu_torch.ops.cuda_intersect import (
+        intersect_scene_cuda, intersect_scene_sweep_ref)
+
+    dev = o.device
+    inf = float("inf")
+    R = LAUNCH_RAYS
+    so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
+    sel = torch.cat([torch.arange(R, device=dev) + li * n_rays for li in range(st.n_lights)])
+    shapes = {
+        "nearest": ((o[:R].contiguous(), d[:R].contiguous(), cfg.epsilon, inf),
+                    dict(src_node=src[:R], src_tri=src[:R]), False),
+        "any_hit": ((so[sel].contiguous(), sd[sel].contiguous(), st_min[sel].contiguous(), inf),
+                    dict(active=sact[sel], src_node=snode[sel], src_tri=stri[sel]), True),
+    }
+    out = {}
+    for mode, (args, kw, any_hit) in shapes.items():
+        kern = lambda: intersect_scene_cuda(*args, st, cfg, any_hit=any_hit, **kw)
+        plain = lambda: intersect_scene_sweep_ref(*args, st, cfg, any_hit=any_hit, **kw)
+        if not torch.equal(kern().hit, plain().hit):
+            raise AssertionError(f"{name} {mode} at the launch shape: hit differs")
+        p1 = _time_ms(plain, 3)
+        k1 = _time_ms(kern, 20)
+        k2 = _time_ms(kern, 20)
+        p2 = _time_ms(plain, 3)
+        bound, bound_by = _bound_ms(args, kw, st, cfg, any_hit)
+        out[mode] = ((k1 + k2) / 2, (p1 + p2) / 2, bound, bound_by)
+        n = args[0].shape[0]
+        print(f"[2 timing] {name} {mode} ({n} rays): kernel {out[mode][0]:.3f} ms, plain "
+              f"{out[mode][1]:.3f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+    return out
 
 
 def phase_goldens(dev):
@@ -196,7 +357,8 @@ def phase_goldens(dev):
     from portrayer_tpu_torch import RenderConfig, render_u8, scenes
     from portrayer_tpu_torch.image_io import read_png
 
-    for name, size in (("simple", (64, 64)), ("big-scene", (160, 82))):
+    for name, size in (("simple", (64, 64)), ("big-scene", (160, 82)),
+                       ("torus-showcase", (64, 64))):
         spec = scenes.load(name)
         cfg = RenderConfig(device=dev, samples=4, tile=(64, 64), seed=0)
         ours = render_u8(spec.scene, spec.camera, size, spec.background, cfg).astype(np.int16)
@@ -204,84 +366,108 @@ def phase_goldens(dev):
         if ours.shape != gold.shape:
             raise AssertionError(f"{name}: shape {ours.shape} vs golden {gold.shape}")
         diff = np.abs(ours - gold)
-        frac = (diff > 2).any(axis=-1).mean()
-        if not frac < 1e-3:
-            raise AssertionError(f"{name}: {frac:.2%} pixels differ (max {diff.max()})")
+        off = (diff > 2).any(axis=-1).reshape(-1)
+        frac = off.mean()
+        note = ""
+        if name == "torus-showcase":
+            # The rule holds on the pixels where the JAX package's own
+            # op-by-op render agrees with its jitted golden.
+            jit = np.zeros_like(off)
+            jit[list(TORUS_JIT_PIXELS)] = True
+            note = (f"; {int((off & jit).sum())} of them among the {jit.sum()} pixels "
+                    f"the JAX package's op-by-op render has off")
+            off = off & ~jit
+        if not off.mean() < 1e-3:
+            raise AssertionError(f"{name}: {frac:.2%} pixels differ (max {diff.max()}){note}")
         print(f"[3 golden] {name} {size[0]}x{size[1]}: {frac:.4%} pixels off by >2/255 "
-              f"(max {diff.max()})", flush=True)
+              f"(max {diff.max()}){note}", flush=True)
 
 
-def phase_full_frame(dev):
+def _main_path(dev, name, path_counts):
+    """One main path: `name` at its published size and FULL_FRAME_SPP
+    through Image.render, with the counts of that run alone."""
     import numpy as np
     import torch
     from portrayer_tpu_torch import Image, RenderConfig, scenes
     from portrayer_tpu_torch.image_io import read_png
     from portrayer_tpu_torch.ops import cuda_intersect
 
-    spec = scenes.load("big-scene")
+    spec = scenes.load(name)
     w, h = spec.size
-    cfg = RenderConfig(device=dev, samples=FULL_FRAME_SPP, max_rays_per_launch=131072)
+    cfg = RenderConfig(device=dev, samples=FULL_FRAME_SPP, max_rays_per_launch=LAUNCH_RAYS,
+                       queue_caps=spec.queue_caps)
     os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, "big-scene.png")
+    path = os.path.join(OUT_DIR, f"{name}.png")
     img = Image(None, w, h)
+    stats = []
     torch.cuda.synchronize()
     cuda_intersect.reset_counts()
     t0 = time.perf_counter()
-    img.render(spec.scene, spec.camera, spec.background, cfg)
+    img.render(spec.scene, spec.camera, spec.background, cfg, stats=stats)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(cuda_intersect.COUNTS)
+    path_counts[name] = counts
     img.save_as(path)
     if not np.array_equal(read_png(path), img.buffer):
-        raise AssertionError("saved PNG does not decode to the rendered bytes")
+        raise AssertionError(f"{name}: saved PNG does not decode to the rendered bytes")
     if img.buffer.shape != (h, w, 3) or img.buffer.max() == 0:
-        raise AssertionError("full frame is empty or misshapen")
+        raise AssertionError(f"{name}: frame is empty or misshapen")
     if counts["nearest"] == 0 or counts["any_hit"] == 0:
-        raise AssertionError(f"main path did not launch both kernel modes: {counts}")
+        raise AssertionError(f"{name}: main path did not launch both kernel modes: {counts}")
     if counts["plain_on_cuda"] != 0:
-        raise AssertionError(f"plain version ran on CUDA tensors: {counts}")
+        raise AssertionError(f"{name}: plain version ran on CUDA tensors: {counts}")
+    chunks = len(stats)  # every chunk traces the same number of rays
+    live = sum(st.live for st in stats).tolist()
+    rounds = sum(n > 0 for st in stats for n in st.live.tolist())
+    syncs = sum(st.syncs for st in stats)
+    dropped_w = sum(st.dropped_w for st in stats) / chunks
+    if dropped_w > 1e-3:
+        raise AssertionError(f"{name}: queue overflow dropped {dropped_w:.4%} of the throughput")
     mrays = w * h * FULL_FRAME_SPP / secs / 1e6
-    print(f"[4 full frame] big-scene {w}x{h} x {FULL_FRAME_SPP} spp, tile {cfg.tile}, "
-          f"{cfg.max_rays_per_launch} rays/launch: {secs:.3f} s, {mrays:.3f} Mrays/s primary; "
-          f"launches nearest {counts['nearest']} any-hit {counts['any_hit']}, plain on CUDA "
-          f"{counts['plain_on_cuda']}; PNG {os.path.relpath(path, ROOT)} round-trips",
+    print(f"[4 main path] {name} {w}x{h} x {FULL_FRAME_SPP} spp, tile {cfg.tile}, "
+          f"{LAUNCH_RAYS} rays/launch: {secs:.3f} s, {mrays:.3f} Mrays/s primary; {chunks} chunks, "
+          f"launches nearest {counts['nearest']} any-hit {counts['any_hit']} "
+          f"({counts['nearest'] / chunks:.2f} and {counts['any_hit'] / chunks:.2f} per chunk), "
+          f"plain on CUDA {counts['plain_on_cuda']}; rounds {rounds}, host syncs of the "
+          f"live counts {syncs} ({syncs / chunks:.2f} per chunk); live rays per round "
+          f"{live}; dropped_w {dropped_w:.3g}; PNG {os.path.relpath(path, ROOT)} round-trips",
           flush=True)
-    return counts
 
 
-def phase_simple_frame(dev):
-    """simple at its 256x256 through render_linear and the kernel, held
-    against the flat oracle's render on the card: fewer than 0.1% of pixels
-    may differ by more than 1e-4 (a silhouette sample that one sweep hits
-    and the other misses moves its pixel by up to a quarter of a color)."""
+def _linear_vs_flat(dev, name, spp, size=None):
+    """`name` through render_linear and the kernels, held against the flat
+    oracle's render on the card: fewer than 0.1% of pixels may differ by
+    more than 1e-4 (a silhouette sample that one sweep hits and the other
+    misses moves its pixel by a large step)."""
     import numpy as np
     import torch
     from portrayer_tpu_torch import RenderConfig, render_linear, scenes
     from portrayer_tpu_torch.ops import cuda_intersect
 
-    spec = scenes.load("simple")
-    w, h = spec.size
-    args = (spec.scene, spec.camera, spec.size, spec.background)
+    spec = scenes.load(name)
+    w, h = size or spec.size
+    args = (spec.scene, spec.camera, (w, h), spec.background)
     torch.cuda.synchronize()
     cuda_intersect.reset_counts()
     t0 = time.perf_counter()
-    ours = render_linear(*args, RenderConfig(device=dev, samples=SIMPLE_SPP))
+    ours = render_linear(*args, RenderConfig(device=dev, samples=spp))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(cuda_intersect.COUNTS)
     if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"] != 0:
-        raise AssertionError(f"simple did not run through the kernels alone: {counts}")
-    flat = render_linear(*args, RenderConfig(device=dev, samples=SIMPLE_SPP, accel="flat"))
+        raise AssertionError(f"{name} did not run through the kernels alone: {counts}")
+    flat = render_linear(*args, RenderConfig(device=dev, samples=spp, accel="flat"))
     if ours.shape != (h, w, 3) or not np.isfinite(ours).all() or ours.max() <= 0.0:
-        raise AssertionError("simple frame is empty, misshapen or not finite")
+        raise AssertionError(f"{name} frame is empty, misshapen or not finite")
     diff = np.abs(ours - flat).max(axis=-1)
     frac = (diff > 1e-4).mean()
-    if not frac < 1e-3:
-        raise AssertionError(f"simple: {frac:.3%} pixels differ from the flat oracle")
-    print(f"[4 simple] {w}x{h} x {SIMPLE_SPP} spp via render_linear: {secs:.3f} s, "
-          f"{w * h * SIMPLE_SPP / secs / 1e6:.3f} Mrays/s primary; launches nearest "
+    print(f"[4 linear] {name} {w}x{h} x {spp} spp via render_linear: {secs:.3f} s, "
+          f"{w * h * spp / secs / 1e6:.3f} Mrays/s primary; launches nearest "
           f"{counts['nearest']} any-hit {counts['any_hit']}; {frac:.4%} pixels differ from "
           f"the flat oracle by >1e-4 (max {diff.max():.3g})", flush=True)
+    if not frac < 1e-3:
+        raise AssertionError(f"{name}: {frac:.3%} pixels differ from the flat oracle")
 
 
 def main():
@@ -304,17 +490,28 @@ def main():
     dev = torch.device("cuda", 0)
 
     phase_card(dev)
-    err, timing = phase_kernels(dev)
+    err, diffs, timing, branches = phase_kernels(dev)
     phase_goldens(dev)
-    counts = phase_full_frame(dev)
-    phase_simple_frame(dev)
+    path_counts = {}
+    for name in ("big-scene", "torus-showcase", "glossy-reflection"):
+        _main_path(dev, name, path_counts)
+    _linear_vs_flat(dev, "simple", SIMPLE_SPP)
+    _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
 
-    kernels = [
-        {"name": f"sweep_{mode}", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNEL, "launches": counts[mode], "max_abs_err": err[mode],
-         "ms": timing[mode][0], "plain_ms": timing[mode][1]}
-        for mode in ("nearest", "any_hit")
-    ]
+    kernels = []
+    for mode in ("nearest", "any_hit"):
+        ms, plain_ms, bound, bound_by = timing["big-scene"][mode]
+        kernels.append({
+            "name": f"sweep_{mode}", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": TPU_KERNEL, "branches": branches,
+            "launches": sum(c[mode] for c in path_counts.values()),
+            "launches_by_path": {p: c[mode] for p, c in path_counts.items()},
+            "max_abs_err": err[mode], "rays_differing": diffs[mode],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None,
+            "by_scene": {s: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t[mode]))
+                         for s, t in timing.items()},
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,12 @@ imports torch and numpy only (never JAX, flax, PIL or ``portrayer_tpu``),
 so it runs on a machine with a CUDA card and no JAX.  The scene
 description, its lowering to tables and PNG I/O live here for that reason.
 
-This slice renders scenes of spheres, cubes, cylinders and cones lit by
-point lights, with materials that do not reflect (or mirrors at
-``max_depth=0``): the nearest-hit and shadow sweeps go through the
-hand-written kernel in ``csrc/sweep.cu`` (``accel="cuda"``), whose plain
-PyTorch version serves CPU tensors.
+It renders scenes of spheres, planes, cubes, cylinders, cones and tori lit
+by point lights, through the bounce rounds of mirror, glossy and
+refractive materials: the nearest-hit and shadow sweeps of every round go
+through the hand-written kernel in ``csrc/sweep.cu`` (``accel="cuda"``),
+whose plain PyTorch version serves CPU tensors.  Meshes, textures, normal
+maps and area lights are refused with ``NotImplementedError``.
 """
 
 from .config import (

@@ -13,6 +13,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,6 +35,26 @@ _lib = None
 build_info = {"seconds": None, "ptxas": ""}
 
 
+def ptxas_kernels(report: str):
+    """[(entry function, registers, spill store bytes, spill load bytes)]
+    from a `-Xptxas -v` report, one per kernel instantiation."""
+    out, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1))) + spills)
+            name = None
+    return out
+
+
 def _nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
                  shutil.which("nvcc")):
@@ -44,7 +65,7 @@ def _nvcc() -> str:
 
 def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    common = [p] * 12 + [i, i, i, f, f]
+    common = [p] * 12 + [i, i, i, f, f, i]
     lib.sweep_nearest.argtypes = common + [p, p, p, p]
     lib.sweep_nearest.restype = i
     lib.sweep_any_hit.argtypes = common + [p, p]

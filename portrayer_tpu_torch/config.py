@@ -71,6 +71,17 @@ class RenderConfig:
     # Self-intersection guard in the local units of the source node.
     self_eps_local: float = 2e-3
 
+    # Bounce-queue capacity as a multiple of the primary ray count.  None
+    # auto-sizes: 4x with refractive materials (both children carry
+    # energy), else 1x (reflect-only rounds emit one live child per hit).
+    queue_factor: Optional[float] = None
+
+    # Per-round capacity schedule: round r's queue holds queue_caps[r-1] x
+    # primary rays (the last entry repeats).  Overflow keeps the
+    # highest-throughput children and sends the rest to the background,
+    # counted in TraceStats.dropped_w.  None = queue_factor every round.
+    queue_caps: Optional[Tuple[float, ...]] = None
+
     # Pixels per render tile (height, width).
     tile: Tuple[int, int] = (128, 128)
 
@@ -88,6 +99,8 @@ class RenderConfig:
         object.__setattr__(self, "device", torch.device(self.device))
         if self.accel not in ACCELS:
             raise ValueError(f"accel must be one of {ACCELS}, got {self.accel!r}")
+        if self.queue_caps is not None and len(self.queue_caps) == 0:
+            raise ValueError("queue_caps must be None or non-empty")
 
     def resolved_samples(self) -> int:
         return self.samples if self.samples is not None else _env_samples()

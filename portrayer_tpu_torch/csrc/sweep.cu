@@ -15,18 +15,25 @@
 //    ties go to the earlier (chunk, lane).  The TPU kernel's 2^-16
 //    lane-tagged key was a workaround for the TPU's lane reductions.
 //  * Any-hit mode returns at the first in-range hit.
+//  * Every packed kind but tri_w has a branch.  The torus branch is five
+//    times the size of the others and would set the register count, and so
+//    the occupancy, of every scene; it is instantiated only for tables that
+//    hold a torus chunk (template flag HAS_TORUS), as the TPU kernel
+//    compiles only the kinds present.
 //
-// Bound on this card: a thread's work is ~100-200 f32 ops per candidate and
-// 5-13 table words per candidate; a warp's threads read the same table
-// column, so those reads are L1/L2 broadcasts and the kernel is bound by
-// issue rate and by divergence where the rays of a warp cross different
-// chunks.  Staging chunks in shared memory and culling per warp are later
-// work.
+// Bound on this card: a thread's work is ~100-200 f32 ops per candidate
+// (~700 for a torus) and 5-14 table words per candidate; a warp's threads
+// read the same table column, so those reads are L1/L2 broadcasts and the
+// kernel is bound by issue rate and by divergence where the rays of a warp
+// cross different chunks.  Staging chunks in shared memory and culling per
+// warp are later work.
 //
 // Numerics: built with -fmad=false and written in the op order of the plain
 // PyTorch version (ops/cuda_intersect.py: intersect_scene_sweep_ref), whose
 // every op rounds once; IEEE division and sqrt (nvcc defaults).  Selects
-// are written as ternaries with the same NaN behaviour as torch.where.
+// are written as ternaries with the same NaN behaviour as torch.where, and
+// clamps as ternaries that keep a NaN, as torch.clamp does.  expf, logf and
+// cosf (torus only) are CUDA's, which PyTorch's CUDA ops also call.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -36,8 +43,10 @@ namespace {
 constexpr int kChunk = 128;   // columns per chunk (PACK_CHUNK)
 constexpr int kThreads = 128;
 
-// Packed chunk kinds (scene/flatten.py).
-constexpr int kCubeG = 2, kCylinderG = 3, kConeG = 4, kSphereW = 7;
+// Packed chunk kinds (scene/flatten.py).  tri_w (5) is refused at table
+// build.
+constexpr int kSphereG = 0, kPlaneG = 1, kCubeG = 2, kCylinderG = 3, kConeG = 4,
+              kTorusG = 6, kSphereW = 7, kAabox = 8;
 
 struct Tables {
   const float* pf;        // [21, ncol] row-major
@@ -51,6 +60,21 @@ struct Tables {
 
 __device__ __forceinline__ float fmin_sel(float a, float b) { return a < b ? a : b; }
 __device__ __forceinline__ float fmax_sel(float a, float b) { return a > b ? a : b; }
+
+// torch.clamp(x, min=lo) / (max=hi) / (lo, hi): a NaN stays NaN.
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
+__device__ __forceinline__ float clamp_to(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// torch.minimum / torch.maximum: NaN if either operand is NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
 
 // n / d where d != 0, else +inf (_gd).
 __device__ __forceinline__ float guarded_div(float n, float d) {
@@ -120,6 +144,29 @@ __device__ __forceinline__ float general_tmin(float ld2, bool is_src, float t_mi
   if (!is_src) return t_min;
   float t_self = self_eps * (1.0f / sqrtf(fmax_sel(ld2, 1e-30f)));
   return fmax_sel(t_min, t_self);
+}
+
+// sphere_g: unit sphere under a general affine (non-uniform scale).
+__device__ float sphere_g(const Tables& tb, int col, const Ray& ry, bool is_src,
+                          float self_eps) {
+  Local l = local_frame(tb, col, ry);
+  float a = l.dx * l.dx + l.dy * l.dy + l.dz * l.dz;
+  float b = 2.0f * (l.ox * l.dx + l.oy * l.dy + l.oz * l.dz);
+  float c = l.ox * l.ox + l.oy * l.oy + l.oz * l.oz - 1.0f;
+  return smallest_root(a, b, c, general_tmin(a, is_src, ry.t_min, self_eps), ry.t_max);
+}
+
+// plane_g: unit XZ square at y = 0 (plane.rs).
+__device__ float plane_g(const Tables& tb, int col, const Ray& ry, bool is_src,
+                         float eps_r, float self_eps) {
+  Local l = local_frame(tb, col, ry);
+  float t = guarded_div(-l.oy, l.dy);
+  float px = l.ox + t * l.dx;
+  float pz = l.oz + t * l.dz;
+  float ld2 = l.dx * l.dx + l.dy * l.dy + l.dz * l.dz;
+  bool ok = in_range(t, general_tmin(ld2, is_src, ry.t_min, self_eps), ry.t_max) &&
+            (fabsf(px) <= eps_r) && (fabsf(pz) <= eps_r);
+  return ok ? t : CUDART_INF_F;
 }
 
 // cube_g: the 6-face fold in cube.rs FACES order; containment skips the
@@ -224,6 +271,154 @@ __device__ float sphere_w(const Tables& tb, int col, const Ray& ry, bool is_src,
   return ok0 ? r0 : (ok1 ? r1 : CUDART_INF_F);
 }
 
+// arccos by Abramowitz-Stegun 4.4.45, as the TPU kernel computes it.
+__device__ __forceinline__ float as_acos(float x) {
+  float ax = clamp_to(fabsf(x), 0.0f, 1.0f);
+  float p = -0.0012624911f;
+  p = p * ax + 0.0066700901f;
+  p = p * ax + -0.0170881256f;
+  p = p * ax + 0.0308918810f;
+  p = p * ax + -0.0501743046f;
+  p = p * ax + 0.0889789874f;
+  p = p * ax + -0.2145988016f;
+  p = p * ax + 1.5707963050f;
+  float r = p * sqrtf(1.0f - ax);
+  return x < 0.0f ? 3.14159265358979f - r : r;
+}
+
+// Signed cube root through exp/log, as the TPU kernel computes it.
+__device__ __forceinline__ float exp_cbrt(float x, float third) {
+  float ax = clamp_min(fabsf(x), 1e-30f);
+  float r = expf(logf(ax) * third);
+  float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  return x == 0.0f ? 0.0f : sgn * r;
+}
+
+// torus_g: the quartic torus (primitive/torus.rs:56-110), center and tube
+// radius in rows 12..13.  Ferrari through the resolvent cubic, 2 resolvent
+// and 3 root Newton steps.  Integer powers are products in XLA's
+// integer_pow order; division by 3 and 27 multiplies by the f32 reciprocal,
+// as the plain version (and PyTorch on CUDA for any scalar divisor) does.
+__device__ float torus_g(const Tables& tb, int col, const Ray& ry, bool is_src,
+                         float self_eps) {
+  const float inf = CUDART_INF_F;
+  const float third = 1.0f / 3.0f;
+  const float rcp27 = 1.0f / 27.0f;
+  Local l = local_frame(tb, col, ry);
+  const float c_r = row(tb, 12, col), a_r = row(tb, 13, col);
+  float dd = l.dx * l.dx + l.dy * l.dy + l.dz * l.dz;
+  float pp = l.ox * l.ox + l.oy * l.oy + l.oz * l.oz;
+  float dp = l.dx * l.ox + l.dy * l.oy + l.dz * l.oz;
+  float t_min_e = general_tmin(dd, is_src, ry.t_min, self_eps);
+  float a2 = a_r * a_r;
+  float c2 = c_r * c_r;
+  float k = pp - (a2 + c2);
+  float A = dd * dd;
+  float Bq = 4.0f * dd * dp;
+  float C4 = 2.0f * dd * k + 4.0f * dp * dp + 4.0f * c2 * l.dy * l.dy;
+  float D = 4.0f * k * dp + 8.0f * c2 * l.oy * l.dy;
+  float E = k * k - 4.0f * c2 * (a2 - l.oy * l.oy);
+
+  float safe_A = A == 0.0f ? 1.0f : A;
+  float b = Bq / safe_A;
+  float c = C4 / safe_A;
+  float d_ = D / safe_A;
+  float e = E / safe_A;
+  float b2 = b * b;
+  float p = c - 3.0f * b2 / 8.0f;
+  float q = d_ - b * c / 2.0f + b2 * b / 8.0f;
+  float r = e - b * d_ / 4.0f + b2 * c / 16.0f - 3.0f * b2 * b2 / 256.0f;
+
+  // Resolvent cubic z^3 + 2p z^2 + (p^2-4r) z - q^2.
+  float a2c = 2.0f * p;
+  float a1c = p * p - 4.0f * r;
+  float a0c = -q * q;
+  float pc = a1c - a2c * a2c * third;
+  float qc = 2.0f * (a2c * (a2c * a2c)) * rcp27 - a2c * a1c * third + a0c;
+  float half_q = qc / 2.0f;
+  float third_p = pc * third;
+  float disc = half_q * half_q + third_p * (third_p * third_p);
+  float safe_tp = clamp_max(third_p, -1e-30f);
+  float mm = 2.0f * sqrtf(-safe_tp);
+  float cos_arg = clamp_to(3.0f * qc / (pc * (pc == 0.0f ? 1.0f : mm)), -1.0f, 1.0f);
+  float phi = as_acos(cos_arg);
+  float z_trig = mm * cosf(phi * third) - a2c * third;
+  float sqd = sqrtf(clamp_min(disc, 0.0f));
+  float z_card = exp_cbrt(-half_q + sqd, third) + exp_cbrt(-half_q - sqd, third) - a2c * third;
+  float z = disc > 0.0f ? z_card : z_trig;
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {  // polish the resolvent (Cardano cancellation)
+    float fz = ((z + a2c) * z + a1c) * z + a0c;
+    float fpz = (3.0f * z + 2.0f * a2c) * z + a1c;
+    z = z - fz / (fpz == 0.0f ? 1.0f : fpz);
+  }
+  z = clamp_min(z, 0.0f);
+
+  float sz = sqrtf(z);
+  bool biquad = z < 1e-6f * (1.0f + fabsf(p));
+  float s_safe = biquad ? 1.0f : sz;
+  float half = (p + z) / 2.0f;
+  float shift = q / (2.0f * s_safe);
+  float c1 = half - shift;
+  float c2q = half + shift;
+  float d1 = sz * sz - 4.0f * c1;
+  float sq1 = sqrtf(clamp_min(d1, 0.0f));
+  float d2 = sz * sz - 4.0f * c2q;
+  float sq2 = sqrtf(clamp_min(d2, 0.0f));
+  float ydisc = p * p - 4.0f * r;
+  float ysq = sqrtf(clamp_min(ydisc, 0.0f));
+  float y1 = (-p - ysq) / 2.0f;
+  float y2 = (-p + ysq) / 2.0f;
+  bool okb1 = (ydisc >= 0.0f) && (y1 >= 0.0f);
+  bool okb2 = (ydisc >= 0.0f) && (y2 >= 0.0f);
+  float r1s = sqrtf(clamp_min(y1, 0.0f));
+  float r2s = sqrtf(clamp_min(y2, 0.0f));
+  bool ok12 = biquad ? okb1 : (d1 >= 0.0f);
+  bool ok34 = biquad ? okb2 : (d2 >= 0.0f);
+
+  const float us[4] = {biquad ? -r1s : (-sz - sq1) / 2.0f, biquad ? r1s : (-sz + sq1) / 2.0f,
+                       biquad ? -r2s : (sz - sq2) / 2.0f, biquad ? r2s : (sz + sq2) / 2.0f};
+  float best = inf;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float t = us[i] - b / 4.0f;
+#pragma unroll
+    for (int it = 0; it < 3; ++it) {  // Newton polish on the quartic
+      float fv = (((A * t + Bq) * t + C4) * t + D) * t + E;
+      float fp = ((4.0f * A * t + 3.0f * Bq) * t + 2.0f * C4) * t + D;
+      t = t - fv / (fp == 0.0f ? 1.0f : fp);
+    }
+    bool ok = (i < 2 ? ok12 : ok34) && in_range(t, t_min_e, ry.t_max);
+    t = ok ? t : inf;
+    best = t < best ? t : best;
+  }
+  return best;
+}
+
+// aabox: slab test on the pack-time inflated world box (rows 0..2 min,
+// 3..5 max) with the hoisted reciprocal directions; the entry face if in
+// range, else the exit face (the cube's 6-face fold semantics).  The
+// self-eps raise measures the direction in the box's local units (inverse
+// scale rows 6..8).
+__device__ float aabox(const Tables& tb, int col, const Ray& ry, const float rcp[3],
+                       bool is_src, float self_eps) {
+  float t1x = (row(tb, 0, col) - ry.ox) * rcp[0];
+  float t2x = (row(tb, 3, col) - ry.ox) * rcp[0];
+  float t1y = (row(tb, 1, col) - ry.oy) * rcp[1];
+  float t2y = (row(tb, 4, col) - ry.oy) * rcp[1];
+  float t1z = (row(tb, 2, col) - ry.oz) * rcp[2];
+  float t2z = (row(tb, 5, col) - ry.oz) * rcp[2];
+  float ten = nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)), nan_min(t1z, t2z));
+  float tex = nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)), nan_max(t1z, t2z));
+  float dlx = ry.dx * row(tb, 6, col);
+  float dly = ry.dy * row(tb, 7, col);
+  float dlz = ry.dz * row(tb, 8, col);
+  float t_min_e = general_tmin(dlx * dlx + dly * dly + dlz * dlz, is_src, ry.t_min, self_eps);
+  float t = ten >= t_min_e ? ten : tex;
+  bool ok = (ten <= tex) && in_range(t, t_min_e, ry.t_max);
+  return ok ? t : CUDART_INF_F;
+}
+
 // Conservative slab test of chunk ci's AABB (the TPU prologue's rule).
 __device__ __forceinline__ bool crosses(const Tables& tb, int ci, const Ray& ry,
                                         const float rcp[3]) {
@@ -246,8 +441,9 @@ __device__ __forceinline__ float safe_rcp(float dc) {
   return 1.0f / (fabsf(dc) < 1e-30f ? tiny : dc);
 }
 
-// src_node/src_tri null: no ray has a source surface (all -1).
-template <bool ANY_HIT>
+// src_node/src_tri null: no ray has a source surface (all -1).  HAS_TORUS:
+// the tables hold a torus chunk (else the torus case is compiled out).
+template <bool ANY_HIT, bool HAS_TORUS>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
              const float* __restrict__ t_min, const float* __restrict__ t_max,
@@ -279,11 +475,21 @@ sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
         const bool is_src = node == ry.src && tri == ry.srct;
         float t;
         switch (kind) {
-          case kSphereW: t = sphere_w(tb, col, ry, is_src, self_eps); break;
+          case kSphereG: t = sphere_g(tb, col, ry, is_src, self_eps); break;
+          case kPlaneG: t = plane_g(tb, col, ry, is_src, eps_r, self_eps); break;
           case kCubeG: t = cube_g(tb, col, ry, is_src, eps_r, self_eps); break;
           case kCylinderG: t = cylinder_g(tb, col, ry, is_src, self_eps); break;
           case kConeG: t = cone_g(tb, col, ry, is_src, self_eps); break;
-          default: t = CUDART_INF_F; break;  // refused at table build
+          case kTorusG:
+            if constexpr (HAS_TORUS) {
+              t = torus_g(tb, col, ry, is_src, self_eps);
+            } else {
+              t = CUDART_INF_F;
+            }
+            break;
+          case kSphereW: t = sphere_w(tb, col, ry, is_src, self_eps); break;
+          case kAabox: t = aabox(tb, col, ry, rcp, is_src, self_eps); break;
+          default: t = CUDART_INF_F; break;  // tri_w: refused at table build
         }
         if (ANY_HIT) {
           if (t < CUDART_INF_F) {
@@ -311,31 +517,32 @@ template <bool ANY_HIT>
 int launch(const float* o, const float* d, const float* t_min, const float* t_max,
            const bool* active, const int* src_node, const int* src_tri, const float* pf,
            const int* pid, const int* chunk_kind, const float* cmin, const float* cmax,
-           int n_rays, int n_chunks, int ncol, float eps_r, float self_eps, float* out_t,
-           int* out_node, int* out_tri, int* out_found, void* stream) {
+           int n_rays, int n_chunks, int ncol, float eps_r, float self_eps, int has_torus,
+           float* out_t, int* out_node, int* out_tri, int* out_found, void* stream) {
   if (n_rays <= 0) return 0;
   Tables tb{pf, pid, chunk_kind, cmin, cmax, n_chunks, ncol};
   dim3 grid((n_rays + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sweep_kernel<ANY_HIT><<<grid, kThreads, 0, s>>>(
-      o, d, t_min, t_max, active, src_node, src_tri, tb, n_rays, eps_r, self_eps, out_t,
-      out_node, out_tri, out_found);
+  auto kernel = has_torus ? sweep_kernel<ANY_HIT, true> : sweep_kernel<ANY_HIT, false>;
+  kernel<<<grid, kThreads, 0, s>>>(o, d, t_min, t_max, active, src_node, src_tri, tb, n_rays,
+                                   eps_r, self_eps, out_t, out_node, out_tri, out_found);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each returns cudaGetLastError()
-// after the launch; src_node/src_tri may be null (no self-intersection raise).
+// after the launch; src_node/src_tri may be null (no self-intersection raise);
+// has_torus != 0 when a chunk of chunk_kind is a torus.
 extern "C" int sweep_nearest(const float* o, const float* d, const float* t_min,
                              const float* t_max, const bool* active, const int* src_node,
                              const int* src_tri, const float* pf, const int* pid,
                              const int* chunk_kind, const float* cmin, const float* cmax,
                              int n_rays, int n_chunks, int ncol, float eps_r,
-                             float self_eps, float* out_t, int* out_node, int* out_tri,
-                             void* stream) {
+                             float self_eps, int has_torus, float* out_t, int* out_node,
+                             int* out_tri, void* stream) {
   return launch<false>(o, d, t_min, t_max, active, src_node, src_tri, pf, pid, chunk_kind,
-                       cmin, cmax, n_rays, n_chunks, ncol, eps_r, self_eps, out_t,
+                       cmin, cmax, n_rays, n_chunks, ncol, eps_r, self_eps, has_torus, out_t,
                        out_node, out_tri, nullptr, stream);
 }
 
@@ -344,8 +551,8 @@ extern "C" int sweep_any_hit(const float* o, const float* d, const float* t_min,
                              const int* src_tri, const float* pf, const int* pid,
                              const int* chunk_kind, const float* cmin, const float* cmax,
                              int n_rays, int n_chunks, int ncol, float eps_r,
-                             float self_eps, int* out_found, void* stream) {
+                             float self_eps, int has_torus, int* out_found, void* stream) {
   return launch<true>(o, d, t_min, t_max, active, src_node, src_tri, pf, pid, chunk_kind,
-                      cmin, cmax, n_rays, n_chunks, ncol, eps_r, self_eps, nullptr,
+                      cmin, cmax, n_rays, n_chunks, ncol, eps_r, self_eps, has_torus, nullptr,
                       nullptr, nullptr, out_found, stream);
 }

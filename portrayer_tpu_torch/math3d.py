@@ -63,6 +63,123 @@ def matvec3(m33, v):
 
 
 # ---------------------------------------------------------------------------
+# Quartic solver for the torus (the reference's Quartic over the roots
+# crate, src/math.rs:126-133): Ferrari through the resolvent cubic, then
+# Newton polish.  Integer powers are written as products, in the order of
+# XLA's integer_pow (x^3 = x * x^2).
+# ---------------------------------------------------------------------------
+
+def _cbrt(x):
+    """Signed real cube root.  Torch has no cbrt: |x|^(1/3) through pow
+    with the f32 exponent 0.33333334 is within ~|ln|x||*1e-8 relative of
+    the true root (a few ulps here), and the resolvent's Newton polish
+    removes the rest."""
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+
+
+def _solve_cubic_largest(a2, a1, a0):
+    """Largest real root of z^3 + a2 z^2 + a1 z + a0 (trigonometric form
+    with three real roots, Cardano with one)."""
+    p = a1 - a2 * a2 / 3.0
+    q = 2.0 * (a2 * (a2 * a2)) / 27.0 - a2 * a1 / 3.0 + a0
+    half_q = q / 2.0
+    third_p = p / 3.0
+    disc = half_q * half_q + third_p * (third_p * third_p)
+    safe_tp = torch.clamp(third_p, max=-1e-30)
+    m = 2.0 * torch.sqrt(-safe_tp)
+    cos_arg = torch.clamp(3.0 * q / (p * torch.where(p == 0.0, 1.0, m)), -1.0, 1.0)
+    phi = torch.acos(cos_arg)
+    z_trig = m * torch.cos(phi / 3.0) - a2 / 3.0
+    sq = safe_sqrt(disc)
+    z_card = _cbrt(-half_q + sq) + _cbrt(-half_q - sq) - a2 / 3.0
+    return torch.where(disc > 0.0, z_card, z_trig)
+
+
+def quartic_roots(A, B, C, D, E):
+    """Real roots of A t^4 + B t^3 + C t^2 + D t + E (A != 0): (roots
+    [..., 4], valid [..., 4]), invalid entries +inf.  Newton-polished (3
+    steps) for float32."""
+    safe_A = torch.where(A == 0.0, 1.0, A)
+    b = B / safe_A
+    c = C / safe_A
+    d = D / safe_A
+    e = E / safe_A
+    # Depressed quartic u^4 + p u^2 + q u + r with t = u - b/4.
+    b2 = b * b
+    p = c - 3.0 * b2 / 8.0
+    q = d - b * c / 2.0 + b2 * b / 8.0
+    r = e - b * d / 4.0 + b2 * c / 16.0 - 3.0 * b2 * b2 / 256.0
+
+    # Resolvent z^3 + 2p z^2 + (p^2 - 4r) z - q^2; a root z > 0 factors
+    # the quartic into two quadratics.
+    a2c = 2.0 * p
+    a1c = p * p - 4.0 * r
+    a0c = -q * q
+    z = _solve_cubic_largest(a2c, a1c, a0c)
+    for _ in range(2):  # Cardano cancels near q ~ 0
+        fz = ((z + a2c) * z + a1c) * z + a0c
+        fpz = (3.0 * z + 2.0 * a2c) * z + a1c
+        z = z - fz / torch.where(fpz == 0.0, 1.0, fpz)
+    z = torch.clamp(z, min=0.0)
+    s = safe_sqrt(z)
+    biquad = z < 1e-6 * (1.0 + torch.abs(p))
+    s_safe = torch.where(biquad, 1.0, s)
+
+    half = (p + z) / 2.0
+    shift = q / (2.0 * s_safe)
+    c1 = half - shift
+    c2 = half + shift
+
+    def quad(bq, cq):
+        disc = bq * bq - 4.0 * cq
+        sqd = safe_sqrt(disc)
+        return (-bq - sqd) / 2.0, (-bq + sqd) / 2.0, disc >= 0.0
+
+    u1, u2, ok12 = quad(s, c1)
+    u3, u4, ok34 = quad(-s, c2)
+
+    # Biquadratic: y^2 + p y + r = 0; u = +-sqrt(y).
+    ydisc = p * p - 4.0 * r
+    ysq = safe_sqrt(ydisc)
+    y1 = (-p - ysq) / 2.0
+    y2 = (-p + ysq) / 2.0
+    okb = ydisc >= 0.0
+    okb1 = okb & (y1 >= 0.0)
+    okb2 = okb & (y2 >= 0.0)
+
+    u_all = torch.stack([
+        torch.where(biquad, -safe_sqrt(y1), u1),
+        torch.where(biquad, safe_sqrt(y1), u2),
+        torch.where(biquad, -safe_sqrt(y2), u3),
+        torch.where(biquad, safe_sqrt(y2), u4),
+    ], dim=-1)
+    ok_all = torch.stack([
+        torch.where(biquad, okb1, ok12),
+        torch.where(biquad, okb1, ok12),
+        torch.where(biquad, okb2, ok34),
+        torch.where(biquad, okb2, ok34),
+    ], dim=-1)
+
+    t = u_all - (b / 4.0)[..., None]
+    A4, B4, C4, D4, E4 = (x[..., None] for x in (A, B, C, D, E))
+    for _ in range(3):
+        f = (((A4 * t + B4) * t + C4) * t + D4) * t + E4
+        fp = ((4.0 * A4 * t + 3.0 * B4) * t + 2.0 * C4) * t + D4
+        t = t - f / torch.where(fp == 0.0, 1.0, fp)
+
+    valid = ok_all & (A4 != 0.0)
+    return torch.where(valid, t, torch.inf), valid
+
+
+def quartic_smallest_root_in_range(A, B, C, D, E, t_min, t_max):
+    """Smallest real quartic root with t_min <= t < t_max: (t, ok)."""
+    roots, valid = quartic_roots(A, B, C, D, E)
+    ok = valid & (roots >= t_min[..., None]) & (roots < t_max[..., None])
+    t = torch.amin(torch.where(ok, roots, torch.inf), dim=-1)
+    return t, ok.any(dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Host-side (numpy f64) transform builders
 # ---------------------------------------------------------------------------
 

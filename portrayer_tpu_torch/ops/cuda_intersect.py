@@ -20,7 +20,8 @@ import torch
 
 from ..config import RenderConfig
 from ..scene.flatten import (
-    SceneTables, PACK_CHUNK, CUBE, CYLINDER, CONE, PACKED_SPHERE_W,
+    SceneTables, PACK_CHUNK, SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, PACKED_SPHERE_W,
+    PACKED_AABOX,
 )
 from .intersect import Hit
 
@@ -83,13 +84,43 @@ def _in_range(t, t_min, t_max):
     return (t >= t_min) & (t < t_max)
 
 
+_THIRD = _f32(1.0 / 3.0)
+_RCP27 = _f32(1.0 / 27.0)
+
+
+def _acos(x):
+    """arccos by Abramowitz-Stegun 4.4.45 (|err| < 2e-7 on [-1, 1]), as the
+    TPU kernel computes it; the quartic's Newton polish cleans it up."""
+    ax = torch.clamp(torch.abs(x), 0.0, 1.0)
+    p = torch.full_like(ax, _f32(-0.0012624911))
+    for c in (0.0066700901, -0.0170881256, 0.0308918810, -0.0501743046,
+              0.0889789874, -0.2145988016, 1.5707963050):
+        p = p * ax + _f32(c)
+    r = p * torch.sqrt(1.0 - ax)
+    return torch.where(x < 0.0, _f32(math.pi) - r, r)
+
+
+def _cbrt(x):
+    """Signed cube root through exp/log, as the TPU kernel computes it."""
+    ax = torch.clamp(torch.abs(x), min=1e-30)
+    r = torch.exp(torch.log(ax) * _THIRD)
+    return torch.where(x == 0.0, 0.0, torch.sign(x) * r)
+
+
+def _safe_rcp(dc):
+    """1/d with |d| < 1e-30 replaced by +-1e-30 (the slab tests' guard)."""
+    tiny = torch.where(dc < 0.0, -1e-30, 1e-30)
+    return 1.0 / torch.where(torch.abs(dc) < 1e-30, tiny, dc)
+
+
 class _Chunk:
     """One chunk's columns ([1,128] rows) against a subset of rays ([k,1])."""
 
-    def __init__(self, pf_cols, node, ray, is_src, eps_r, self_eps):
+    def __init__(self, pf_cols, node, ray, rcp, is_src, eps_r, self_eps):
         self.m = pf_cols
         self.node = node
         self.ox, self.oy, self.oz, self.dx, self.dy, self.dz, self.t_min, self.t_max = ray
+        self.rdx, self.rdy, self.rdz = rcp
         self.is_src = is_src
         self.eps_r = eps_r
         self.self_eps = self_eps
@@ -110,6 +141,23 @@ class _Chunk:
     def general_tmin(self, ld2):
         t_self = self.self_eps * (1.0 / torch.sqrt(torch.clamp(ld2, min=1e-30)))
         return torch.where(self.is_src, torch.maximum(self.t_min, t_self), self.t_min)
+
+    def sphere_g(self):
+        lox, loy, loz, ldx, ldy, ldz = self.local_frame()
+        a = ldx * ldx + ldy * ldy + ldz * ldz
+        b = 2.0 * (lox * ldx + loy * ldy + loz * ldz)
+        c = lox * lox + loy * loy + loz * loz - 1.0
+        return _smallest_root(a, b, c, self.general_tmin(a), self.t_max)
+
+    def plane_g(self):
+        lox, loy, loz, ldx, ldy, ldz = self.local_frame()
+        t = _gd(-loy, ldy)
+        px = lox + t * ldx
+        pz = loz + t * ldz
+        ld2 = ldx * ldx + ldy * ldy + ldz * ldz
+        ok = (_in_range(t, self.general_tmin(ld2), self.t_max)
+              & (torch.abs(px) <= self.eps_r) & (torch.abs(pz) <= self.eps_r))
+        return torch.where(ok, t, INF)
 
     def cube_g(self):
         lox, loy, loz, ldx, ldy, ldz = self.local_frame()
@@ -171,6 +219,116 @@ class _Chunk:
         t_cap = torch.where(okc, t_cap, INF)
         return torch.where(t_cap < t_body, t_cap, t_body)
 
+    def torus_g(self):
+        """Quartic torus (primitive/torus.rs:56-110), radii in rows 12..13:
+        Ferrari through the resolvent cubic, 2 resolvent and 3 root Newton
+        steps.  Division by 3 and 27 multiplies by the f32 reciprocal
+        (PyTorch on CUDA does so for any scalar divisor)."""
+        lox, loy, loz, ldx, ldy, ldz = self.local_frame()
+        c_r, a_r = self.row(12), self.row(13)
+        dd = ldx * ldx + ldy * ldy + ldz * ldz
+        pp = lox * lox + loy * loy + loz * loz
+        dp = ldx * lox + ldy * loy + ldz * loz
+        t_min_e = self.general_tmin(dd)
+        a2 = a_r * a_r
+        c2 = c_r * c_r
+        k = pp - (a2 + c2)
+        A = dd * dd
+        Bq = 4.0 * dd * dp
+        C4 = 2.0 * dd * k + 4.0 * dp * dp + 4.0 * c2 * ldy * ldy
+        D = 4.0 * k * dp + 8.0 * c2 * loy * ldy
+        E = k * k - 4.0 * c2 * (a2 - loy * loy)
+
+        safe_A = torch.where(A == 0.0, 1.0, A)
+        b = Bq / safe_A
+        c = C4 / safe_A
+        d_ = D / safe_A
+        e = E / safe_A
+        b2 = b * b
+        p = c - 3.0 * b2 / 8.0
+        q = d_ - b * c / 2.0 + b2 * b / 8.0
+        r = e - b * d_ / 4.0 + b2 * c / 16.0 - 3.0 * b2 * b2 / 256.0
+
+        # Resolvent cubic z^3 + 2p z^2 + (p^2-4r) z - q^2.
+        a2c = 2.0 * p
+        a1c = p * p - 4.0 * r
+        a0c = -q * q
+        pc = a1c - a2c * a2c * _THIRD
+        qc = 2.0 * (a2c * (a2c * a2c)) * _RCP27 - a2c * a1c * _THIRD + a0c
+        half_q = qc / 2.0
+        third_p = pc * _THIRD
+        disc = half_q * half_q + third_p * (third_p * third_p)
+        safe_tp = torch.clamp(third_p, max=-1e-30)
+        mm = 2.0 * torch.sqrt(-safe_tp)
+        cos_arg = torch.clamp(3.0 * qc / (pc * torch.where(pc == 0.0, 1.0, mm)), -1.0, 1.0)
+        phi = _acos(cos_arg)
+        z_trig = mm * torch.cos(phi * _THIRD) - a2c * _THIRD
+        sqd = torch.sqrt(torch.clamp(disc, min=0.0))
+        z_card = _cbrt(-half_q + sqd) + _cbrt(-half_q - sqd) - a2c * _THIRD
+        z = torch.where(disc > 0.0, z_card, z_trig)
+        for _ in range(2):  # polish the resolvent (Cardano cancellation)
+            fz = ((z + a2c) * z + a1c) * z + a0c
+            fpz = (3.0 * z + 2.0 * a2c) * z + a1c
+            z = z - fz / torch.where(fpz == 0.0, 1.0, fpz)
+        z = torch.clamp(z, min=0.0)
+
+        sz = torch.sqrt(z)
+        biquad = z < 1e-6 * (1.0 + torch.abs(p))
+        s_safe = torch.where(biquad, 1.0, sz)
+        half = (p + z) / 2.0
+        shift = q / (2.0 * s_safe)
+        c1 = half - shift
+        c2q = half + shift
+        d1 = sz * sz - 4.0 * c1
+        sq1 = torch.sqrt(torch.clamp(d1, min=0.0))
+        d2 = sz * sz - 4.0 * c2q
+        sq2 = torch.sqrt(torch.clamp(d2, min=0.0))
+        ydisc = p * p - 4.0 * r
+        ysq = torch.sqrt(torch.clamp(ydisc, min=0.0))
+        y1 = (-p - ysq) / 2.0
+        y2 = (-p + ysq) / 2.0
+        okb1 = (ydisc >= 0.0) & (y1 >= 0.0)
+        okb2 = (ydisc >= 0.0) & (y2 >= 0.0)
+        r1s = torch.sqrt(torch.clamp(y1, min=0.0))
+        r2s = torch.sqrt(torch.clamp(y2, min=0.0))
+        ok12 = torch.where(biquad, okb1, d1 >= 0.0)
+        ok34 = torch.where(biquad, okb2, d2 >= 0.0)
+
+        best = None
+        for u, ok in ((torch.where(biquad, -r1s, (-sz - sq1) / 2.0), ok12),
+                      (torch.where(biquad, r1s, (-sz + sq1) / 2.0), ok12),
+                      (torch.where(biquad, -r2s, (sz - sq2) / 2.0), ok34),
+                      (torch.where(biquad, r2s, (sz + sq2) / 2.0), ok34)):
+            t = u - b / 4.0
+            for _ in range(3):  # Newton polish on the quartic
+                fv = (((A * t + Bq) * t + C4) * t + D) * t + E
+                fp = ((4.0 * A * t + 3.0 * Bq) * t + 2.0 * C4) * t + D
+                t = t - fv / torch.where(fp == 0.0, 1.0, fp)
+            t = torch.where(ok & _in_range(t, t_min_e, self.t_max), t, INF)
+            best = t if best is None else torch.where(t < best, t, best)
+        return best
+
+    def aabox(self):
+        """Slab test on the pack-time inflated world box: the entry face if
+        in range, else the exit face (the cube's 6-face fold semantics)."""
+        t1x = (self.row(0) - self.ox) * self.rdx
+        t2x = (self.row(3) - self.ox) * self.rdx
+        t1y = (self.row(1) - self.oy) * self.rdy
+        t2y = (self.row(4) - self.oy) * self.rdy
+        t1z = (self.row(2) - self.oz) * self.rdz
+        t2z = (self.row(5) - self.oz) * self.rdz
+        ten = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+                            torch.minimum(t1z, t2z))
+        tex = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+                            torch.maximum(t1z, t2z))
+        dlx = self.dx * self.row(6)
+        dly = self.dy * self.row(7)
+        dlz = self.dz * self.row(8)
+        t_min_e = self.general_tmin(dlx * dlx + dly * dly + dlz * dlz)
+        t = torch.where(ten >= t_min_e, ten, tex)
+        ok = (ten <= tex) & _in_range(t, t_min_e, self.t_max)
+        return torch.where(ok, t, INF)
+
     def sphere_w(self):
         ocx = self.ox - self.row(0)
         ocy = self.oy - self.row(1)
@@ -194,19 +352,21 @@ class _Chunk:
 
 
 _BRANCHES = {
-    PACKED_SPHERE_W: _Chunk.sphere_w,
+    SPHERE: _Chunk.sphere_g,
+    PLANE: _Chunk.plane_g,
     CUBE: _Chunk.cube_g,
     CYLINDER: _Chunk.cylinder_g,
     CONE: _Chunk.cone_g,
+    TORUS: _Chunk.torus_g,
+    PACKED_SPHERE_W: _Chunk.sphere_w,
+    PACKED_AABOX: _Chunk.aabox,
 }
 
 
-def _cull(o, d, t_min, t_max, active, pk):
+def _cull(o, rcp, t_min, t_max, active, pk):
     """[R, Nc] bool: rays whose slab test crosses each chunk's AABB, with
-    the TPU prologue's conservative rule (1e-30 reciprocal guard, slack
-    1e-4|t_enter| + 1e-5)."""
-    tiny = torch.where(d < 0.0, -1e-30, 1e-30)
-    rcp = 1.0 / torch.where(torch.abs(d) < 1e-30, tiny, d)
+    the TPU prologue's conservative rule (1e-30 reciprocal guard in `rcp`,
+    slack 1e-4|t_enter| + 1e-5)."""
     ten = torch.full((o.shape[0], pk.n_chunks), -INF, dtype=o.dtype, device=o.device)
     tex = torch.full_like(ten, INF)
     for axis in range(3):
@@ -222,8 +382,12 @@ def _cull(o, d, t_min, t_max, active, pk):
 
 def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
                               active=None, src_node=None, src_tri=None,
-                              any_hit=False) -> Hit:
-    """Plain PyTorch version of the sweep kernel (same contract)."""
+                              any_hit=False, work=None) -> Hit:
+    """Plain PyTorch version of the sweep kernel (same contract).  A dict
+    `work` receives the work the kernel does on these rays: under "cull"
+    the (ray, chunk) slab tests, and per packed kind the (ray, primitive)
+    evaluations, the real lanes of the chunks the cull passes.  In any-hit
+    mode both stop at a ray's first hitting lane, as the kernel does."""
     if o.device.type == "cuda":
         COUNTS["plain_on_cuda"] += 1
     pk = st.packed
@@ -238,7 +402,8 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
         src_tri = torch.full_like(src_node, -1)
     eps_r = _f32(0.5 + cfg.epsilon)
     self_eps = _f32(cfg.self_eps_local)
-    cross = _cull(o, d, t_min, t_max, active, pk)
+    rcp = _safe_rcp(d)
+    cross = _cull(o, rcp, t_min, t_max, active, pk)
     kinds = [k for k, _, n in pk.kind_ranges for _ in range(n)]
 
     best_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
@@ -246,6 +411,8 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
     best_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
     found = torch.zeros(R, dtype=torch.bool, device=dev)
     for ci, kind in enumerate(kinds):
+        if work is not None:
+            work["cull"] = work.get("cull", 0) + int((active & ~found).sum())
         sel = cross[:, ci]
         if any_hit:
             sel = sel & ~found
@@ -258,8 +425,16 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
         ray = tuple(x[idx, None] for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
                                            d[:, 2], t_min, t_max))
         is_src = (node == src_node[idx, None]) & (tri == src_tri[idx, None])
-        chunk = _Chunk(pk.f32[:, cols], node, ray, is_src, eps_r, self_eps)
+        chunk = _Chunk(pk.f32[:, cols], node, ray, tuple(rcp[idx, a, None] for a in range(3)),
+                       is_src, eps_r, self_eps)
         t = torch.where(node >= 0, _BRANCHES[kind](chunk), INF)
+        if work is not None:
+            real = torch.cumsum((node[0] >= 0).to(torch.int64), dim=0)
+            last = torch.full((idx.numel(),), PACK_CHUNK - 1, device=dev)
+            if any_hit:  # up to the first hitting lane
+                lanes = t < INF
+                last = torch.where(lanes.any(dim=1), lanes.to(torch.int32).argmax(dim=1), last)
+            work[kind] = work.get(kind, 0) + int(real[last].sum())
         if any_hit:
             found[idx] = (t < INF).any(dim=1)
             continue
@@ -332,7 +507,8 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
     args = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             active.data_ptr(), src_ptr, srct_ptr, pf.data_ptr(), pid.data_ptr(),
             kinds.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), R, pk.n_chunks, ncol,
-            _f32(0.5 + cfg.epsilon), _f32(cfg.self_eps_local))
+            _f32(0.5 + cfg.epsilon), _f32(cfg.self_eps_local),
+            int(any(k == TORUS for k, _, _ in pk.kind_ranges)))
     if any_hit:
         found = torch.empty(R, dtype=torch.int32, device=o.device)
         rc = lib.sweep_any_hit(*args, found.data_ptr(), stream)

@@ -24,7 +24,8 @@ import torch
 from .. import math3d as m3
 from ..config import RenderConfig
 from ..scene.flatten import (
-    SceneTables, SPHERE, CUBE, CYLINDER, CONE, KIND_NAMES, REC_KIND,
+    SceneTables, SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, KIND_NAMES, REC_KIND,
+    REC_PARAMS,
 )
 
 INF = math.inf
@@ -109,11 +110,22 @@ def smallest_root_in_range(a, b, c, t_min, t_max):
 # broadcastable.  Return t [...] with inf where invalid.
 # ---------------------------------------------------------------------------
 
-def sphere_candidate(o, d, t_min, t_max, eps):
+def sphere_candidate(o, d, t_min, t_max, eps, params=None):
     a = m3.dot(d, d)
     b = 2.0 * m3.dot(o, d)
     c = m3.dot(o, o) - 1.0
     t, ok = smallest_root_in_range(a, b, c, t_min, t_max)
+    return torch.where(ok, t, INF)
+
+
+def plane_candidate(o, d, t_min, t_max, eps, params=None):
+    """Unit XZ square at y = 0 (plane.rs)."""
+    t = _guarded_div(-o[..., 1], d[..., 1])
+    tc = _finite(t)
+    p_x = o[..., 0] + tc * d[..., 0]
+    p_z = o[..., 2] + tc * d[..., 2]
+    r = 0.5 + eps
+    ok = _in_range(t, t_min, t_max) & (torch.abs(p_x) <= r) & (torch.abs(p_z) <= r)
     return torch.where(ok, t, INF)
 
 
@@ -143,7 +155,7 @@ def _cube_face_fold(o, d, t_min, t_max, eps):
     return best_t, best_face
 
 
-def cube_candidate(o, d, t_min, t_max, eps):
+def cube_candidate(o, d, t_min, t_max, eps, params=None):
     return _cube_face_fold(o, d, t_min, t_max, eps)[0]
 
 
@@ -169,7 +181,7 @@ def _cyl_parts(o, d, t_min, t_max):
     return t_body, cap(0.5), cap(-0.5)
 
 
-def cylinder_candidate(o, d, t_min, t_max, eps):
+def cylinder_candidate(o, d, t_min, t_max, eps, params=None):
     t_body, t_top, t_bot = _cyl_parts(o, d, t_min, t_max)
     t = t_body
     t = torch.where(t_top < t, t_top, t)
@@ -201,16 +213,52 @@ def _cone_parts(o, d, t_min, t_max):
     return t_body, t_cap
 
 
-def cone_candidate(o, d, t_min, t_max, eps):
+def cone_candidate(o, d, t_min, t_max, eps, params=None):
     t_body, t_cap = _cone_parts(o, d, t_min, t_max)
     return torch.where(t_cap < t_body, t_cap, t_body)
 
 
+def torus_coeffs(o, d, c_r, a_r):
+    """Quartic coefficients of the torus (primitive/torus.rs:56-110): hole
+    along y, center radius c_r, tube radius a_r."""
+    dd = m3.dot(d, d)
+    pp = m3.dot(o, o)
+    dp = m3.dot(d, o)
+    a2 = a_r * a_r
+    c2 = c_r * c_r
+    k = pp - (a2 + c2)
+    A = dd * dd
+    B = 4.0 * dd * dp
+    C = 2.0 * dd * k + 4.0 * dp * dp + 4.0 * c2 * d[..., 1] * d[..., 1]
+    D = 4.0 * k * dp + 8.0 * c2 * o[..., 1] * d[..., 1]
+    E = k * k - 4.0 * c2 * (a2 - o[..., 1] * o[..., 1])
+    return A, B, C, D, E
+
+
+def torus_candidate(o, d, t_min, t_max, eps, params=None):
+    """params [..., 2]: (center radius, tube radius).  The solved root is
+    detached and taken through one Newton step with the coefficients, as
+    the JAX package does for its implicit-function gradient; the step
+    moves the value by rounding only."""
+    A, B, C, D, E = torus_coeffs(o, d, params[..., 0], params[..., 1])
+    full = lambda x: torch.broadcast_to(torch.as_tensor(x, dtype=A.dtype, device=A.device),
+                                        A.shape)
+    t, ok = m3.quartic_smallest_root_in_range(A, B, C, D, E, full(t_min), full(t_max))
+    t0 = torch.where(ok, t, INF).detach()
+    t0c = _finite(t0)
+    f = (((A * t0c + B) * t0c + C) * t0c + D) * t0c + E
+    fp = ((4.0 * A * t0c + 3.0 * B) * t0c + 2.0 * C) * t0c + D
+    t_imp = t0c - f / torch.where(fp == 0.0, 1.0, fp)
+    return torch.where(torch.isfinite(t0), t_imp, INF)
+
+
 _ANALYTIC_CANDIDATES = {
     SPHERE: sphere_candidate,
+    PLANE: plane_candidate,
     CUBE: cube_candidate,
     CYLINDER: cylinder_candidate,
     CONE: cone_candidate,
+    TORUS: torus_candidate,
 }
 
 
@@ -263,7 +311,7 @@ def _flat_intersect(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
                 d_norm = m3.norm(ld, eps=1e-20)
                 t_self = cfg.self_eps_local / torch.clamp(d_norm, min=1e-30)
                 tmin = torch.where(is_src, torch.maximum(tmin, t_self), tmin)
-            t = cand_fn(lo, ld, tmin, t_max[:, None], eps)
+            t = cand_fn(lo, ld, tmin, t_max[:, None], eps, params=st.prim_params[None, c0:c1])
             tj, j = torch.min(t, dim=1)
             better = tj < best_t
             best_node = torch.where(better, ids[j], best_node)
@@ -412,12 +460,31 @@ def _cone_detail(o, d, t_min, t_max, p):
     return _no_uv(p, n)
 
 
-def _winner_candidate_t(lo, ld, ray_kind, t_min, t_max, eps, present):
+def _plane_detail(p):
+    n = _vec([0.0, 1.0, 0.0], p).expand_as(p)
+    uv = torch.stack([p[..., 0] + 0.5, p[..., 2] + 0.5], dim=-1)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[0], 3, 3)
+    ones = torch.ones(p.shape[:-1], dtype=torch.bool, device=p.device)
+    return n, uv, ones, eye, ones
+
+
+def _torus_detail(p, params):
+    """Hit point minus the nearest tube-center point (the construction
+    torus.rs:112-125 sketches); no uv (torus.rs:126-130)."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    rxz = torch.sqrt(x * x + z * z)
+    scale = params[..., 0] / torch.clamp(rxz, min=1e-30)
+    tube_center = torch.stack([x * scale, torch.zeros_like(y), z * scale], dim=-1)
+    return _no_uv(p, p - tube_center)
+
+
+def _winner_candidate_t(lo, ld, ray_kind, params, t_min, t_max, eps, present):
     """Per-ray candidate t of each ray's selected primitive, recomputed in
-    its local frame."""
+    its local frame (the aabox packing maps back to the cube's 6-face
+    fold: the record's kind is the node's)."""
     t_re = torch.full(lo.shape[:-1], INF, dtype=lo.dtype, device=lo.device)
     for kind in sorted(present):
-        tk = _candidate_fn(kind)(lo, ld, t_min, t_max, eps)
+        tk = _candidate_fn(kind)(lo, ld, t_min, t_max, eps, params=params)
         t_re = torch.where(ray_kind == kind, tk, t_re)
     return t_re
 
@@ -448,7 +515,7 @@ def winner_t(o, d, node, tri, st: SceneTables, cfg: RenderConfig,
                                           src_node, src_tri, tri)
     t_max = _as_rays(t_max, o.shape[0], o)
     present = {k for (k, _, _) in st.groups}
-    return _winner_candidate_t(lo, ld, rec[:, REC_KIND].to(torch.int32),
+    return _winner_candidate_t(lo, ld, rec[:, REC_KIND].to(torch.int32), rec[:, REC_PARAMS],
                                t_min, t_max, cfg.epsilon, present)
 
 
@@ -469,7 +536,8 @@ def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
     present = {k for (k, _, _) in st.groups}
     eps = cfg.epsilon
 
-    t_re = _winner_candidate_t(lo, ld, ray_kind, t_min, t_max, eps, present)
+    params = rec[:, REC_PARAMS]
+    t_re = _winner_candidate_t(lo, ld, ray_kind, params, t_min, t_max, eps, present)
     t = torch.where(hit.hit & torch.isfinite(t_re), t_re, t)
 
     p_local = lo + t[:, None] * ld
@@ -483,6 +551,10 @@ def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
     for kind in sorted(present):
         if kind == SPHERE:
             parts = _sphere_detail(p_local, eps)
+        elif kind == PLANE:
+            parts = _plane_detail(p_local)
+        elif kind == TORUS:
+            parts = _torus_detail(p_local, params)
         elif kind == CUBE:
             parts = _cube_detail(lo, ld, t_min, t_max, p_local, eps)
         elif kind == CYLINDER:

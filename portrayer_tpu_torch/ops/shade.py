@@ -4,10 +4,10 @@ Ambient + per light [Lambert diffuse + Blinn-Phong specular with the 4x
 shininess compensation (material.rs:196-204)] / attenuation, with the
 occlusion deferred: ``shade_pre`` returns the per-light contributions,
 directions and shadow-need masks, and the trace loop resolves all lights'
-shadow rays in one any-hit launch.  Children are the mirror reflections
-(material.rs:216-220); their throughput multipliers are all the round-0
-render needs of them.  Glossy, refraction, textures, normal maps and area
-lights are later slices and raise.
+shadow rays in one any-hit launch.  Children are the reflect and refract
+rays with their throughput multipliers (material.rs:216-317): mirror and
+glossy reflection (per-sample-id draws) and Schlick/TIR refraction.
+Textures, normal maps and area lights are later slices and raise.
 """
 
 from __future__ import annotations
@@ -17,9 +17,17 @@ from typing import NamedTuple
 import torch
 
 from .. import math3d as m3
+from .. import rng
 from ..config import RenderConfig
 from ..scene.flatten import SceneTables
-from .intersect import Hit, HitDetail
+from .intersect import Hit, HitDetail, _vec
+
+
+def _uniform(key, site: int, sid, n: int):
+    """[R, n] f32 uniforms keyed per (site, sample id): a lane's draws do
+    not depend on the batch it is in, so slicing a queue to its live head
+    or compacting it moves no pixel (shade.py ``_uniform``)."""
+    return rng.uniform_lanes(rng.fold_in_lanes(rng.fold_in(key, site), sid), n)
 
 
 class Children(NamedTuple):
@@ -39,13 +47,15 @@ class ShadePre(NamedTuple):
     t_eps: torch.Tensor          # [R] secondary-ray start offsets
 
 
-def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, active):
-    """Occlusion-independent shading: returns (ShadePre, Children)."""
+def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, key, active,
+              sid=None):
+    """Occlusion-independent shading: returns (ShadePre, Children).  `key`
+    seeds the glossy draws, per sample id `sid` [R] (default: lane index)."""
     if any(st.area_flags):
         raise NotImplementedError("area lights: later slice of the port")
-    if st.any_refractive or st.any_glossy:
-        raise NotImplementedError("refraction and glossy reflection: later slice of the port")
     R = d.shape[0]
+    if sid is None:
+        sid = torch.arange(R, dtype=torch.int32, device=d.device)
     p = det.point
     rec = det.rec
     mat_diffuse = rec[:, 12:15]
@@ -104,9 +114,55 @@ def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, a
         return pre, Children(origin=p, refl_dir=d, refl_mult=zeros, refr_dir=d,
                              refr_mult=zeros)
     mat_reflect = rec[:, 19]
+    mat_glossy = rec[:, 20]
+    mat_refr = rec[:, 21]
     dn = m3.dot(d, n)
     reflect_dir = d - 2.0 * dn[..., None] * n
-    refl_mult = torch.where((mat_reflect > 0.0) & active, mat_reflect, 0.0)
+
+    if st.any_glossy:  # glossy perturbation (material.rs:221-239)
+        aligned_z = ((torch.abs(reflect_dir[..., 0]) < cfg.epsilon)
+                     & (torch.abs(reflect_dir[..., 1]) < cfg.epsilon))
+        offset = reflect_dir + torch.where(aligned_z[..., None],
+                                           _vec([0.0, 0.1, 0.0], d), _vec([0.0, 0.0, 0.1], d))
+        u_basis = m3.cross(reflect_dir, offset)
+        v_basis = m3.cross(reflect_dir, u_basis)
+        uvc = _uniform(key, 2000, sid, 2)
+        u_coord = (-0.5 + uvc[:, 0]) * mat_glossy
+        v_coord = (-0.5 + uvc[:, 1]) * mat_glossy
+        glossy_dir = reflect_dir + u_coord[..., None] * u_basis + v_coord[..., None] * v_basis
+        reflect_dir = torch.where((mat_glossy > 0.0)[..., None], glossy_dir, reflect_dir)
+
+    if st.any_refractive:
+        is_dielectric = mat_refr > 0.0
+        eta = torch.where(is_dielectric, mat_refr, 1.0)
+        entering = dn < 0.0
+        # Entering (material.rs:253-264): refract(d, n, eta), outside 1.
+        under_e = 1.0 - (1.0 - dn * dn) / (eta * eta)
+        refr_e = (d - n * dn[..., None]) / eta[..., None] - n * m3.safe_sqrt(under_e)[..., None]
+        # Exiting (material.rs:265-275): refract(d, -n, 1/eta), maybe TIR.
+        under_x = 1.0 - (1.0 - dn * dn) * (eta * eta)
+        tir = under_x < 0.0
+        refr_x = (d - n * dn[..., None]) * eta[..., None] + n * m3.safe_sqrt(under_x)[..., None]
+        refr_dir = torch.where(entering[..., None], refr_e, refr_x)
+        cos_inc = torch.where(entering, -dn, m3.dot(refr_x, n))
+        # Integer powers as products, in the order of XLA's integer_pow.
+        r0 = (eta - 1.0) / (eta + 1.0)
+        r0 = r0 * r0
+        om = 1.0 - cos_inc
+        om2 = om * om
+        schlick = r0 + (1.0 - r0) * (om * (om2 * om2))
+        tir_exit = ~entering & tir
+        refl_mult = torch.where(is_dielectric,
+                                torch.where(tir_exit, mat_reflect, mat_reflect * schlick),
+                                mat_reflect)
+        refr_mult = torch.where(is_dielectric & ~tir_exit, mat_reflect * (1.0 - schlick), 0.0)
+    else:
+        refl_mult = mat_reflect
+        refr_mult = zeros
+        refr_dir = d
+
+    live = (mat_reflect > 0.0) & active
     return pre, Children(origin=p, refl_dir=m3.normalize(reflect_dir, eps=1e-30),
-                         refl_mult=refl_mult, refr_dir=m3.normalize(d, eps=1e-30),
-                         refr_mult=zeros)
+                         refl_mult=torch.where(live, refl_mult, 0.0),
+                         refr_dir=m3.normalize(refr_dir, eps=1e-30),
+                         refr_mult=torch.where(live, refr_mult, 0.0))

@@ -1,11 +1,21 @@
-"""Wavefront trace (counterpart of ``portrayer_tpu/ops/trace.py``) at
-depth 0: the round of primary rays, which is all the JAX package runs for
-scenes whose materials do not reflect, and for mirrors at
-``max_depth == 0``.
+"""Wavefront bounce loop (counterpart of ``portrayer_tpu/ops/trace.py``):
+the reference's depth-10 recursion (ray.rs:139-148 -> material.rs ->
+ray.rs) as rounds over ray queues.
 
-One round: nearest-hit launch, hit detail, deferred shading, then one
-any-hit launch over every light's shadow rays, accumulated per pixel.
-Bounce rounds and queue compaction are a later slice.
+A round: nearest-hit launch, hit detail, deferred shading, one any-hit
+launch over every light's shadow rays, accumulation per pixel, and the
+reflect/refract children packed by ``_compact`` into the next round's
+queue.  Queues have the capacity schedule of ``RenderConfig.queue_caps``;
+on overflow the lowest-throughput children end in the background colour
+(exact for the reference's depth cut-off, which also returns the
+background, material.rs:102-104) and their throughput is counted.
+
+Where the JAX package switches between statically sized head slices of a
+queue and scans the tail rounds, here each round runs on exactly its live
+lanes: ``_compact`` keeps only those, in order, and reads their count on
+the host (one host sync per round).  The loop ends at ``max_depth`` or
+when no ray is alive.  Draws are keyed by sample id, so the slicing moves
+no pixel.
 """
 
 from __future__ import annotations
@@ -14,11 +24,11 @@ from typing import NamedTuple
 
 import torch
 
+from .. import rng
 from ..config import RenderConfig
 from ..scene.flatten import SceneTables
 from .intersect import intersect_scene, hit_detail, occluded
 from .shade import shade_pre
-
 
 class _Queue(NamedTuple):
     o: torch.Tensor         # [Q,3]
@@ -28,6 +38,18 @@ class _Queue(NamedTuple):
     t_min: torch.Tensor     # [Q] per-ray t-range start
     src_node: torch.Tensor  # [Q] int32 node the ray left (-1 primary)
     src_tri: torch.Tensor   # [Q] int32 triangle the ray left
+    sid: torch.Tensor       # [Q] int32 sample id of the counter-based draws
+    #                         (primary: lane index; children 2*sid+{0,1})
+
+
+class TraceStats(NamedTuple):
+    """trace(..., with_stats=True): live [max_depth+1] int32 (on the host),
+    the live rays entering each round; dropped_w, the live throughput ended
+    by queue overflow as a fraction of the primary ray count; syncs, the
+    host syncs of the live-count reads."""
+    live: torch.Tensor
+    dropped_w: float
+    syncs: int
 
 
 class _Shadow(NamedTuple):
@@ -55,12 +77,12 @@ def _nearest(q: _Queue, st, cfg):
                            src_node=q.src_node, src_tri=q.src_tri)
 
 
-def _round_shade(q: _Queue, hit, acc, bg, st: SceneTables, cfg: RenderConfig,
-                 spp_c: int = 0):
-    """Shade the last round, whose nearest hits are known: accumulates
-    background (misses, and the reflections cut off at the depth limit,
-    material.rs:102-104) and ambient; returns (acc, deferred _Shadow
-    batch)."""
+def _round_shade(q: _Queue, hit, acc, bg, st: SceneTables, cfg: RenderConfig, rkey,
+                 is_last: bool, spp_c: int = 0):
+    """Shade a round whose nearest hits are known: accumulates background
+    (misses, and at the depth limit the children, material.rs:102-104) and
+    ambient; returns (acc, child queue of size 2Q or, in the last round,
+    None, deferred _Shadow batch)."""
     active = q.w > 0.0
     det = hit_detail(q.o, q.d, hit, st, cfg, q.t_min,
                      src_node=q.src_node, src_tri=q.src_tri)
@@ -70,15 +92,26 @@ def _round_shade(q: _Queue, hit, acc, bg, st: SceneTables, cfg: RenderConfig,
         bgc = bg[q.pix.long()]
     miss_w = torch.where(active & ~hit.hit, q.w, 0.0)
     shade_active = active & hit.hit
-    pre, children = shade_pre(q.d, hit, det, st, cfg, shade_active)
-    bg_w = miss_w + (q.w * children.refl_mult + q.w * children.refr_mult)
+    pre, children = shade_pre(q.d, hit, det, st, cfg, rkey, shade_active, sid=q.sid)
+    w_refl = q.w * children.refl_mult
+    w_refr = q.w * children.refr_mult
+    bg_w = miss_w + (w_refl + w_refr if is_last else 0.0)
     base = torch.where(shade_active[..., None], pre.base, 0.0)
     acc = _acc_add(acc, q.pix, bg_w[:, None] * bgc + q.w[:, None] * base, spp_c)
     lc = torch.where(shade_active[None, :, None], q.w[None, :, None] * pre.light_contrib,
                      0.0)
     shadow = _Shadow(o=det.point, dirs=pre.shadow_dir, need=pre.shadow_need, lc=lc,
                      t_eps=pre.t_eps, src_node=hit.node, src_tri=hit.tri, pix=q.pix)
-    return acc, shadow
+    if is_last:
+        return acc, None, shadow
+    two = lambda a, b: torch.cat([a, b])
+    child = _Queue(
+        o=two(children.origin, children.origin), d=two(children.refl_dir, children.refr_dir),
+        w=two(w_refl, w_refr), pix=two(q.pix, q.pix), t_min=two(pre.t_eps, pre.t_eps),
+        src_node=two(hit.node, hit.node), src_tri=two(hit.tri, hit.tri),
+        sid=two(2 * q.sid, 2 * q.sid + 1),
+    )
+    return acc, child, shadow
 
 
 def _apply_shadows(shadow: _Shadow, acc, st, cfg, spp_c: int):
@@ -98,16 +131,41 @@ def _apply_shadows(shadow: _Shadow, acc, st, cfg, spp_c: int):
     return _acc_add(acc, shadow.pix, light, spp_c)
 
 
-def trace(o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
-          w0=None, spp_contiguous: int = 0):
+def _compact(child: _Queue, capacity: int, acc, bg):
+    """Fit a child queue into `capacity` slots: (queue of its n_live live
+    lanes, acc, dropped, n_live).  The live lanes keep their queue order
+    (children are emitted pixel-major, so the next round's rays stay
+    coherent).  If more than `capacity` lanes are live, the threshold is
+    the capacity-th largest weight, ties fill first-come, and the lanes
+    left out add their throughput times the background to acc and to
+    `dropped` (a device scalar; 0.0 when the queue fits).  Dead lanes are
+    never kept.  n_live is read on the host."""
+    w = child.w
+    dropped = 0.0
+    if w.shape[0] <= capacity:
+        take = w > 0.0
+    else:
+        kth = torch.topk(w, capacity).values[-1]
+        take_gt = w > kth
+        quota = capacity - take_gt.sum()
+        eq = w == kth
+        eq_rank = torch.cumsum(eq.to(torch.int32), dim=0)
+        take = (take_gt | (eq & (eq_rank <= quota))) & (w > 0.0)
+        dropped_w = torch.where(take, 0.0, w)
+        pix = child.pix.long()
+        acc = acc.index_add(0, pix, dropped_w[:, None] * bg[pix])
+        dropped = dropped_w.sum()
+    idx = torch.nonzero(take).squeeze(1)
+    return _Queue(*(x[idx] for x in child)), acc, dropped, idx.shape[0]
+
+
+def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
+          w0=None, spp_contiguous: int = 0, with_stats: bool = False):
     """Trace primary rays o0, d0 [R,3] with pixel ids pix0 [R], per-pixel
-    background bg [P,3] and throughput w0 [R] (0 = dead lane).  Returns
-    acc [P,3], the per-pixel radiance sums (the caller divides by spp).
+    background bg [P,3] and throughput w0 [R] (0 = dead lane); `key` seeds
+    the per-round draws.  Returns acc [P,3], the per-pixel radiance sums
+    (the caller divides by spp), and with with_stats also TraceStats.
     spp_contiguous > 0 asserts pix0 == repeat(arange(P), spp)."""
-    # Without a reflective material no ray has children: the JAX package
-    # collapses such scenes to round 0 whatever cfg.max_depth says.
-    if st.any_reflective and cfg.max_depth > 0:
-        raise NotImplementedError("bounce rounds: later slice")
     R0 = o0.shape[0]
     dev = o0.device
     q = _Queue(
@@ -117,8 +175,41 @@ def trace(o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
         t_min=torch.full((R0,), cfg.epsilon, dtype=o0.dtype, device=dev),
         src_node=torch.full((R0,), -1, dtype=torch.int32, device=dev),
         src_tri=torch.full((R0,), -1, dtype=torch.int32, device=dev),
+        sid=torch.arange(R0, dtype=torch.int32, device=dev),
     )
     acc = torch.zeros((n_pixels, 3), dtype=o0.dtype, device=dev)
-    hit = _nearest(q, st, cfg)
-    acc, sh = _round_shade(q, hit, acc, bg, st, cfg, spp_c=spp_contiguous)
-    return _apply_shadows(sh, acc, st, cfg, spp_contiguous)
+    # Without a reflective material no ray has children: one round.
+    max_depth = cfg.max_depth if st.any_reflective else 0
+
+    caps = cfg.queue_caps
+    if not caps:
+        if cfg.queue_factor is not None:
+            caps = (cfg.queue_factor,)
+        else:
+            caps = (4.0,) if st.any_refractive else (1.0,)
+    caps = tuple(caps) + (caps[-1],) * max(0, max_depth - len(caps))
+    cap_of = lambda r: max(int(round(R0 * caps[min(r, len(caps)) - 1])), 8)
+
+    live = []  # live rays entering rounds 1.. (host ints)
+    dropped = 0.0
+    for ridx in range(max_depth + 1):
+        spp_c = spp_contiguous if ridx == 0 else 0
+        hit = _nearest(q, st, cfg)
+        acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rng.fold_in(key, ridx),
+                                      is_last=ridx == max_depth, spp_c=spp_c)
+        acc = _apply_shadows(sh, acc, st, cfg, spp_c)
+        if ridx == max_depth:
+            break
+        q, acc, dr, n_live = _compact(child, cap_of(ridx + 1), acc, bg)
+        dropped = dropped + dr
+        live.append(n_live)
+        if n_live == 0:
+            break
+
+    if not with_stats:
+        return acc
+    # Round 0's live count costs one more host sync, only here.
+    lv = [int((w0 > 0.0).sum()) if w0 is not None else R0] + live
+    lv = (lv + [0] * max_depth)[:max_depth + 1]
+    return acc, TraceStats(live=torch.tensor(lv, dtype=torch.int32),
+                           dropped_w=float(dropped) / R0, syncs=len(live))

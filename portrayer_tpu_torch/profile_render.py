@@ -1,12 +1,13 @@
 """Where the render's time goes on one CUDA device.
 
-    python3 -m portrayer_tpu_torch.profile_render [--out out/profile]
+    python3 -m portrayer_tpu_torch.profile_render [--scene big-scene] [--out out/profile]
 
-Renders tile row 3 (y = 384..511) of big-scene at its published
-1980x1020 (a region re-render, so its samples are the full frame's) at
-16 spp, the full-frame smoke run's settings, with 131,072 rays per
-launch: first untraced, three times, for the wall time; then once under
-``torch.profiler``.  From the trace's device events it
+Renders the middle tile row of a scene at its published size (a region
+re-render, so its samples are the full frame's: for big-scene at
+1980x1020, row 3, y = 384..511) at 16 spp, the smoke run's main-path
+settings, with 131,072 rays per launch: first untraced, three times, for
+the wall time; then once under ``torch.profiler``.  From the trace's
+device events it
 prints the traced wall time, the device time (the union of kernel, memcpy
 and memset intervals), the device's busy share of the traced wall, the
 number of kernel launches, the sweep kernels' share, and the kernels that
@@ -30,7 +31,6 @@ import torch
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SWEEP_KERNEL = "sweep_kernel"
 SPP = 16
-ROW = 3
 REPEATS = 3
 
 
@@ -80,24 +80,26 @@ def main(argv=None):
     from . import RenderConfig, render_u8, scenes
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", default="big-scene", choices=scenes.names())
     ap.add_argument("--out", default=os.path.join("out", "profile"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
 
     dev = torch.device("cuda", 0)
-    spec = scenes.load("big-scene")
+    spec = scenes.load(args.scene)
     w, h = spec.size
     cfg = RenderConfig(device=dev, samples=SPP, max_rays_per_launch=131072)
     th, tw = cfg.tile
-    y0 = ROW * th
+    y0 = (-(-h // th) - 1) // 2 * th
     region = ((0, y0), (w - 1, min(y0 + th, h) - 1))
     tiles = -(-w // tw)
     chunks = tiles * -(-SPP // max(1, cfg.max_rays_per_launch // (th * tw)))
-    render = lambda: render_u8(spec.scene, spec.camera, (w, h), spec.background, cfg,
-                               region=region)
+    render = lambda stats=None: render_u8(spec.scene, spec.camera, (w, h), spec.background,
+                                          cfg, region=region, stats=stats)
 
-    render()  # builds the kernel and warms the allocator
+    stats = []
+    render(stats)  # builds the kernel, warms the allocator, counts the rounds
     torch.cuda.synchronize()
     walls = []
     for _ in range(REPEATS):
@@ -119,9 +121,13 @@ def main(argv=None):
             raw = f.read()
     summary = summarize_trace(json.loads(raw), traced_ms, chunks)
     summary.update(
-        card=torch.cuda.get_device_name(dev), spp=SPP, rows=(y0, region[1][1]),
+        scene=args.scene, card=torch.cuda.get_device_name(dev), spp=SPP,
+        rows=(y0, region[1][1]),
         untraced_wall_ms=walls, untraced_wall_ms_median=statistics.median(walls),
-        untraced_ms_per_chunk=statistics.median(walls) / chunks)
+        untraced_ms_per_chunk=statistics.median(walls) / chunks,
+        rounds_per_chunk=sum(int((s.live > 0).sum()) for s in stats) / chunks,
+        host_syncs_per_chunk=sum(s.syncs for s in stats) / chunks,
+        live_per_round=[int(n) for n in sum(s.live for s in stats)])
 
     os.makedirs(args.out, exist_ok=True)
     with gzip.open(os.path.join(args.out, "trace.json.gz"), "wb") as f:
@@ -129,7 +135,7 @@ def main(argv=None):
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     s = summary
-    print(f"[profile] big-scene rows {y0}..{region[1][1]}, {tiles} tiles x {SPP} spp = "
+    print(f"[profile] {args.scene} rows {y0}..{region[1][1]}, {tiles} tiles x {SPP} spp = "
           f"{chunks} chunks of {th * tw * min(SPP, cfg.max_rays_per_launch // (th * tw))} "
           f"rays on {s['card']}")
     print(f"[profile] untraced wall {', '.join(f'{x:.3f}' for x in walls)} ms "
@@ -140,6 +146,8 @@ def main(argv=None):
           f"launches ({s['kernel_launches_per_chunk']:.1f} per chunk), {s['kernel_ms']:.3f} ms")
     print(f"[profile] sweep kernels: {s['sweep_launches']} launches, {s['sweep_ms']:.3f} ms "
           f"({s['sweep_ms'] / max(s['device_ms'], 1e-9):.1%} of device time)")
+    print(f"[profile] bounce rounds {s['rounds_per_chunk']:.2f} and host syncs "
+          f"{s['host_syncs_per_chunk']:.2f} per chunk; live rays per round {s['live_per_round']}")
     for k in s["top_kernels"]:
         print(f"[profile]   {k['ms']:9.3f} ms {k['launches']:7d} x  {k['name'][:110]}")
     return summary

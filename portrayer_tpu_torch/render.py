@@ -68,16 +68,22 @@ def _tile_rays(key, cam: Camera, x0: int, y0: int, sample_offset: int, *,
 
 def _tile_chunk(key, st: SceneTables, cam: Camera, x0: int, y0: int,
                 sample_offset: int, *, cfg: RenderConfig, background,
-                tile_h: int, tile_w: int, spp: int, samples: int):
-    """Trace one (tile x sample-chunk) wavefront; returns acc [P,3]."""
+                tile_h: int, tile_w: int, spp: int, samples: int, stats=None):
+    """Trace one (tile x sample-chunk) wavefront; returns acc [P,3].  A list
+    `stats` receives the trace's TraceStats."""
     o, d, pix_id, bg, w0 = _tile_rays(
         key, cam, x0, y0, sample_offset, cfg=cfg, background=background,
         tile_h=tile_h, tile_w=tile_w, spp=spp, samples=samples)
-    return trace(o, d, pix_id, bg, tile_h * tile_w, st, cfg, w0=w0, spp_contiguous=spp)
+    out = trace(rng.fold_in(key, 1), o, d, pix_id, bg, tile_h * tile_w, st, cfg, w0=w0,
+                spp_contiguous=spp, with_stats=stats is not None)
+    if stats is None:
+        return out
+    stats.append(out[1])
+    return out[0]
 
 
 def _render_tiles(key, st, cam, grid, *, cfg, background, tile_h, tile_w, spp,
-                  n_chunks, samples, as_u8):
+                  n_chunks, samples, as_u8, stats=None):
     """Render every tile of `grid` ((x0, y0) origins): [T, th, tw, 3] mean
     radiance, or with as_u8 the gamma-encoded u8 tiles, on the device."""
     out = []
@@ -91,7 +97,7 @@ def _render_tiles(key, st, cam, grid, *, cfg, background, tile_h, tile_w, spp,
             acc = acc + _tile_chunk(
                 rng.fold_in(tkey, ci), st, cam, x0, y0, ci * spp, cfg=cfg,
                 background=background, tile_h=tile_h, tile_w=tile_w, spp=spp,
-                samples=samples)
+                samples=samples, stats=stats)
         mean = (acc / n).reshape(tile_h, tile_w, 3)
         if as_u8:
             enc = torch.clamp(torch.clamp(mean, min=0.0) ** (1.0 / GAMMA), 0.0, 1.0)
@@ -100,7 +106,8 @@ def _render_tiles(key, st, cam, grid, *, cfg, background, tile_h, tile_w, spp,
     return torch.stack(out)
 
 
-def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8):
+def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8,
+                   stats=None):
     if cfg is None:
         raise ValueError("a RenderConfig naming the device is required")
     width, height = size
@@ -134,7 +141,7 @@ def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8
     tiles = _render_tiles(
         rng.PRNGKey(cfg.seed), st, cam, grid, cfg=cfg, background=background,
         tile_h=tile_h, tile_w=tile_w, spp=spp_chunk, n_chunks=n_chunks,
-        samples=samples, as_u8=as_u8).cpu().numpy()
+        samples=samples, as_u8=as_u8, stats=stats).cpu().numpy()
     out_dtype = np.uint8 if as_u8 else np.float64
     out = np.zeros((height, width, 3), dtype=out_dtype)
     for (tx0, ty0), tile in zip(grid, tiles):
@@ -148,23 +155,25 @@ def render_linear(scene_or_tables, camera: CameraSettings, size: Tuple[int, int]
                   background: Callable = default_background,
                   cfg: Optional[RenderConfig] = None,
                   region: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None,
-                  ) -> np.ndarray:
+                  stats: Optional[list] = None) -> np.ndarray:
     """The linear mean-radiance image [H,W,3] (float64 on the host).
 
-    `region` = ((x1,y1),(x2,y2)) inclusive slice to render (others zero)."""
+    `region` = ((x1,y1),(x2,y2)) inclusive slice to render (others zero).
+    A list `stats` receives the TraceStats of every (tile x sample-chunk)
+    trace, at one more host sync per trace."""
     return _render_common(scene_or_tables, camera, size, background, cfg, region,
-                          as_u8=False)
+                          as_u8=False, stats=stats)
 
 
 def render_u8(scene_or_tables, camera: CameraSettings, size: Tuple[int, int],
               background: Callable = default_background,
               cfg: Optional[RenderConfig] = None,
               region: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None,
-              ) -> np.ndarray:
+              stats: Optional[list] = None) -> np.ndarray:
     """The gamma-encoded u8 image [H,W,3] (render.rs:143-147), finalised on
-    the device."""
+    the device.  `region` and `stats` as in render_linear."""
     return _render_common(scene_or_tables, camera, size, background, cfg, region,
-                          as_u8=True)
+                          as_u8=True, stats=stats)
 
 
 def finalize(linear: np.ndarray) -> np.ndarray:
@@ -194,9 +203,9 @@ class Image:
 
     def render(self, scene: Scene, camera: CameraSettings,
                background: Callable = default_background,
-               cfg: Optional[RenderConfig] = None, region=None):
+               cfg: Optional[RenderConfig] = None, region=None, stats=None):
         u8 = render_u8(scene, camera, (self.width, self.height), background, cfg,
-                       region=region)
+                       region=region, stats=stats)
         if region is None:
             self.buffer = u8
         else:

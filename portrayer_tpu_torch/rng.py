@@ -1,10 +1,13 @@
 """Counter-based random draws, bit-equal to ``jax.random`` (threefry2x32,
 ``jax_threefry_partitionable=True``) for the calls the renderer makes:
-``PRNGKey``, ``fold_in`` and f32 ``uniform``.
+``PRNGKey``, ``fold_in`` and f32 ``uniform``, and their per-lane forms
+``fold_in_lanes`` / ``uniform_lanes`` (the JAX package's
+``vmap(fold_in)`` then ``vmap(uniform)``, shade.py ``_uniform``).
 
-Keys are int64 tensors of shape [2] holding two 32-bit words.  All words
-travel as int64 masked to 32 bits, since torch has no uint32 arithmetic.
-The hash is elementwise, so it runs on CPU and CUDA tensors alike.
+Keys are int64 tensors of shape [2] (per lane: [R, 2]) holding two 32-bit
+words.  All words travel as int64 masked to 32 bits, since torch has no
+uint32 arithmetic.  The hash is elementwise, so it runs on CPU and CUDA
+tensors alike.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ def _rotl(x, r: int):
 def threefry2x32(k1, k2, x1, x2):
     """Threefry-2x32 hash of counter words (x1, x2) under key (k1, k2).
 
-    k1, k2: Python ints; x1, x2: int64 tensors of 32-bit words."""
+    k1, k2, x1, x2: Python ints, or int64 tensors of 32-bit words that
+    broadcast against each other."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _M
     x2 = (x2 + ks[1]) & _M
@@ -41,12 +45,10 @@ def PRNGKey(seed: int) -> torch.Tensor:
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """jax.random.fold_in: hash of the counter pair (0, data) under key."""
+    """jax.random.fold_in: hash of the counter pair (0, data) under key,
+    on Python ints (a render folds keys per tile, chunk and round)."""
     k1, k2 = (int(v) for v in key.tolist())
-    x1, x2 = threefry2x32(
-        k1, k2, torch.zeros(1, dtype=torch.int64),
-        torch.tensor([int(data) & _M], dtype=torch.int64))
-    return torch.cat([x1, x2])
+    return torch.tensor(threefry2x32(k1, k2, 0, int(data) & _M), dtype=torch.int64)
 
 
 def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
@@ -57,5 +59,27 @@ def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
         n *= int(s)
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    mant = ((b1 ^ b2) >> 9) | 0x3F800000
-    return (mant.to(torch.int32).view(torch.float32) - 1.0).reshape(tuple(shape))
+    return _bits_to_unit(b1 ^ b2).reshape(tuple(shape))
+
+
+def _bits_to_unit(bits):
+    """32 random bits -> f32 in [1, 2) by mantissa fill, minus 1."""
+    mant = (bits >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def fold_in_lanes(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """vmap(fold_in, in_axes=(None, 0))(key, data): [R, 2] per-lane keys
+    for int data [R], on data's device."""
+    k1, k2 = (int(v) for v in key.tolist())
+    x2 = data.to(torch.int64) & _M
+    x1, x2 = threefry2x32(k1, k2, torch.zeros_like(x2), x2)
+    return torch.stack([x1, x2], dim=-1)
+
+
+def uniform_lanes(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """vmap(lambda k: uniform(k, (n,), float32))(keys): [R, n] draws for
+    per-lane keys [R, 2]."""
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = threefry2x32(keys[:, 0:1], keys[:, 1:2], torch.zeros_like(lo), lo)
+    return _bits_to_unit(b1 ^ b2)

@@ -8,9 +8,9 @@ the kind grouping, the material and light tables, the 8-corner world AABBs
 kernel with its SAH chunk order and specialised kinds.  Only the last step
 differs: the arrays become torch tensors on the configured device.
 
-This slice's sweep carries the packed kinds ``sphere_w``, ``cube_g``,
-``cylinder_g`` and ``cone_g``.  A scene that needs another branch, or a
-texture or normal map, is refused with ``NotImplementedError``.
+The port's sweep carries every packed kind but ``tri_w``: a scene with
+triangle meshes, or a texture or normal map, is refused with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,8 +36,9 @@ PACKED_AABOX = 8
 # Names of the sweep kernel's branches, indexed by packed chunk kind.
 PACKED_KIND_NAMES = ("sphere_g", "plane_g", "cube_g", "cylinder_g", "cone_g",
                      "tri_w", "torus_g", "sphere_w", "aabox")
-# The branches the port's sweep carries in this slice.
-PORTED_PACKED_KINDS = (CUBE, CYLINDER, CONE, PACKED_SPHERE_W)
+# The branches the port's sweep carries: all but tri_w (meshes).
+PORTED_PACKED_KINDS = (SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, PACKED_SPHERE_W,
+                       PACKED_AABOX)
 
 PACK_CHUNK = 128
 
@@ -65,8 +66,11 @@ _BOOL_FIELDS = {"light_is_area"}
 class PackedPrims:
     """The sweep kernel's chunk table: one column per primitive, 128-wide
     single-kind chunks.  Rows of ``f32`` [21, NCOL] by packed kind:
-    general (cube_g, cylinder_g, cone_g): 0..11 world->local affine;
-    sphere_w: 0..2 world center, 3 radius^2, 4 scale (self-eps raise).
+    general (sphere_g, plane_g, cube_g, cylinder_g, cone_g, torus_g): 0..11
+    world->local affine, torus radii (center, tube) in 12..13;
+    sphere_w: 0..2 world center, 3 radius^2, 4 scale (self-eps raise);
+    aabox: 0..2 / 3..5 inflated world min / max, 6..8 per-axis inverse
+    scale (self-eps raise).
     ``ids`` [2, NCOL] int32: node id, triangle id (-1 = padding/analytic)."""
 
     f32: torch.Tensor         # [21, NCOL] float32
@@ -509,6 +513,7 @@ def flatten_scene(scene: Scene, device) -> SceneTables:
 #   25..30 uv_trans rows 0..1   31 primitive kind   32..33 params
 # ---------------------------------------------------------------------------
 REC_KIND = 31
+REC_PARAMS = slice(32, 34)
 
 
 def node_record(st: SceneTables) -> torch.Tensor:

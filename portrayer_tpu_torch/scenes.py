@@ -1,18 +1,21 @@
-"""The scenes of this slice (counterparts of ``scenes/common.py``,
-``scenes/simple.py`` and ``scenes/big_scene.py``), built from the port's
-own description classes, so that nothing here needs JAX."""
+"""The port's scenes (counterparts of ``scenes/common.py``,
+``scenes/simple.py``, ``scenes/big_scene.py``, ``scenes/torus_showcase.py``,
+``scenes/glossy_reflection.py`` and ``scenes/primitives_simple.py``), built
+from the port's own description classes, so that nothing here needs JAX."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .camera import CameraSettings
 from .math3d import radians
-from .scene import Scene, SceneNode, Geometry, Sphere, Cube, Cone, Cylinder, Material, Light
+from .scene import (
+    Scene, SceneNode, Geometry, Sphere, Cube, Cone, Cylinder, Plane, Torus, Material, Light,
+)
 
 
 @dataclasses.dataclass
@@ -22,6 +25,9 @@ class SceneSpec:
     size: Tuple[int, int]          # (width, height)
     background: Callable
     name: str
+    # Per-round bounce-queue capacity hint (RenderConfig.queue_caps); None
+    # = auto.
+    queue_caps: Optional[Tuple[float, ...]] = None
 
 
 def sky_background(uv):
@@ -103,7 +109,95 @@ def big_scene(n: int = 10) -> SceneSpec:
                      background=sky_background, name="big-scene")
 
 
-_REGISTRY = {"simple": simple, "big-scene": big_scene}
+def torus_showcase() -> SceneSpec:
+    """Three tori (one a 25% mirror), a sphere and a floor plane; not an
+    example of the reference, whose torus is unregistered."""
+    gold = Material(diffuse=(0.9, 0.7, 0.2), specular=(0.8, 0.8, 0.6), shininess=40.0)
+    teal = Material(diffuse=(0.1, 0.7, 0.7), specular=(0.6, 0.8, 0.8), shininess=30.0,
+                    reflectivity=0.25)
+    rose = Material(diffuse=(0.9, 0.3, 0.4), specular=(0.7, 0.5, 0.5), shininess=25.0)
+    floor = Material(diffuse=(0.4, 0.4, 0.45), specular=(0.2, 0.2, 0.2), shininess=10.0)
+    scene = Scene(
+        root=SceneNode([
+            SceneNode(Geometry(Torus(1.0, 0.3), gold)).scaled(3.0).translated((0.0, 0.9, 0.0)),
+            SceneNode(Geometry(Torus(1.0, 0.22), teal))
+            .scaled(2.2).rotated_x(deg(90.0)).translated((0.0, 2.6, 0.0)),
+            SceneNode(Geometry(Torus(0.8, 0.35), rose))
+            .scaled(1.6).rotated_z(deg(30.0)).translated((-4.5, 1.4, 1.5)),
+            SceneNode(Geometry(Sphere(), gold)).scaled(0.9).translated((0.0, 0.9, 0.0)),
+            SceneNode(Geometry(Plane(), floor)).scaled(40.0),
+        ]),
+        lights=[
+            Light(position=(-6.0, 10.0, 9.0), color=(0.9, 0.9, 0.9)),
+            Light(position=(8.0, 6.0, 6.0), color=(0.3, 0.3, 0.4)),
+        ],
+        ambient=(0.3, 0.3, 0.3),
+    )
+    cam = CameraSettings(eye=(0.0, 4.0, 11.0), center=(-0.5, 1.4, 0.0),
+                         up=(0.0, 1.0, 0.0), fovy=deg(45.0))
+    return SceneSpec(scene=scene, camera=cam, size=(256, 256),
+                     background=sky_background, name="torus-showcase")
+
+
+def glossy_reflection() -> SceneSpec:
+    """examples/glossy-reflection.rs: a plain and a glossy mirror sphere on
+    a table (a cube scaled (10, 0.6, 5), packed as an axis-aligned box)."""
+    non_glossy = Material(diffuse=(0.146505, 0.314666, 0.170564), specular=(0.3, 0.3, 0.3),
+                          shininess=100.0, reflectivity=0.4)
+    glossy = Material(diffuse=(0.146505, 0.314666, 0.170564), specular=(0.3, 0.3, 0.3),
+                      shininess=100.0, reflectivity=0.4, glossy_side_length=2.0)
+    center = Material(diffuse=(0.8, 0.0, 0.023362), specular=(0.3, 0.3, 0.3), shininess=25.0)
+    table = Material(diffuse=(1.0, 0.6, 0.1), specular=(0.3, 0.3, 0.3), shininess=25.0)
+    scene = Scene(
+        root=SceneNode([
+            SceneNode(Geometry(Sphere(), non_glossy)).translated((-1.1, 1.3, 0.0)),
+            SceneNode(Geometry(Sphere(), glossy)).translated((1.1, 1.3, 0.0)),
+            SceneNode(Geometry(Sphere(), center)).scaled(0.5).translated((0.0, 0.8, 1.8)),
+            SceneNode(Geometry(Cube(), table)).scaled((10.0, 0.6, 5.0)),
+        ]),
+        lights=[
+            Light(position=(0.0, 6.0, 3.0), color=(0.9, 0.9, 0.9)),
+            Light(position=(0.0, 1.0, 12.0), color=(0.7, 0.7, 0.7)),
+        ],
+        ambient=(0.3, 0.3, 0.3),
+    )
+    cam = CameraSettings(eye=(0.0, 2.562834, 8.863271), center=(0.0, -1.083779, -11.817695),
+                         up=(0.0, 1.0, 0.0), fovy=deg(20.0))
+    return SceneSpec(scene=scene, camera=cam, size=(910, 512),
+                     background=sky_background, name="glossy-reflection")
+
+
+def primitives_simple() -> SceneSpec:
+    """examples/primitives-simple.rs: a cylinder, a cone and a floor plane."""
+    mat_grass = Material(diffuse=(0.173224, 0.8, 0.226505))
+    mat_cylinder = Material(diffuse=(0.139339, 0.435762, 0.8), specular=(0.3, 0.3, 0.3),
+                            shininess=25.0)
+    mat_cone = Material(diffuse=(0.8, 0.047361, 0.04305), specular=(0.3, 0.3, 0.3),
+                        shininess=25.0)
+    scene = Scene(
+        root=SceneNode([
+            SceneNode(Geometry(Cylinder(), mat_cylinder)).scaled(2.0).translated((-2.0, 1.0, 0.0)),
+            SceneNode(Geometry(Cone(), mat_cone)).scaled(2.0).translated((2.0, 1.0, 0.0)),
+            SceneNode(Geometry(Plane(), mat_grass)).scaled(10.0),
+        ]),
+        lights=[Light(position=(0.0, 10.0, 9.0), color=(0.9, 0.9, 0.9))],
+        ambient=(0.3, 0.3, 0.3),
+    )
+    cam = CameraSettings(eye=(0.760838, 8.095396, 10.50759),
+                         center=(-0.41716, -3.477774, -5.761218),
+                         up=(0.0, 1.0, 0.0), fovy=deg(25.0))
+    return SceneSpec(scene=scene, camera=cam, size=(910, 512),
+                     background=sky_background, name="primitives-simple")
+
+
+_REGISTRY = {
+    "simple": simple, "big-scene": big_scene, "torus-showcase": torus_showcase,
+    "glossy-reflection": glossy_reflection, "primitives-simple": primitives_simple,
+}
+
+
+def names():
+    return list(_REGISTRY)
 
 
 def load(name: str) -> SceneSpec:

@@ -1,0 +1,83 @@
+"""Wall time of full-frame renders through ``Image.render`` on one CUDA
+device, to compare two checkouts of the port on the same card.
+
+    python3 portrayer_tpu_torch/time_render.py [--scene big-scene] [--repeats 2]
+    python3 portrayer_tpu_torch/time_render.py --against DIR [--turns 2]
+
+The first form renders the scene at its published size and 16 spp with
+131,072 rays per launch (the settings of ``chip_smoke.py``'s main path):
+once to build the kernel and warm up, then ``--repeats`` times, and prints
+one JSON line with each render's seconds, the kernel launches per mode of
+the last render and a hash of its pixels.  ``--root DIR`` imports the
+package from the checkout at DIR instead of this one.
+
+The second form times this checkout against the one at DIR: ``--turns``
+times the order DIR, this, this, DIR, each run in a process of its own,
+and prints every run's line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPP = 16
+LAUNCH_RAYS = 131072
+
+
+def _time(root: str, scene: str, repeats: int) -> dict:
+    # Run as a file, sys.path[0] is this package's directory: replace it by
+    # the checkout whose package is timed.
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != here]
+    import torch
+    from portrayer_tpu_torch import Image, RenderConfig, scenes
+    from portrayer_tpu_torch.ops import cuda_intersect
+
+    dev = torch.device("cuda", 0)
+    spec = scenes.load(scene)
+    w, h = spec.size
+    cfg = RenderConfig(device=dev, samples=SPP, max_rays_per_launch=LAUNCH_RAYS)
+    img = Image(None, w, h)
+    secs = []
+    for i in range(repeats + 1):
+        torch.cuda.synchronize()
+        cuda_intersect.reset_counts()
+        t0 = time.perf_counter()
+        img.render(spec.scene, spec.camera, spec.background, cfg)
+        torch.cuda.synchronize()
+        if i:  # the first render builds the kernel
+            secs.append(time.perf_counter() - t0)
+    return {"root": root, "scene": scene, "size": [w, h], "spp": SPP, "seconds": secs,
+            "launches": dict(cuda_intersect.COUNTS),
+            "pixels_sha1": hashlib.sha1(img.buffer.tobytes()).hexdigest()}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--scene", default="big-scene")
+    ap.add_argument("--repeats", type=int, default=2)
+    ap.add_argument("--against")
+    ap.add_argument("--turns", type=int, default=2)
+    args = ap.parse_args(argv)
+    if args.against is None:
+        print(json.dumps(_time(os.path.abspath(args.root), args.scene, args.repeats)),
+              flush=True)
+        return 0
+    for _ in range(args.turns):
+        for root in (args.against, ROOT, ROOT, args.against):
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root,
+                            "--scene", args.scene, "--repeats", str(args.repeats)],
+                           check=True, timeout=1800)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,13 +6,16 @@ interpret mode.
 
 Tolerances: the JAX package's kernel gates (tests/test_pallas.py) — .hit
 equal; node mismatches on at most 0.2% of hits and only within 2*2^-16
-relative t; elsewhere t within rtol 1e-4 / atol 1e-5.  XLA on the CPU
+relative t; elsewhere t within rtol 1e-4 / atol 1e-5; on torus hits the
+JAX package's torus gate (tests/test_torus.py), rtol 1e-3 / atol 1e-3,
+since the f32 quartic's root moves with rounding.  XLA on the CPU
 contracts mul+add into FMA and divides by constants through reciprocals,
 so values agree to f32 rounding, not bit for bit.  The JAX side runs op by
 op (no jit), where XLA fuses least."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -27,15 +30,24 @@ from portrayer_tpu_torch.ops.cuda_intersect import (
     intersect_scene_cuda, intersect_scene_sweep_ref,
 )
 
-from _torch_jax import jax_arrays, assert_gates
+from _torch_jax import jax_arrays, assert_gates, torus_nodes, TORUS_TOL, INLINE
 
 INF = float("inf")
 J_FLAT = P.RenderConfig(accel="flat")
 J_PAL = P.RenderConfig(accel="pallas", pallas_interpret=True)
 T_SWEEP = T.RenderConfig(device="cpu")
 T_FLAT = T.RenderConfig(device="cpu", accel="flat")
-SCENES = ["simple", "big-scene"]
+SCENES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
+          "ellipsoids"]
 _cache = {}
+
+
+def jax_scene(name):
+    """(JAX scene, camera settings, size) of a registered or inline scene."""
+    if name in INLINE:
+        return INLINE[name](P)
+    spec = scenes.load(name)
+    return spec.scene, spec.camera, spec.size
 
 
 def setup(name, n=512, seed=0):
@@ -44,14 +56,13 @@ def setup(name, n=512, seed=0):
     their JAX flat hits toward every light with src_node/src_tri set."""
     if name in _cache:
         return _cache[name]
-    spec = scenes.load(name)
-    w, h = spec.size
-    js = P.flatten_scene(spec.scene, dtype=jnp.float32)
+    scene, camera, (w, h) = jax_scene(name)
+    js = P.flatten_scene(scene, dtype=jnp.float32)
     ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
     rng = np.random.default_rng(seed)
     px = jnp.asarray(rng.uniform(0, w, n), jnp.float32)
     py = jnp.asarray(rng.uniform(0, h, n), jnp.float32)
-    o, d = (np.array(a) for a in JaxCamera(spec.camera, (w, h)).rays_at(px, py))
+    o, d = (np.array(a) for a in JaxCamera(camera, (w, h)).rays_at(px, py))
     hit = jx.intersect_scene(o, d, 1e-5, jnp.inf, js, J_FLAT)
     t = np.where(np.asarray(hit.hit), np.asarray(hit.t), 0.0)
     p = (o + t[:, None] * d).astype(np.float32)
@@ -72,34 +83,49 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("kind", ["sphere", "cube", "cylinder", "cone"])
+@pytest.mark.parametrize("kind", ["sphere", "cube", "cylinder", "cone", "plane", "torus"])
 def test_candidates_match_jax(kind):
+    """Rays from points around the unit primitive toward points near its
+    centre; torus radii (c, a) drawn per ray.  The plane's rays aim at the
+    y = 0 square.  Torus: the torus gate on t, hits equal on all but 1% of
+    rays (grazing roots of the quartic may appear in one package only)."""
     rng = np.random.default_rng(1)
     o = (rng.standard_normal((256, 4, 3)) * 1.5).astype(np.float32)
-    d = (rng.uniform(-0.6, 0.6, (256, 4, 3)) - o).astype(np.float32)
+    aim = rng.uniform(-0.6, 0.6, (256, 4, 3))
+    if kind == "plane":
+        aim[..., 1] = 0.0
+    d = (aim - o).astype(np.float32)
     t_min = np.full((256, 4), 1e-5, np.float32)
     t_max = np.full((256, 4), np.inf, np.float32)
+    params = np.stack([rng.uniform(0.6, 1.2, (256, 4)), rng.uniform(0.15, 0.4, (256, 4))],
+                      axis=-1).astype(np.float32)
     jf = getattr(jx, f"{kind}_candidate")
     tf = getattr(tx, f"{kind}_candidate")
-    ref = np.asarray(jf(o, d, t_min, t_max, 1e-5))
-    got = tf(_t(o), _t(d), _t(t_min), _t(t_max), 1e-5).numpy()
+    ref = np.asarray(jf(o, d, t_min, t_max, 1e-5, params=params))
+    got = tf(_t(o), _t(d), _t(t_min), _t(t_max), 1e-5, params=_t(params)).numpy()
     fin = np.isfinite(ref)
-    np.testing.assert_array_equal(fin, np.isfinite(got))
     assert fin.mean() > 0.1
+    if kind == "torus":
+        assert (fin != np.isfinite(got)).mean() < 0.01
+        both = fin & np.isfinite(got)
+        np.testing.assert_allclose(got[both], ref[both], rtol=TORUS_TOL, atol=TORUS_TOL)
+        return
+    np.testing.assert_array_equal(fin, np.isfinite(got))
     np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", SCENES)
 def test_flat_sweep_and_occluded_match_jax(name):
     js, ts, (o, d), sh = setup(name)
+    tor = torus_nodes(js)
     ref = jx.intersect_scene(o, d, 1e-5, jnp.inf, js, J_FLAT)
     got = tx.intersect_scene(_t(o), _t(d), 1e-5, INF, ts, T_FLAT)
-    assert_gates(ref, got)
+    assert_gates(ref, got, torus=tor)
     src = dict(active=sh["active"], src_node=sh["src_node"], src_tri=sh["src_tri"])
     ref = jx.intersect_scene(sh["o"], sh["d"], sh["t_min"], jnp.inf, js, J_FLAT, **src)
     got = tx.intersect_scene(_t(sh["o"]), _t(sh["d"]), _t(sh["t_min"]), INF, ts, T_FLAT,
                              **{k: _t(v) for k, v in src.items()})
-    assert_gates(ref, got, sh["src_node"])
+    assert_gates(ref, got, sh["src_node"], torus=tor)
     occ_ref = jx.occluded(sh["o"], sh["d"], sh["t_min"], jnp.inf, js, J_FLAT, **src)
     occ = tx.occluded(_t(sh["o"]), _t(sh["d"]), _t(sh["t_min"]), INF, ts, T_FLAT,
                       **{k: _t(v) for k, v in src.items()})
@@ -123,12 +149,17 @@ def test_winner_t_and_hit_detail_match_jax(name):
         tmin_t = tmin if np.isscalar(tmin) else _t(tmin)
         wt = tx.winner_t(_t(ro), _t(rd), thit.node, thit.tri, ts, T_FLAT, tmin_t,
                          **tsrc).numpy()
-        np.testing.assert_allclose(wt[hm], np.asarray(wt_ref)[hm], rtol=1e-4, atol=1e-5)
+        # Torus winners: the torus gate on t, and on the point and normal
+        # that follow from it.
+        tor = np.isin(np.asarray(hit.node), torus_nodes(js))
+        for m, rtol, atol in ((hm & ~tor, 1e-4, 1e-5), (hm & tor, TORUS_TOL, TORUS_TOL)):
+            np.testing.assert_allclose(wt[m], np.asarray(wt_ref)[m], rtol=rtol, atol=atol)
         det = tx.hit_detail(_t(ro), _t(rd), thit, ts, T_FLAT, tmin_t, **tsrc)
         for f in ("point", "normal", "uv", "nmt"):
-            np.testing.assert_allclose(getattr(det, f).numpy()[hm],
-                                       np.asarray(getattr(det_ref, f))[hm],
-                                       rtol=1e-4, atol=1e-4, err_msg=f)
+            for m, tol in ((hm & ~tor, 1e-4), (hm & tor, TORUS_TOL)):
+                np.testing.assert_allclose(getattr(det, f).numpy()[m],
+                                           np.asarray(getattr(det_ref, f))[m],
+                                           rtol=tol, atol=tol, err_msg=f)
         for f in ("has_uv", "has_nmt", "material"):
             np.testing.assert_array_equal(getattr(det, f).numpy(),
                                           np.asarray(getattr(det_ref, f)), err_msg=f)
@@ -141,15 +172,16 @@ def test_sweep_plain_version_matches_pallas_kernel(name):
     JAX Pallas kernel in interpret mode, nearest and any-hit, with and
     without src_node."""
     js, ts, (o, d), sh = setup(name)
+    tor = torus_nodes(js)
     ref = intersect_scene_pallas(o, d, 1e-5, jnp.inf, js, J_PAL)
     got = intersect_scene_cuda(_t(o), _t(d), 1e-5, INF, ts, T_SWEEP)
-    assert_gates(ref, got)
+    assert_gates(ref, got, torus=tor)
     src = dict(active=sh["active"], src_node=sh["src_node"], src_tri=sh["src_tri"])
     tsrc = {k: _t(v) for k, v in src.items()}
     args_j = (sh["o"], sh["d"], sh["t_min"], jnp.inf, js, J_PAL)
     args_t = (_t(sh["o"]), _t(sh["d"]), _t(sh["t_min"]), INF, ts, T_SWEEP)
     assert_gates(intersect_scene_pallas(*args_j, **src), intersect_scene_cuda(*args_t, **tsrc),
-                 sh["src_node"])
+                 sh["src_node"], torus=tor)
     ref_any = intersect_scene_pallas(*args_j, **src, any_hit=True)
     got_any = intersect_scene_cuda(*args_t, **tsrc, any_hit=True)
     np.testing.assert_array_equal(np.asarray(ref_any.hit), got_any.hit.numpy())
@@ -157,9 +189,10 @@ def test_sweep_plain_version_matches_pallas_kernel(name):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_sweep_plain_version_matches_port_flat(name):
-    _, ts, (o, d), sh = setup(name)
+    js, ts, (o, d), sh = setup(name)
     assert_gates(tx.intersect_scene(_t(o), _t(d), 1e-5, INF, ts, T_FLAT),
-                 intersect_scene_sweep_ref(_t(o), _t(d), 1e-5, INF, ts, T_SWEEP))
+                 intersect_scene_sweep_ref(_t(o), _t(d), 1e-5, INF, ts, T_SWEEP),
+                 torus=torus_nodes(js))
     tsrc = dict(active=_t(sh["active"]), src_node=_t(sh["src_node"]),
                 src_tri=_t(sh["src_tri"]))
     args = (_t(sh["o"]), _t(sh["d"]), _t(sh["t_min"]), INF, ts)
@@ -189,3 +222,114 @@ def test_sweep_respects_active_and_tmax():
             assert torch.equal(got.t[got.hit], near.t[near.hit])
         occ = intersect_scene_cuda(o, d, 1e-5, t_max, ts, T_SWEEP, any_hit=True)
         assert torch.equal(occ.hit, near.hit & kept)
+
+
+@pytest.mark.parametrize("name", ["torus-showcase", "glossy-reflection"])
+def test_sweep_work_counts_real_lanes(name):
+    """The work count behind chip_smoke.py's bound.  Nearest mode: one cull
+    test per (active ray, chunk) and, per kind, one evaluation per (ray,
+    real lane) of each chunk the cull passes; padding lanes count nothing.
+    Any-hit mode stops at a ray's first hit: as much work as nearest mode
+    on rays that hit nothing, less over all rays."""
+    from portrayer_tpu_torch.ops import cuda_intersect as ci
+
+    _, ts, (o, d), _ = setup(name)
+    o, d = _t(o), _t(d)
+    pk = ts.packed
+    t_min, t_max, active = ci._rays(o, 1e-5, INF, None)
+    cross = ci._cull(o, ci._safe_rcp(d), t_min, t_max, active, pk)
+    real = (pk.ids[0].reshape(pk.n_chunks, -1) >= 0).sum(dim=1)
+    assert int(real.sum()) < pk.ids.shape[1]  # the table has padding lanes
+    kinds = [k for k, _, n in pk.kind_ranges for _ in range(n)]
+    expect = {"cull": o.shape[0] * pk.n_chunks}
+    for c, k in enumerate(kinds):
+        expect[k] = expect.get(k, 0) + int(cross[:, c].sum()) * int(real[c])
+
+    def run(o, d, **kw):
+        work = {}
+        return intersect_scene_sweep_ref(o, d, 1e-5, INF, ts, T_SWEEP, work=work, **kw), work
+
+    near, work = run(o, d)
+    assert work == {k: v for k, v in expect.items() if v}
+    miss = ~near.hit
+    assert miss.any() and near.hit.any()
+    assert run(o[miss], d[miss], any_hit=True)[1] == run(o[miss], d[miss])[1]
+    assert sum(run(o, d, any_hit=True)[1].values()) < sum(work.values())
+
+
+def test_aabox_grazing_rays_fall_back_to_the_sweep_t():
+    """Rays aimed within 2e-4 of the edges of glossy-reflection's table, an
+    axis-aligned box swept by the aabox slab test.  winner_t recomputes t
+    with the cube's 6-face fold, which loses some of these roots (+inf)
+    exactly where the JAX package's does; hit_detail then keeps the sweep's
+    t, as the JAX package's exact-t epilogue does."""
+    js, ts, _, _ = setup("glossy-reflection")
+    node = 3
+    assert int(js.packed.ids[0, 128]) == node  # the aabox chunk holds the table
+    rng = np.random.default_rng(4)
+    n = 4096
+    loc = rng.uniform(-0.5, 0.5, (n, 3))
+    free = rng.integers(0, 3, n)
+    for a in range(3):
+        edge = np.sign(rng.uniform(-1.0, 1.0, n)) * 0.5
+        loc[:, a] = np.where(free == a, loc[:, a], edge)
+    tr = np.asarray(js.trans, np.float64)[node]
+    world = loc @ tr[:, :3].T + tr[:, 3] + rng.uniform(-2e-4, 2e-4, (n, 3))
+    o = world + rng.standard_normal((n, 3)) * 3.0 + np.array([0.0, 3.0, 6.0])
+    d = world - o
+    o = o.astype(np.float32)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+    # The slab test's t on the inflated box, as the sweep returns it (the
+    # Pallas kernel's quantised key without its exact-t epilogue).
+    ref = intersect_scene_pallas(o, d, 1e-5, jnp.inf, js, J_PAL, exact_t=False)
+    got = intersect_scene_cuda(_t(o), _t(d), 1e-5, INF, ts, T_SWEEP)
+    assert_gates(ref, got)
+    hm = got.hit.numpy()
+    wt_ref = np.asarray(jx.winner_t(o, d, ref.node, ref.tri, js, J_FLAT, 1e-5))
+    wt = tx.winner_t(_t(o), _t(d), got.node, got.tri, ts, T_FLAT, 1e-5).numpy()
+    lost = hm & ~np.isfinite(wt)
+    np.testing.assert_array_equal(lost, hm & ~np.isfinite(wt_ref))
+    assert lost.sum() > 0, "no ray exercised the fallback"
+    keep = hm & ~lost
+    np.testing.assert_allclose(wt[keep], wt_ref[keep], rtol=1e-4, atol=1e-5)
+    det = tx.hit_detail(_t(o), _t(d), got, ts, T_FLAT, 1e-5)
+    t_used = np.where(lost, got.t.numpy(), wt)
+    np.testing.assert_allclose(det.point.numpy()[hm], (o + t_used[:, None] * d)[hm],
+                               rtol=1e-6, atol=1e-6)
+    # The JAX package falls back to its kernel's quantised t (2^-16
+    # relative), the port to the exact f32 t of its sweep.
+    det_ref = jx.hit_detail(o, d, intersect_scene_pallas(o, d, 1e-5, jnp.inf, js, J_PAL),
+                            js, J_FLAT, 1e-5)
+    p_ref = np.asarray(det_ref.point)
+    np.testing.assert_allclose(det.point.numpy()[keep], p_ref[keep], rtol=1e-4, atol=1e-4)
+    err = np.abs(det.point.numpy()[lost] - p_ref[lost]).max(axis=-1)
+    assert (err <= 2.0 ** -15 * t_used[lost] + 1e-5).all()
+
+
+def test_torus_root_is_the_jax_quartic_op_for_op():
+    """The port's flat torus candidate against the JAX package's run op by
+    op (no jit, so XLA contracts no mul+add into an FMA): 20,000 rays
+    aimed at a torus of the torus-showcase's size in local units.  The
+    same formulas in the same order give the same f32 root on at least 99%
+    of hits (measured: 99.6% of 14,703) and stay within the torus gate on
+    the rest, where cube root, arccos or cosine round differently."""
+    g = np.random.default_rng(0)
+    n = 20000
+    o = (g.standard_normal((n, 3)) + np.array([0.0, 2.0, 5.0])).astype(np.float32)
+    aim = g.uniform(-1.2, 1.2, (n, 3))
+    aim[:, 1] *= 0.2
+    d = aim - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True) / 2.2).astype(np.float32)
+    params = np.tile(np.array([1.0, 0.22], np.float32), (n, 1))
+    t_min = np.full(n, 1e-5, np.float32)
+    t_max = np.full(n, np.inf, np.float32)
+    with jax.disable_jit():
+        ref = np.asarray(jx.torus_candidate(o, d, t_min, t_max, 1e-5, params=params))
+    got = tx.torus_candidate(_t(o), _t(d), _t(t_min), _t(t_max), 1e-5,
+                             params=_t(params)).numpy()
+    both = np.isfinite(ref) & np.isfinite(got)
+    assert both.sum() > 10000
+    assert (np.isfinite(ref) != np.isfinite(got)).mean() < 1e-3
+    assert (got[both] == ref[both]).mean() >= 0.99
+    np.testing.assert_allclose(got[both], ref[both], rtol=TORUS_TOL, atol=TORUS_TOL)

@@ -159,15 +159,17 @@ def test_png_io_against_pil():
 
 
 def test_port_imports_no_jax():
-    """`import portrayer_tpu_torch` and a CPU render leave JAX, flax, PIL
-    and the JAX package out of sys.modules."""
+    """`import portrayer_tpu_torch` and a CPU render of each of its scenes
+    leave JAX, flax, PIL and the JAX package out of sys.modules."""
     code = (
         "import sys\n"
         "import portrayer_tpu_torch as T\n"
         "from portrayer_tpu_torch import scenes\n"
-        "s = scenes.load('big-scene')\n"
-        "T.render_u8(s.scene, s.camera, (12, 8), s.background,\n"
-        "            T.RenderConfig(device='cpu', samples=1))\n"
+        "assert len(scenes.names()) == 5, scenes.names()\n"
+        "for name in scenes.names():\n"
+        "    s = scenes.load(name)\n"
+        "    T.render_u8(s.scene, s.camera, (12, 8), s.background,\n"
+        "                T.RenderConfig(device='cpu', samples=1))\n"
         "bad = [m for m in ('jax', 'flax', 'PIL', 'portrayer_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -35,3 +35,20 @@ def test_uniform_bit_equal(R):
     assert ut.dtype == torch.float32 and tuple(ut.shape) == (R, 2)
     np.testing.assert_array_equal(uj.view(np.uint32), ut.numpy().view(np.uint32))
     assert (ut >= 0).all() and (ut < 1).all()
+
+
+@pytest.mark.parametrize("site, n", [(2000, 2), (1002, 3)])
+def test_per_lane_draws_bit_equal_to_shade_uniform(site, n):
+    """fold_in over a tensor of sample ids, then per-lane uniforms: bit-equal
+    to the JAX package's shade._uniform (vmap(fold_in), vmap(uniform))."""
+    from portrayer_tpu.ops.shade import _uniform as jax_uniform
+    from portrayer_tpu_torch.ops.shade import _uniform
+
+    sid = np.random.default_rng(site).integers(0, 2**27, 777).astype(np.int32)
+    sid[:3] = (0, 1, 2**31 - 1)
+    kj = jax.random.fold_in(jax.random.PRNGKey(5), 3)
+    kt = rng.fold_in(rng.PRNGKey(5), 3)
+    uj = np.asarray(jax_uniform(kj, site, jnp.asarray(sid), n, jnp.float32))
+    ut = _uniform(kt, site, torch.from_numpy(sid), n)
+    assert ut.dtype == torch.float32 and tuple(ut.shape) == (777, n)
+    np.testing.assert_array_equal(uj.view(np.uint32), ut.numpy().view(np.uint32))

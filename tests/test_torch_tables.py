@@ -1,6 +1,6 @@
 """The port's scene lowering produces the JAX package's tables array for
 array; tables_from_numpy carries the JAX tables across unchanged; scenes
-whose packing needs a sweep branch of a later slice are refused."""
+whose packing needs tri_w (meshes), or that use textures, are refused."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,9 @@ import portrayer_tpu as P
 from portrayer_tpu.scene.flatten import node_record as jax_node_record
 import portrayer_tpu_torch as T
 from portrayer_tpu_torch import scenes as tscenes
-from portrayer_tpu_torch.scene.flatten import TABLE_FIELDS, PACKED_FIELDS, tables_from_numpy
+from portrayer_tpu_torch.scene.flatten import (
+    TABLE_FIELDS, PACKED_FIELDS, PACKED_KIND_NAMES, tables_from_numpy,
+)
 
 from _torch_jax import jax_arrays
 
@@ -33,7 +35,10 @@ def _assert_tables_equal(js, ts):
     np.testing.assert_array_equal(np.asarray(jax_node_record(js)), ts.rec.numpy())
 
 
-@pytest.mark.parametrize("name", ["simple", "big-scene"])
+NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple"]
+
+
+@pytest.mark.parametrize("name", NAMES)
 def test_lowering_equals_flatten_scene(name):
     js = P.flatten_scene(scenes.load(name).scene, dtype=jnp.float32)
     ts = T.flatten_scene(tscenes.load(name).scene, "cpu")
@@ -48,7 +53,7 @@ def test_big_scene_kind_runs():
     assert ts.n_lights == 3 and not ts.any_reflective
 
 
-@pytest.mark.parametrize("name", ["simple", "big-scene"])
+@pytest.mark.parametrize("name", NAMES)
 def test_tables_from_numpy_round_trip(name):
     js = P.flatten_scene(scenes.load(name).scene, dtype=jnp.float32)
     arrays, meta = jax_arrays(js)
@@ -57,22 +62,34 @@ def test_tables_from_numpy_round_trip(name):
     assert ts.device == torch.device("cpu")
 
 
-def _one(prim, trans=None):
-    node = T.SceneNode(T.Geometry(prim, T.Material(diffuse=(1.0, 1.0, 1.0))))
-    node.scaled(trans if trans is not None else (1.0, 2.0, 3.0)).rotated_x(0.3)
-    return T.Scene(T.SceneNode([node]), [], 0.1)
+def _one(prim, rotate=True, scale=(1.0, 2.0, 3.0)):
+    """(port scene, JAX scene) of one primitive `prim` ("Sphere", ...,
+    "Torus") under the same transform."""
+    out = []
+    for pkg in (T, P):
+        p = getattr(pkg, prim)(1.0, 0.25) if prim == "Torus" else getattr(pkg, prim)()
+        node = pkg.SceneNode(pkg.Geometry(p, pkg.Material(diffuse=(1.0, 1.0, 1.0)))).scaled(scale)
+        if rotate:
+            node.rotated_x(0.3)
+        out.append(pkg.Scene(pkg.SceneNode([node]), [pkg.Light()], (0.1, 0.1, 0.1)))
+    return out
 
 
 @pytest.mark.parametrize("scene, kind", [
-    (_one(T.Sphere), "sphere_g"),
-    (_one(T.Plane), "plane_g"),
-    (_one(T.Torus(1.0, 0.25)), "torus_g"),
-    (T.Scene(T.SceneNode([T.SceneNode(T.Geometry(T.Cube, T.Material())).scaled(2.0)]),
-             [], 0.1), "aabox"),
+    (_one("Sphere"), "sphere_g"),
+    (_one("Plane"), "plane_g"),
+    (_one("Torus"), "torus_g"),
+    (_one("Cube", rotate=False, scale=2.0), "aabox"),
 ])
 def test_unported_kinds_raise(scene, kind):
-    with pytest.raises(NotImplementedError, match=kind):
-        T.flatten_scene(scene, "cpu")
+    """Each of these packed kinds was refused before its sweep branch was
+    ported; now it lowers, to the JAX package's tables, in a chunk of its
+    kind."""
+    tscene, jscene = scene
+    ts = T.flatten_scene(tscene, "cpu")
+    _assert_tables_equal(P.flatten_scene(jscene, dtype=jnp.float32), ts)
+    kinds = [PACKED_KIND_NAMES[k] for k, _, _ in ts.packed.kind_ranges]
+    assert kinds == [kind]
 
 
 def test_unported_tri_w_raises_through_bridge():
