@@ -10,23 +10,26 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    build seconds and, per kernel instantiation, ptxas registers and spills;
 2. each sweep kernel (nearest, any-hit) against its plain PyTorch version
    on the card: camera rays of big-scene, simple, torus-showcase,
-   glossy-reflection, primitives-simple and an inline scene of ellipsoids,
-   their shadow rays, and the child rays of a real bounce round 0 (with
-   their source surfaces) and those rays' shadow rays.  Gates: the JAX
-   package's kernel gates, and on torus chunks its torus gate; every
-   difference is counted.  Then both versions' times at the render's launch
-   shapes of big-scene, torus-showcase and glossy-reflection (CUDA events),
+   glossy-reflection, primitives-simple, single-triangle and the inline
+   scenes of ellipsoids and procedural meshes (73,729 triangles,
+   ``tests/_torch_jax.py``), their shadow rays, and the child rays of a
+   real bounce round 0 (with their source surfaces) and those rays' shadow
+   rays.  Gates: the JAX package's kernel gates, and on torus chunks its
+   torus gate; every difference is counted.  Then both versions' times at
+   the render's launch shapes of big-scene, torus-showcase,
+   glossy-reflection, procedural-meshes and single-triangle (CUDA events),
    beside the bound of each launch;
-3. renders of simple (64x64), big-scene (160x82) and torus-showcase
-   (64x64) against the committed self-goldens (on torus-showcase, the
-   pixels of TORUS_JIT_PIXELS aside);
+3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64)
+   and single-triangle (160x120) against the committed self-goldens (on
+   torus-showcase, the pixels of TORUS_JIT_PIXELS aside);
 4. the main paths through ``Image.render``, each with the kernel launch
    counts of its run: big-scene's full 1980x1020 frame, torus-showcase at
-   256x256 and glossy-reflection at 910x512, all at 16 spp, with live rays
-   per bounce round, host syncs and dropped throughput (from the render's
-   TraceStats, which cost one host sync per chunk more); then simple at
-   256x256 and glossy-reflection at 4 spp through ``render_linear``, held
-   against the flat oracle's render on the card.
+   256x256, glossy-reflection at 910x512, procedural-meshes at 960x540 and
+   single-triangle at 640x480, all at 16 spp, with live rays per bounce
+   round, host syncs and dropped throughput (from the render's TraceStats,
+   which cost one host sync per chunk more); then simple at 256x256,
+   glossy-reflection and procedural-meshes (240x136) at 4 spp through
+   ``render_linear``, held against the flat oracle's render on the card.
 
 The last two lines are a JSON object of per-kernel numbers and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
@@ -47,7 +50,15 @@ TPU_KERNEL = "portrayer_tpu/ops/pallas_intersect.py:159"
 FULL_FRAME_SPP = 16
 SIMPLE_SPP = 4
 GLOSSY_LINEAR_SPP = 4
+# procedural-meshes through render_linear against the flat oracle: a cut
+# frame, as the oracle's [rays x 512 pairs] f32 temporaries are 134 MB each
+# at a 65,536-ray launch.
+MESH_LINEAR_SIZE = (240, 136)
+MESH_LINEAR_SPP = 4
 LAUNCH_RAYS = 131072
+# Timed launches of the plain version per turn (it loops over the chunks in
+# Python: 577 of them on procedural-meshes).
+PLAIN_ITERS = 3
 TORUS_TOL = 1e-3  # the JAX package's torus gate (tests/test_torus.py)
 # Pixels (row-major) of the torus-showcase self-golden (64x64, 4 spp, seed
 # 0) that the JAX package's own render, run op by op without jit, has off
@@ -65,31 +76,8 @@ PEAK_BYTES = 3.35e12
 # min/max/clamp and expf/logf/cosf count one each; negation, fabs, compares
 # and selects none.  The chunk cull costs CULL_FLOPS per (ray, chunk).
 BRANCH_FLOPS = {"sphere_g": 66, "plane_g": 43, "cube_g": 86, "cylinder_g": 82,
-                "cone_g": 91, "torus_g": 429, "sphere_w": 26, "aabox": 22}
+                "cone_g": 91, "torus_g": 429, "sphere_w": 26, "aabox": 22, "tri_w": 39}
 CULL_FLOPS = 28
-
-
-def _ellipsoids():
-    """Non-uniformly scaled, rotated spheres (packed as sphere_g), one a
-    mirror, over a floor plane: (scene, camera settings, size)."""
-    import portrayer_tpu_torch as T
-
-    mat = T.Material(diffuse=(0.5, 0.5, 0.5), specular=(0.3, 0.3, 0.3), shininess=20.0)
-    mirror = T.Material(diffuse=(0.2, 0.3, 0.5), specular=(0.5, 0.5, 0.5), shininess=30.0,
-                        reflectivity=0.5)
-    nodes = [
-        T.SceneNode(T.Geometry(T.Sphere(), mirror if i == 2 else mat))
-        .scaled((1.0 + 0.5 * (i % 3), 2.0 - 0.25 * i, 0.8 + 0.3 * i))
-        .rotated_y(0.4 * i).translated((3.0 * i - 6.0, 0.0, -2.0 * i))
-        for i in range(5)
-    ]
-    nodes.append(T.SceneNode(T.Geometry(T.Plane(), mat)).scaled(40.0)
-                 .translated((0.0, -2.0, 0.0)))
-    scene = T.Scene(T.SceneNode(nodes),
-                    [T.Light(position=(0.0, 10.0, 10.0), color=(1.0, 1.0, 1.0))],
-                    (0.2, 0.2, 0.2))
-    cam = T.CameraSettings(eye=(0.0, 3.0, 14.0), center=(0.0, 0.0, -4.0), fovy=0.8)
-    return scene, cam, (256, 256)
 
 
 def _torus_ids(st):
@@ -195,7 +183,8 @@ def _bound_ms(args, kw, st, cfg, any_hit):
     run's data needs, as the plain version counts them: CULL_FLOPS per
     (ray, chunk) slab test and BRANCH_FLOPS per (ray, primitive) the cull
     lets through, padding lanes left out, in any-hit mode up to a ray's
-    first hit.  Returns (ms, "operations" or "bytes")."""
+    first hit.  Returns (ms, "operations" or "bytes", {"cull": slab
+    tests, "candidates": (ray, primitive) evaluations})."""
     from portrayer_tpu_torch.scene.flatten import PACKED_KIND_NAMES, PACK_CHUNK
     from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_sweep_ref
 
@@ -203,7 +192,8 @@ def _bound_ms(args, kw, st, cfg, any_hit):
     pk = st.packed
     work = {}
     intersect_scene_sweep_ref(*args, st, cfg, any_hit=any_hit, work=work, **kw)
-    flops = CULL_FLOPS * work.pop("cull") + sum(
+    n_cull = work.pop("cull")
+    flops = CULL_FLOPS * n_cull + sum(
         BRANCH_FLOPS[PACKED_KIND_NAMES[k]] * n for k, n in work.items())
     ray_bytes = 4 * (3 + 3 + 1 + 1) + 1 + (8 if kw.get("src_node") is not None else 0)
     ncol = pk.n_chunks * PACK_CHUNK
@@ -211,7 +201,8 @@ def _bound_ms(args, kw, st, cfg, any_hit):
     out_bytes = 4 if any_hit else 12
     nbytes = R * (ray_bytes + out_bytes) + table_bytes
     t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    counts = {"cull": n_cull, "candidates": sum(work.values())}
+    return (t_ops, "operations", counts) if t_ops >= t_bytes else (t_bytes, "bytes", counts)
 
 
 def phase_card(dev):
@@ -237,16 +228,40 @@ def phase_card(dev):
     return smi
 
 
-def _scene_cases():
+def _procedural_meshes():
+    """procedural-meshes at full size as a SceneSpec: the scene of
+    ``tests/_torch_jax.py`` (73,729 triangle pairs in 577 tri_w chunks)."""
+    import portrayer_tpu_torch as T
     from portrayer_tpu_torch import scenes
+    from _torch_jax import procedural_meshes  # tests/ is on sys.path (main)
+
+    scene, cam, size = procedural_meshes(T)
+    return scenes.SceneSpec(scene=scene, camera=cam, size=size,
+                            background=scenes.sky_background, name="procedural-meshes")
+
+
+# Scenes whose launches phase 2 times.
+TIMED = ("big-scene", "torus-showcase", "glossy-reflection", "procedural-meshes",
+         "single-triangle")
+
+
+def _scene_cases():
+    """(name, camera rays, scene, camera settings, size); the inline scenes
+    come from ``tests/_torch_jax.py``."""
+    import portrayer_tpu_torch as T
+    from portrayer_tpu_torch import scenes
+    from _torch_jax import ellipsoids
 
     cases = []
     # The timed scenes draw at least LAUNCH_RAYS camera rays.
     for name, n_rays in (("big-scene", 262144), ("simple", 65536), ("torus-showcase", 131072),
-                         ("glossy-reflection", 131072), ("primitives-simple", 65536)):
+                         ("glossy-reflection", 131072), ("primitives-simple", 65536),
+                         ("single-triangle", 131072)):
         spec = scenes.load(name)
         cases.append((name, n_rays, spec.scene, spec.camera, spec.size))
-    cases.append(("ellipsoids", 65536) + _ellipsoids())
+    cases.append(("ellipsoids", 65536) + ellipsoids(T))
+    mesh = _procedural_meshes()
+    cases.append(("procedural-meshes", 131072, mesh.scene, mesh.camera, mesh.size))
     return cases
 
 
@@ -309,7 +324,7 @@ def phase_kernels(dev):
                      f"{int(sact.sum())} of their shadow rays")
         print(line + "; kernel and plain version agree", flush=True)
 
-        if name in ("big-scene", "torus-showcase", "glossy-reflection"):
+        if name in TIMED:
             timing[name] = _time_launches(name, o, d, src, near, st, cfg, n_rays)
     return err, diffs, timing, sorted(branches)
 
@@ -317,9 +332,14 @@ def phase_kernels(dev):
 def _time_launches(name, o, d, src, near, st, cfg, n_rays):
     """Both versions at the render path's launch shapes: LAUNCH_RAYS
     primary rays (a 128x128 tile x 8 spp) and one any-hit launch over L x
-    LAUNCH_RAYS shadow rays; plain, kernel, kernel, plain in turns.
-    Returns {mode: (kernel ms, plain ms, bound ms, bound_by)}."""
+    LAUNCH_RAYS shadow rays; plain (PLAIN_ITERS launches), kernel (20),
+    kernel, plain in turns.  Then the cull alone: the nearest kernel on
+    LAUNCH_RAYS rays, drawn from the camera rays that cross no chunk AABB,
+    each of which slab-tests every chunk and evaluates no candidate.
+    Returns {mode: (kernel ms, plain ms, bound ms, bound_by), "cull_only_ms":
+    ms or None}."""
     import torch
+    from portrayer_tpu_torch.ops import cuda_intersect as ci
     from portrayer_tpu_torch.ops.cuda_intersect import (
         intersect_scene_cuda, intersect_scene_sweep_ref)
 
@@ -340,15 +360,32 @@ def _time_launches(name, o, d, src, near, st, cfg, n_rays):
         plain = lambda: intersect_scene_sweep_ref(*args, st, cfg, any_hit=any_hit, **kw)
         if not torch.equal(kern().hit, plain().hit):
             raise AssertionError(f"{name} {mode} at the launch shape: hit differs")
-        p1 = _time_ms(plain, 3)
+        p1 = _time_ms(plain, PLAIN_ITERS)
         k1 = _time_ms(kern, 20)
         k2 = _time_ms(kern, 20)
-        p2 = _time_ms(plain, 3)
-        bound, bound_by = _bound_ms(args, kw, st, cfg, any_hit)
+        p2 = _time_ms(plain, PLAIN_ITERS)
+        bound, bound_by, work = _bound_ms(args, kw, st, cfg, any_hit)
         out[mode] = ((k1 + k2) / 2, (p1 + p2) / 2, bound, bound_by)
         n = args[0].shape[0]
+        live = max(int(kw["active"].sum()) if "active" in kw else n, 1)
         print(f"[2 timing] {name} {mode} ({n} rays): kernel {out[mode][0]:.3f} ms, plain "
-              f"{out[mode][1]:.3f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+              f"{out[mode][1]:.3f} ms ({PLAIN_ITERS} launches a turn), bound {bound:.4f} ms "
+              f"({bound_by}); per active ray {work['cull'] / live:.1f} chunk slab tests, "
+              f"{work['candidates'] / live:.1f} candidates", flush=True)
+    oc, dc = o[:R], d[:R]
+    t_min, t_max, active = ci._rays(oc, cfg.epsilon, inf, None)
+    none = torch.nonzero(~ci._cull(oc, ci._safe_rcp(dc), t_min, t_max, active,
+                                   st.packed).any(dim=1)).squeeze(1)
+    out["cull_only_ms"] = None
+    if none.numel():
+        rep = none[torch.arange(R, device=dev) % none.numel()]
+        oc, dc = oc[rep].contiguous(), dc[rep].contiguous()
+        if intersect_scene_cuda(oc, dc, cfg.epsilon, inf, st, cfg).hit.any():
+            raise AssertionError(f"{name}: a ray that crosses no chunk hit")
+        out["cull_only_ms"] = _time_ms(lambda: intersect_scene_cuda(oc, dc, cfg.epsilon, inf,
+                                                                    st, cfg), 20)
+        print(f"[2 timing] {name} nearest, the cull alone ({R} rays that cross none of the "
+              f"{st.packed.n_chunks} chunks): kernel {out['cull_only_ms']:.3f} ms", flush=True)
     return out
 
 
@@ -358,7 +395,7 @@ def phase_goldens(dev):
     from portrayer_tpu_torch.image_io import read_png
 
     for name, size in (("simple", (64, 64)), ("big-scene", (160, 82)),
-                       ("torus-showcase", (64, 64))):
+                       ("torus-showcase", (64, 64)), ("single-triangle", (160, 120))):
         spec = scenes.load(name)
         cfg = RenderConfig(device=dev, samples=4, tile=(64, 64), seed=0)
         ours = render_u8(spec.scene, spec.camera, size, spec.background, cfg).astype(np.int16)
@@ -383,16 +420,19 @@ def phase_goldens(dev):
               f"(max {diff.max()}){note}", flush=True)
 
 
-def _main_path(dev, name, path_counts):
-    """One main path: `name` at its published size and FULL_FRAME_SPP
-    through Image.render, with the counts of that run alone."""
+def _main_path(dev, spec, path_counts):
+    """One main path: `spec` (a SceneSpec or a registry name) at its size
+    and FULL_FRAME_SPP through Image.render, with the counts of that run
+    alone."""
     import numpy as np
     import torch
     from portrayer_tpu_torch import Image, RenderConfig, scenes
     from portrayer_tpu_torch.image_io import read_png
     from portrayer_tpu_torch.ops import cuda_intersect
 
-    spec = scenes.load(name)
+    if isinstance(spec, str):
+        spec = scenes.load(spec)
+    name = spec.name
     w, h = spec.size
     cfg = RenderConfig(device=dev, samples=FULL_FRAME_SPP, max_rays_per_launch=LAUNCH_RAYS,
                        queue_caps=spec.queue_caps)
@@ -435,17 +475,22 @@ def _main_path(dev, name, path_counts):
           flush=True)
 
 
-def _linear_vs_flat(dev, name, spp, size=None):
-    """`name` through render_linear and the kernels, held against the flat
-    oracle's render on the card: fewer than 0.1% of pixels may differ by
-    more than 1e-4 (a silhouette sample that one sweep hits and the other
-    misses moves its pixel by a large step)."""
+def _linear_vs_flat(dev, spec, spp, size=None):
+    """`spec` (a SceneSpec or a registry name) through render_linear and
+    the kernels, held against the flat oracle's render on the card: fewer
+    than 0.1% of pixels may differ by more than 1e-4 (a silhouette sample
+    that one sweep hits and the other misses moves its pixel by a large
+    step; on a mesh, a ray leaving a triangle meets a neighbour that the
+    kernel, which excludes the source pair, and the oracle, which raises
+    its t-range start, may decide apart)."""
     import numpy as np
     import torch
     from portrayer_tpu_torch import RenderConfig, render_linear, scenes
     from portrayer_tpu_torch.ops import cuda_intersect
 
-    spec = scenes.load(name)
+    if isinstance(spec, str):
+        spec = scenes.load(spec)
+    name = spec.name
     w, h = size or spec.size
     args = (spec.scene, spec.camera, (w, h), spec.background)
     torch.cuda.synchronize()
@@ -457,15 +502,18 @@ def _linear_vs_flat(dev, name, spp, size=None):
     counts = dict(cuda_intersect.COUNTS)
     if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{name} did not run through the kernels alone: {counts}")
+    t0 = time.perf_counter()
     flat = render_linear(*args, RenderConfig(device=dev, samples=spp, accel="flat"))
+    flat_secs = time.perf_counter() - t0
     if ours.shape != (h, w, 3) or not np.isfinite(ours).all() or ours.max() <= 0.0:
         raise AssertionError(f"{name} frame is empty, misshapen or not finite")
     diff = np.abs(ours - flat).max(axis=-1)
     frac = (diff > 1e-4).mean()
     print(f"[4 linear] {name} {w}x{h} x {spp} spp via render_linear: {secs:.3f} s, "
           f"{w * h * spp / secs / 1e6:.3f} Mrays/s primary; launches nearest "
-          f"{counts['nearest']} any-hit {counts['any_hit']}; {frac:.4%} pixels differ from "
-          f"the flat oracle by >1e-4 (max {diff.max():.3g})", flush=True)
+          f"{counts['nearest']} any-hit {counts['any_hit']}; flat oracle {flat_secs:.3f} s; "
+          f"{frac:.4%} pixels differ from the flat oracle by >1e-4 (max {diff.max():.3g})",
+          flush=True)
     if not frac < 1e-3:
         raise AssertionError(f"{name}: {frac:.3%} pixels differ from the flat oracle")
 
@@ -480,8 +528,10 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     try:
         import portrayer_tpu_torch  # noqa: F401
+        import _torch_jax  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e})", file=sys.stderr)
         return 1
@@ -493,10 +543,12 @@ def main():
     err, diffs, timing, branches = phase_kernels(dev)
     phase_goldens(dev)
     path_counts = {}
-    for name in ("big-scene", "torus-showcase", "glossy-reflection"):
-        _main_path(dev, name, path_counts)
+    mesh = _procedural_meshes()
+    for spec in ("big-scene", "torus-showcase", "glossy-reflection", mesh, "single-triangle"):
+        _main_path(dev, spec, path_counts)
     _linear_vs_flat(dev, "simple", SIMPLE_SPP)
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
+    _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
 
     kernels = []
     for mode in ("nearest", "any_hit"):
@@ -509,7 +561,9 @@ def main():
             "max_abs_err": err[mode], "rays_differing": diffs[mode],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None,
-            "by_scene": {s: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t[mode]))
+            "by_scene": {s: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t[mode]),
+                                 **({"cull_only_ms": t["cull_only_ms"]}
+                                    if mode == "nearest" else {}))
                          for s, t in timing.items()},
         })
     print(json.dumps({"kernels": kernels}))

@@ -50,11 +50,11 @@ def _env_samples(default: int = 100) -> int:
 class RenderConfig:
     """Sampling, robustness epsilons, launch shape, device and sweep.
 
-    ``device`` has no default: a render names the device it runs on, so
-    nothing silently falls back to the CPU.
+    ``device`` defaults to the card: a caller asks for the CPU by name.
+    Nothing falls back: without a card the first CUDA tensor raises.
     """
 
-    device: Union[str, torch.device]
+    device: Union[str, torch.device] = "cuda"
 
     # Samples per pixel (jittered); None reads SAMPLES, else 100.
     samples: Optional[int] = None

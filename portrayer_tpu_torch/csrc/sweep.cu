@@ -15,18 +15,21 @@
 //    ties go to the earlier (chunk, lane).  The TPU kernel's 2^-16
 //    lane-tagged key was a workaround for the TPU's lane reductions.
 //  * Any-hit mode returns at the first in-range hit.
-//  * Every packed kind but tri_w has a branch.  The torus branch is five
-//    times the size of the others and would set the register count, and so
-//    the occupancy, of every scene; it is instantiated only for tables that
+//  * Every packed kind has a branch.  The torus branch is five times the
+//    size of the others and would set the register count, and so the
+//    occupancy, of every scene; it is instantiated only for tables that
 //    hold a torus chunk (template flag HAS_TORUS), as the TPU kernel
 //    compiles only the kinds present.
 //
-// Bound on this card: a thread's work is ~100-200 f32 ops per candidate
-// (~700 for a torus) and 5-14 table words per candidate; a warp's threads
-// read the same table column, so those reads are L1/L2 broadcasts and the
-// kernel is bound by issue rate and by divergence where the rays of a warp
-// cross different chunks.  Staging chunks in shared memory and culling per
-// warp are later work.
+// Bound on this card: a thread's work is ~40-200 f32 ops per candidate
+// (~40 for a triangle, ~700 for a torus) and 5-14 table words per
+// candidate; a warp's threads read the same table column, so those reads
+// are L1/L2 broadcasts and the kernel is bound by issue rate and by
+// divergence where the rays of a warp cross different chunks.  Every ray
+// slab-tests every chunk's AABB (577 on a 73,729-triangle table) before any
+// candidate: there is no hierarchy over chunks, as in the TPU kernel's
+// prologue.  Staging chunks in shared memory, culling per warp and a
+// hierarchy over chunks are later work.
 //
 // Numerics: built with -fmad=false and written in the op order of the plain
 // PyTorch version (ops/cuda_intersect.py: intersect_scene_sweep_ref), whose
@@ -43,9 +46,8 @@ namespace {
 constexpr int kChunk = 128;   // columns per chunk (PACK_CHUNK)
 constexpr int kThreads = 128;
 
-// Packed chunk kinds (scene/flatten.py).  tri_w (5) is refused at table
-// build.
-constexpr int kSphereG = 0, kPlaneG = 1, kCubeG = 2, kCylinderG = 3, kConeG = 4,
+// Packed chunk kinds (scene/flatten.py).
+constexpr int kSphereG = 0, kPlaneG = 1, kCubeG = 2, kCylinderG = 3, kConeG = 4, kTriW = 5,
               kTorusG = 6, kSphereW = 7, kAabox = 8;
 
 struct Tables {
@@ -244,6 +246,21 @@ __device__ float cone_g(const Tables& tb, int col, const Ray& ry, bool is_src,
   bool okc = in_range(t_cap, t_min_e, ry.t_max) && !(px * px + pz * pz > r2);
   t_cap = okc ? t_cap : CUDART_INF_F;
   return t_cap < t_body ? t_cap : t_body;
+}
+
+// tri_w: world triangle in its unit-triangle frame (rows 0..11 map o and d
+// to (beta, gamma, w); zero for a degenerate triangle, which then has
+// t = +inf).  The compares are written as !(x < 0) so that a NaN passes
+// them, as in the TPU kernel.  The ray's source (node, triangle) pair is
+// excluded outright: a ray leaving a planar triangle never re-hits it.
+__device__ float tri_w(const Tables& tb, int col, const Ray& ry, bool is_src) {
+  Local l = local_frame(tb, col, ry);
+  float t = guarded_div(-l.oz, l.dz);
+  float beta = l.ox + t * l.dx;
+  float gamma = l.oy + t * l.dy;
+  bool ok = in_range(t, ry.t_min, ry.t_max) && !(beta < 0.0f) && !(gamma < 0.0f) &&
+            !(beta + gamma > 1.0f) && !is_src;
+  return ok ? t : CUDART_INF_F;
 }
 
 // sphere_w: world sphere (center rows 0..2, r^2 row 3, scale row 4);
@@ -480,6 +497,7 @@ sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
           case kCubeG: t = cube_g(tb, col, ry, is_src, eps_r, self_eps); break;
           case kCylinderG: t = cylinder_g(tb, col, ry, is_src, self_eps); break;
           case kConeG: t = cone_g(tb, col, ry, is_src, self_eps); break;
+          case kTriW: t = tri_w(tb, col, ry, is_src); break;
           case kTorusG:
             if constexpr (HAS_TORUS) {
               t = torus_g(tb, col, ry, is_src, self_eps);
@@ -489,7 +507,7 @@ sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
             break;
           case kSphereW: t = sphere_w(tb, col, ry, is_src, self_eps); break;
           case kAabox: t = aabox(tb, col, ry, rcp, is_src, self_eps); break;
-          default: t = CUDART_INF_F; break;  // tri_w: refused at table build
+          default: t = CUDART_INF_F; break;
         }
         if (ANY_HIT) {
           if (t < CUDART_INF_F) {

@@ -20,8 +20,8 @@ import torch
 
 from ..config import RenderConfig
 from ..scene.flatten import (
-    SceneTables, PACK_CHUNK, SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, PACKED_SPHERE_W,
-    PACKED_AABOX,
+    SceneTables, PACK_CHUNK, SPHERE, PLANE, CUBE, CYLINDER, CONE, MESH, TORUS,
+    PACKED_SPHERE_W, PACKED_AABOX,
 )
 from .intersect import Hit
 
@@ -308,6 +308,20 @@ class _Chunk:
             best = t if best is None else torch.where(t < best, t, best)
         return best
 
+    def tri_w(self):
+        """World triangle in its unit-triangle frame (rows 0..11 map o and
+        d to (beta, gamma, w)): t = -o'w / d'w, then the barycentric
+        compares, written so that a NaN passes them as the TPU kernel's
+        do.  The source pair is excluded outright: a ray leaving a planar
+        triangle never re-hits it."""
+        ou, ov, ow, du, dv, dw = self.local_frame()
+        t = _gd(-ow, dw)
+        beta = ou + t * du
+        gamma = ov + t * dv
+        ok = (_in_range(t, self.t_min, self.t_max) & ~(beta < 0.0) & ~(gamma < 0.0)
+              & ~(beta + gamma > 1.0) & ~self.is_src)
+        return torch.where(ok, t, INF)
+
     def aabox(self):
         """Slab test on the pack-time inflated world box: the entry face if
         in range, else the exit face (the cube's 6-face fold semantics)."""
@@ -357,6 +371,7 @@ _BRANCHES = {
     CUBE: _Chunk.cube_g,
     CYLINDER: _Chunk.cylinder_g,
     CONE: _Chunk.cone_g,
+    MESH: _Chunk.tri_w,
     TORUS: _Chunk.torus_g,
     PACKED_SPHERE_W: _Chunk.sphere_w,
     PACKED_AABOX: _Chunk.aabox,

@@ -1,13 +1,15 @@
 """Scene intersection: the plain oracle and the sweep dispatch
 (counterpart of ``portrayer_tpu/ops/intersect.py``).
 
-Rays are SoA batches [R,3].  The flat sweep walks each primitive group in
-node chunks, computes every (ray, node) candidate in the node's local frame
-and folds the nearest hit; ``hit_detail`` then recomputes the winner's t,
-normal, uv and tangent frame from the tables.  Selection follows the
-reference: half-open range t_min <= t < t_max, the smallest quadratic root
-in range with cap checks and no second-root fallback, strict-< folds over
-cube faces (cube.rs:70-82) and over cylinder/cone parts.
+Rays are SoA batches [R,3].  The flat sweep walks each analytic group in
+node chunks and then the mesh (instance, triangle) pairs in pair chunks,
+computes every candidate in the node's local frame and folds the nearest
+hit; ``hit_detail`` then recomputes the winner's t, normal, uv and tangent
+frame from the tables.  Selection follows the reference: half-open range
+t_min <= t < t_max, the smallest quadratic root in range with cap checks
+and no second-root fallback, strict-< folds over cube faces
+(cube.rs:70-82) and over cylinder/cone parts, the Shirley/Cramer triangle
+test (triangle.rs:39-80).
 
 ``accel="cuda"`` sends nearest and any-hit queries to the sweep in
 ``cuda_intersect`` (its kernel on CUDA tensors, its plain version on CPU
@@ -24,8 +26,7 @@ import torch
 from .. import math3d as m3
 from ..config import RenderConfig
 from ..scene.flatten import (
-    SceneTables, SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, KIND_NAMES, REC_KIND,
-    REC_PARAMS,
+    SceneTables, SPHERE, PLANE, CUBE, CYLINDER, CONE, MESH, TORUS, REC_KIND, REC_PARAMS,
 )
 
 INF = math.inf
@@ -34,6 +35,8 @@ INF = math.inf
 # The result does not depend on it (first minimum within a step, strict <
 # across steps).
 NODE_CHUNK = 512
+# Mesh pairs per step of the flat sweep (the JAX package's tri_chunk).
+PAIR_CHUNK = 512
 
 
 class Hit(NamedTuple):
@@ -56,11 +59,11 @@ class HitDetail(NamedTuple):
     #                        a later slice)
 
 
-def _guarded_div(n, d):
-    """n / d where d != 0, else +inf."""
+def _guarded_div(n, d, fill=INF):
+    """n / d where d != 0, else `fill`."""
     ok = d != 0.0
     return torch.where(ok, n / torch.where(ok, d, torch.ones_like(d)),
-                       torch.full_like(n, INF))
+                       torch.full_like(n, fill))
 
 
 def _finite(t):
@@ -262,12 +265,33 @@ _ANALYTIC_CANDIDATES = {
 }
 
 
-def _candidate_fn(kind):
-    fn = _ANALYTIC_CANDIDATES.get(kind)
-    if fn is None:
-        raise NotImplementedError(
-            f"{KIND_NAMES[kind]} intersection: later slice of the port")
-    return fn
+def triangle_candidate(o, d, a, b, c, t_min, t_max):
+    """Shirley/Cramer triangle intersection (triangle.rs:39-80): (t, beta,
+    gamma), t = inf where invalid; beta and gamma are 2 where the system is
+    singular.  All operands broadcast elementwise ([..., 3] points)."""
+    e1 = a - b
+    e2 = a - c
+    A, B, C_ = e1[..., 0], e1[..., 1], e1[..., 2]
+    D, E, F = e2[..., 0], e2[..., 1], e2[..., 2]
+    G, H, I = d[..., 0], d[..., 1], d[..., 2]
+    rhs = a - o
+    J, K, L = rhs[..., 0], rhs[..., 1], rhs[..., 2]
+
+    ei_hf = E * I - H * F
+    gf_di = G * F - D * I
+    dh_eg = D * H - E * G
+    M = A * ei_hf + B * gf_di + C_ * dh_eg
+
+    ak_jb = A * K - J * B
+    jc_al = J * C_ - A * L
+    bl_ck = B * L - C_ * K
+
+    t = _guarded_div(-(F * ak_jb + E * jc_al + D * bl_ck), M)
+    gamma = _guarded_div(I * ak_jb + H * jc_al + G * bl_ck, M, 2.0)
+    beta = _guarded_div(J * ei_hf + K * gf_di + L * dh_eg, M, 2.0)
+    ok = (_in_range(t, t_min, t_max) & ~(gamma < 0.0) & ~(gamma > 1.0)
+          & ~(beta < 0.0) & ~(beta > 1.0 - gamma))
+    return torch.where(ok, t, INF), beta, gamma
 
 
 # ---------------------------------------------------------------------------
@@ -289,39 +313,68 @@ def _as_rays(x, R, like):
 
 
 def _flat_intersect(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
-                    active=None, src_node=None):
+                    active=None, src_node=None, src_tri=None):
     R = o.shape[0]
     dev = o.device
     t_min = _as_rays(t_min, R, o)
     t_max = _as_rays(t_max, R, o)
     best_t = torch.full((R,), INF, dtype=o.dtype, device=dev)
     best_node = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
     eps = cfg.epsilon
     use_src = src_node is not None and cfg.self_eps_local > 0.0
+    if use_src and src_tri is None:
+        src_tri = torch.full_like(src_node, -1)
+
+    def eff_t_min(ld, is_src):
+        """[R, C] t-range start: raised to self_eps_local / |d_local| on
+        the ray's source surface."""
+        if not use_src:
+            return t_min[:, None]
+        t_self = cfg.self_eps_local / torch.clamp(m3.norm(ld, eps=1e-20), min=1e-30)
+        return torch.where(is_src, torch.maximum(t_min[:, None], t_self), t_min[:, None])
+
+    def fold(t, node, tri):
+        nonlocal best_t, best_node, best_tri
+        tj, j = torch.min(t, dim=1)
+        better = tj < best_t
+        best_node = torch.where(better, node[j], best_node)
+        best_tri = torch.where(better, tri[j], best_tri)
+        best_t = torch.where(better, tj, best_t)
 
     for kind, start, count in st.groups:
-        cand_fn = _candidate_fn(kind)
+        if kind == MESH:
+            continue
         for c0 in range(start, start + count, NODE_CHUNK):
             c1 = min(c0 + NODE_CHUNK, start + count)
             ids = torch.arange(c0, c1, dtype=torch.int32, device=dev)
             lo, ld = _local_rays(st.inv[c0:c1], o, d)
-            tmin = t_min[:, None]
-            if use_src:
-                is_src = ids[None, :] == src_node[:, None]
-                d_norm = m3.norm(ld, eps=1e-20)
-                t_self = cfg.self_eps_local / torch.clamp(d_norm, min=1e-30)
-                tmin = torch.where(is_src, torch.maximum(tmin, t_self), tmin)
-            t = cand_fn(lo, ld, tmin, t_max[:, None], eps, params=st.prim_params[None, c0:c1])
-            tj, j = torch.min(t, dim=1)
-            better = tj < best_t
-            best_node = torch.where(better, ids[j], best_node)
-            best_t = torch.where(better, tj, best_t)
+            is_src = (ids[None, :] == src_node[:, None]) if use_src else None
+            t = _ANALYTIC_CANDIDATES[kind](lo, ld, eff_t_min(ld, is_src), t_max[:, None], eps,
+                                           params=st.prim_params[None, c0:c1])
+            fold(t, ids, torch.full_like(ids, -1))
+
+    # Mesh (instance, triangle) pairs, in the node's local frame; the
+    # source pair's t-range start is raised (the sweep kernel excludes it).
+    if any(kind == MESH for kind, _, _ in st.groups):
+        for p0 in range(0, st.n_pairs, PAIR_CHUNK):
+            pn = st.pair_node[p0:p0 + PAIR_CHUNK]
+            pt = st.pair_tri[p0:p0 + PAIR_CHUNK]
+            lo, ld = _local_rays(st.inv[pn.long()], o, d)
+            tri_ix = pt.long()
+            is_src = ((pn[None, :] == src_node[:, None]) & (pt[None, :] == src_tri[:, None])
+                      if use_src else None)
+            t = triangle_candidate(lo, ld, st.tri_a[tri_ix][None], st.tri_b[tri_ix][None],
+                                   st.tri_c[tri_ix][None], eff_t_min(ld, is_src),
+                                   t_max[:, None])[0]
+            fold(t, pn, pt)
 
     hit = torch.isfinite(best_t)
     if active is not None:
         hit = hit & active
     neg = torch.full_like(best_node, -1)
-    return Hit(t=best_t, node=torch.where(hit, best_node, neg), tri=neg.clone(), hit=hit)
+    return Hit(t=best_t, node=torch.where(hit, best_node, neg),
+               tri=torch.where(hit, best_tri, neg), hit=hit)
 
 
 def intersect_scene(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
@@ -335,7 +388,7 @@ def intersect_scene(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
 
         return intersect_scene_cuda(o, d, t_min, t_max, st, cfg, active=active,
                                     src_node=src_node, src_tri=src_tri)
-    return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node)
+    return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node, src_tri)
 
 
 def occluded(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
@@ -349,7 +402,7 @@ def occluded(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
         return intersect_scene_cuda(o, d, t_min, t_max, st, cfg, active=active,
                                     src_node=src_node, src_tri=src_tri,
                                     any_hit=True).hit
-    return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node).hit
+    return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node, src_tri).hit
 
 
 # ---------------------------------------------------------------------------
@@ -478,15 +531,54 @@ def _torus_detail(p, params):
     return _no_uv(p, p - tube_center)
 
 
-def _winner_candidate_t(lo, ld, ray_kind, params, t_min, t_max, eps, present):
+def _mesh_detail(lo, ld, trec, t_min, t_max):
+    """Barycentrics on the winning triangle (its fused record `trec`):
+    interpolated (smooth) or face (flat) normal, uv with the v-flip and the
+    TBN (triangle.rs:82-138)."""
+    a, b, c = trec[:, 0:3], trec[:, 3:6], trec[:, 6:9]
+    _, beta, gamma = triangle_candidate(lo, ld, a, b, c, t_min, t_max)
+    alpha = 1.0 - beta - gamma
+    smooth = trec[:, 24] > 0.5
+    na, nb, nc = trec[:, 9:12], trec[:, 12:15], trec[:, 15:18]
+    n_smooth = na * alpha[:, None] + nb * beta[:, None] + nc * gamma[:, None]
+    n = torch.where(smooth[:, None], n_smooth, m3.cross(b - a, c - a))
+
+    has_uv = trec[:, 25] > 0.5
+    uva, uvb, uvc = trec[:, 18:20], trec[:, 20:22], trec[:, 22:24]
+    uv_i = uva * alpha[:, None] + uvb * beta[:, None] + uvc * gamma[:, None]
+    uv = torch.stack([uv_i[:, 0], 1.0 - uv_i[:, 1]], dim=-1)  # v-flip (triangle.rs:98)
+
+    edge1, edge2 = b - a, c - a
+    duv1, duv2 = uvb - uva, uvc - uva
+    tangent = duv2[:, 1:2] * edge1 - duv1[:, 1:2] * edge2
+    bitangent = -duv2[:, 0:1] * edge1 + duv1[:, 0:1] * edge2
+    coeff = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+    coeff_safe = torch.where(coeff != 0.0, coeff, 1.0)[:, None]
+    tangent = m3.normalize(tangent / coeff_safe, eps=1e-30)
+    bitangent = m3.normalize(bitangent / coeff_safe, eps=1e-30)
+    nmt = torch.stack([tangent, m3.normalize(n, eps=1e-30), bitangent], dim=-1)
+    return n, uv, has_uv, nmt, has_uv
+
+
+def _winner_candidate_t(lo, ld, ray_kind, params, trec, t_min, t_max, eps, present):
     """Per-ray candidate t of each ray's selected primitive, recomputed in
     its local frame (the aabox packing maps back to the cube's 6-face
-    fold: the record's kind is the node's)."""
+    fold: the record's kind is the node's; a mesh pair to the Cramer solve
+    on its triangle record `trec`)."""
     t_re = torch.full(lo.shape[:-1], INF, dtype=lo.dtype, device=lo.device)
     for kind in sorted(present):
-        tk = _candidate_fn(kind)(lo, ld, t_min, t_max, eps, params=params)
+        if kind == MESH:
+            tk = triangle_candidate(lo, ld, trec[:, 0:3], trec[:, 3:6], trec[:, 6:9],
+                                    t_min, t_max)[0]
+        else:
+            tk = _ANALYTIC_CANDIDATES[kind](lo, ld, t_min, t_max, eps, params=params)
         t_re = torch.where(ray_kind == kind, tk, t_re)
     return t_re
+
+
+def _winner_trec(st, tri, present):
+    """[R,26] triangle records of the winners (None without meshes)."""
+    return st.trec[torch.clamp(tri, min=0).long()] if MESH in present else None
 
 
 def _winner_frame(o, d, node, st, cfg, t_min, src_node, src_tri, tri):
@@ -516,7 +608,8 @@ def winner_t(o, d, node, tri, st: SceneTables, cfg: RenderConfig,
     t_max = _as_rays(t_max, o.shape[0], o)
     present = {k for (k, _, _) in st.groups}
     return _winner_candidate_t(lo, ld, rec[:, REC_KIND].to(torch.int32), rec[:, REC_PARAMS],
-                               t_min, t_max, cfg.epsilon, present)
+                               _winner_trec(st, tri, present), t_min, t_max, cfg.epsilon,
+                               present)
 
 
 def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
@@ -537,7 +630,8 @@ def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
     eps = cfg.epsilon
 
     params = rec[:, REC_PARAMS]
-    t_re = _winner_candidate_t(lo, ld, ray_kind, params, t_min, t_max, eps, present)
+    trec = _winner_trec(st, hit.tri, present)
+    t_re = _winner_candidate_t(lo, ld, ray_kind, params, trec, t_min, t_max, eps, present)
     t = torch.where(hit.hit & torch.isfinite(t_re), t_re, t)
 
     p_local = lo + t[:, None] * ld
@@ -561,8 +655,8 @@ def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
             parts = _cylinder_detail(lo, ld, t_min, t_max, p_local)
         elif kind == CONE:
             parts = _cone_detail(lo, ld, t_min, t_max, p_local)
-        else:
-            _candidate_fn(kind)  # raises for kinds of later slices
+        elif kind == MESH:
+            parts = _mesh_detail(lo, ld, trec, t_min, t_max)
         mask = ray_kind == kind
         n_k, uv_k, huv_k, nmt_k, hnmt_k = parts
         normal = torch.where(mask[:, None], n_k, normal)

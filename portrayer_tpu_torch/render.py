@@ -109,7 +109,7 @@ def _render_tiles(key, st, cam, grid, *, cfg, background, tile_h, tile_w, spp,
 def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8,
                    stats=None):
     if cfg is None:
-        raise ValueError("a RenderConfig naming the device is required")
+        cfg = RenderConfig()
     width, height = size
     if isinstance(scene_or_tables, SceneTables):
         st = scene_or_tables

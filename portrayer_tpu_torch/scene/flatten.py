@@ -4,12 +4,13 @@
 The numpy lowering is the JAX package's, step for step, so the tables are
 equal array for array: the BFS transform compose (src/flat_scene.rs:27-40),
 the kind grouping, the material and light tables, the 8-corner world AABBs
-(src/bounding_box.rs:123-148) and the packed chunk table of the sweep
-kernel with its SAH chunk order and specialised kinds.  Only the last step
-differs: the arrays become torch tensors on the configured device.
+(src/bounding_box.rs:123-148), the mesh triangle soup shared between
+instances with its (instance, triangle) pair lists, and the packed chunk
+table of the sweep kernel with its SAH chunk order and specialised kinds.
+Only the last step differs: the arrays become torch tensors on the
+configured device.
 
-The port's sweep carries every packed kind but ``tri_w``: a scene with
-triangle meshes, or a texture or normal map, is refused with
+A scene with a texture or normal map is refused with
 ``NotImplementedError``.
 """
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import math3d as m3
+from .mesh import Mesh, Shading, Triangle
 from .node import Scene, SceneNode, Sphere, Plane, Cube, Cylinder, Cone, Torus
 
 # Primitive kind codes (order = group order in the tables).
@@ -36,16 +38,16 @@ PACKED_AABOX = 8
 # Names of the sweep kernel's branches, indexed by packed chunk kind.
 PACKED_KIND_NAMES = ("sphere_g", "plane_g", "cube_g", "cylinder_g", "cone_g",
                      "tri_w", "torus_g", "sphere_w", "aabox")
-# The branches the port's sweep carries: all but tri_w (meshes).
-PORTED_PACKED_KINDS = (SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, PACKED_SPHERE_W,
-                       PACKED_AABOX)
 
 PACK_CHUNK = 128
 
 # Array fields of SceneTables / PackedPrims, in the JAX package's names.
 TABLE_FIELDS = (
-    "trans", "inv", "normal_mat", "material_id", "prim_params",
+    "trans", "inv", "normal_mat", "material_id", "prim_params", "mesh_range",
     "aabb_min", "aabb_max",
+    "tri_a", "tri_b", "tri_c", "tri_na", "tri_nb", "tri_nc", "tri_smooth",
+    "tri_uva", "tri_uvb", "tri_uvc", "tri_has_uv",
+    "pair_node", "pair_tri", "pair_aabb_min", "pair_aabb_max",
     "mat_diffuse", "mat_specular", "mat_shininess", "mat_reflectivity",
     "mat_glossy", "mat_refraction", "mat_uv_trans", "mat_tex_id",
     "mat_normal_map_id",
@@ -58,8 +60,9 @@ META_FIELDS = (
     "any_reflective", "any_refractive", "any_glossy", "any_image_tex",
     "any_normal_map",
 )
-_INT_FIELDS = {"material_id", "mat_tex_id", "mat_normal_map_id", "ids", "chunk_kind"}
-_BOOL_FIELDS = {"light_is_area"}
+_INT_FIELDS = {"material_id", "mat_tex_id", "mat_normal_map_id", "ids", "chunk_kind",
+               "mesh_range", "pair_node", "pair_tri"}
+_BOOL_FIELDS = {"light_is_area", "tri_smooth", "tri_has_uv"}
 
 
 @dataclasses.dataclass
@@ -68,6 +71,8 @@ class PackedPrims:
     single-kind chunks.  Rows of ``f32`` [21, NCOL] by packed kind:
     general (sphere_g, plane_g, cube_g, cylinder_g, cone_g, torus_g): 0..11
     world->local affine, torus radii (center, tube) in 12..13;
+    tri_w: 0..11 the world -> (beta, gamma, w) affine of the unit-triangle
+    frame (zeros where the triangle is degenerate);
     sphere_w: 0..2 world center, 3 radius^2, 4 scale (self-eps raise);
     aabox: 0..2 / 3..5 inflated world min / max, 6..8 per-axis inverse
     scale (self-eps raise).
@@ -89,8 +94,28 @@ class SceneTables:
     normal_mat: torch.Tensor   # [N,3,3]
     material_id: torch.Tensor  # [N] int32
     prim_params: torch.Tensor  # [N,2]
+    mesh_range: torch.Tensor   # [N,2] int32 (tri_start, tri_count); zeros if not mesh
     aabb_min: torch.Tensor     # [N,3]
     aabb_max: torch.Tensor     # [N,3]
+    # Mesh triangle soup, shared between instances ([T,...]; one zero row
+    # when the scene has no triangle).
+    tri_a: torch.Tensor
+    tri_b: torch.Tensor
+    tri_c: torch.Tensor
+    tri_na: torch.Tensor       # vertex normals (zeros when flat)
+    tri_nb: torch.Tensor
+    tri_nc: torch.Tensor
+    tri_smooth: torch.Tensor   # [T] bool
+    tri_uva: torch.Tensor      # [T,2]
+    tri_uvb: torch.Tensor
+    tri_uvc: torch.Tensor
+    tri_has_uv: torch.Tensor   # [T] bool
+    # (instance node, triangle) pairs and their world AABBs ([P,...]; one
+    # zero entry when there is none).
+    pair_node: torch.Tensor    # [P] int32
+    pair_tri: torch.Tensor     # [P] int32
+    pair_aabb_min: torch.Tensor
+    pair_aabb_max: torch.Tensor
     mat_diffuse: torch.Tensor
     mat_specular: torch.Tensor
     mat_shininess: torch.Tensor
@@ -117,26 +142,29 @@ class SceneTables:
     any_image_tex: bool
     any_normal_map: bool
     rec: torch.Tensor = None   # [N,34] fused node record (node_record)
+    trec: torch.Tensor = None  # [T,26] fused triangle record (tri_record)
 
     def __post_init__(self):
         if self.rec is None:
             self.rec = node_record(self)
+        if self.trec is None:
+            self.trec = tri_record(self)
 
     @property
     def n_nodes(self) -> int:
         return self.trans.shape[0]
 
     @property
+    def n_pairs(self) -> int:
+        """Instance-triangle pairs (the padding entry when there is none)."""
+        return self.pair_node.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.inv.device
 
 
-def _check_supported(kind_ranges, any_image_tex, any_normal_map):
-    for kind, _, _ in kind_ranges:
-        if kind not in PORTED_PACKED_KINDS:
-            raise NotImplementedError(
-                f"packed kind {PACKED_KIND_NAMES[kind]!r}: its sweep branch "
-                "belongs to a later slice of the port")
+def _check_supported(any_image_tex, any_normal_map):
     if any_image_tex or any_normal_map:
         raise NotImplementedError("textures and normal maps: later slice")
 
@@ -212,8 +240,9 @@ def _axis_aligned(t3):
     return ok, rmax
 
 
-def _build_packed(groups, trans, inv, aabb_min, aabb_max, prim_params):
-    """Packed chunk table (numpy) from the analytic node tables."""
+def _build_packed(groups, trans, inv, aabb_min, aabb_max, prim_params,
+                  pair_node, pair_tri, pair_amin, pair_amax, pair_world):
+    """Packed chunk table (numpy) from the node and pair tables."""
     f_cols: List[np.ndarray] = []
     id_cols: List[np.ndarray] = []
     a_cols_min: List[np.ndarray] = []
@@ -253,6 +282,30 @@ def _build_packed(groups, trans, inv, aabb_min, aabb_max, prim_params):
         add_group(kind, f, ids, aabb_min[order], aabb_max[order])
 
     for kind, start, count in groups:
+        if kind == MESH:
+            if len(pair_node) == 0:
+                continue
+            order = _sah_chunk_order(pair_amin, pair_amax)
+            pn, pt = pair_node[order], pair_tri[order]
+            # Unit-triangle affine: rows map world points into the (beta,
+            # gamma, w) frame where the triangle is beta, gamma >= 0,
+            # beta + gamma <= 1, w == 0 (p = a + beta e1 + gamma e2 + w n);
+            # a degenerate triangle keeps a zero inverse, so no ray hits it.
+            wv = pair_world[order]
+            k = len(pn)
+            a = wv[:, 0]
+            e1 = wv[:, 1] - a
+            e2 = wv[:, 2] - a
+            A = np.stack([e1, e2, np.cross(e1, e2)], axis=2)
+            good = np.abs(np.linalg.det(A)) > 1e-30
+            Minv = np.zeros((k, 3, 3))
+            if good.any():
+                Minv[good] = np.linalg.inv(A[good])
+            off = -np.einsum("kij,kj->ki", Minv, a)
+            f = np.concatenate([Minv[:, 0, :], off[:, 0:1], Minv[:, 1, :], off[:, 1:2],
+                                Minv[:, 2, :], off[:, 2:3], np.zeros((k, 9))], axis=1)
+            add_group(MESH, f, np.stack([pn, pt], axis=1), pair_amin[order], pair_amax[order])
+            continue
         idx = np.arange(start, start + count)
         sub_order = lambda ids: ids[_sah_chunk_order(aabb_min[ids], aabb_max[ids])]
         if kind == SPHERE:
@@ -336,11 +389,67 @@ class _FlatNode:
     local_min: np.ndarray = None
     local_max: np.ndarray = None
     params: Tuple[float, float] = (0.0, 0.0)  # torus (center_r, tube_r)
+    tri_range: Tuple[int, int] = (0, 0)       # mesh (tri_start, tri_count)
+
+
+_TRI_KEYS = ("tri_a", "tri_b", "tri_c", "tri_na", "tri_nb", "tri_nc",
+             "tri_uva", "tri_uvb", "tri_uvc")
+
+
+class _TriangleSoup:
+    """The triangle blocks of the scene's meshes and triangles: one block
+    per (mesh data identity, shading), shared by every instance."""
+
+    def __init__(self):
+        self.blocks: List[Dict[str, np.ndarray]] = []
+        self.total = 0
+        self.cache: Dict[Tuple[int, Any], Tuple[int, int]] = {}
+
+    def _push(self, corners, smooth, has_uv):
+        K = len(corners[0])
+        block = dict(zip(_TRI_KEYS, corners))
+        block["tri_smooth"] = np.full(K, smooth, bool)
+        block["tri_has_uv"] = np.full(K, has_uv, bool)
+        self.blocks.append(block)
+        rng = (self.total, K)
+        self.total += K
+        return rng
+
+    def mesh(self, mesh: Mesh) -> Tuple[int, int]:
+        key = (id(mesh.data), mesh.shading)
+        if key not in self.cache:
+            d = mesh.data
+            t = np.asarray(d.triangles, np.int64).reshape(-1, 3)
+            K = len(t)
+            smooth = mesh.shading == Shading.Smooth
+            has_uv = len(d.tex_coords) > 0
+            pos = [d.positions[t[:, i]] for i in range(3)]
+            nrm = [d.normals[t[:, i]] if smooth else np.zeros((K, 3)) for i in range(3)]
+            uv = [d.tex_coords[t[:, i]] if has_uv else np.zeros((K, 2)) for i in range(3)]
+            self.cache[key] = self._push(pos + nrm + uv, smooth, has_uv)
+        return self.cache[key]
+
+    def triangle(self, tri: Triangle) -> Tuple[int, int]:
+        smooth = tri.normals is not None
+        has_uv = tri.tex_coords is not None
+        nrm = tri.normals if smooth else (np.zeros(3),) * 3
+        uv = tri.tex_coords if has_uv else (np.zeros(2),) * 3
+        row = lambda x: np.asarray(x, np.float64)[None]
+        return self._push([row(x) for x in (tri.a, tri.b, tri.c, *nrm, *uv)], smooth, has_uv)
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        if self.blocks:
+            return {k: np.concatenate([b[k] for b in self.blocks], axis=0)
+                    for k in self.blocks[0]}
+        out = {k: np.zeros((1, 2 if k.startswith("tri_uv") else 3)) for k in _TRI_KEYS}
+        out.update(tri_smooth=np.zeros(1, bool), tri_has_uv=np.zeros(1, bool))
+        return out
 
 
 def _flatten_numpy(scene: Scene):
     """The JAX package's lowering in numpy: ({field: array}, meta)."""
     flat: List[_FlatNode] = []
+    soup = _TriangleSoup()
     queue: List[Tuple[np.ndarray, SceneNode]] = [(m3.identity4(), scene.root)]
     while queue:
         parent_trans, node = queue.pop(0)
@@ -355,6 +464,14 @@ def _flatten_numpy(scene: Scene):
                     TORUS, total, mat,
                     local_min=np.array([-r_out, -tr, -r_out]),
                     local_max=np.array([r_out, tr, r_out]), params=(cr, tr)))
+            elif isinstance(prim, Mesh):
+                flat.append(_FlatNode(MESH, total, mat, prim.data.bounds_min,
+                                      prim.data.bounds_max, tri_range=soup.mesh(prim)))
+            elif isinstance(prim, Triangle):
+                rng = soup.triangle(prim)
+                verts = np.stack([prim.a, prim.b, prim.c])
+                flat.append(_FlatNode(MESH, total, mat, verts.min(axis=0), verts.max(axis=0),
+                                      tri_range=rng))
             else:
                 kind = next((k for cls, k in _PRIM_KINDS if isinstance(prim, cls)), None)
                 if kind is None:
@@ -409,9 +526,11 @@ def _flatten_numpy(scene: Scene):
         normal_mat = np.linalg.inv(t4[:, :3, :3]).transpose(0, 2, 1).copy()
         material_id = np.asarray([mat_index[id(f.material)] for f in flat], np.int32)
         prim_params = np.asarray([f.params for f in flat], np.float64)
-        lmin = np.stack([f.local_min if f.kind == TORUS else _LOCAL_BOUNDS[f.kind][0]
+        mesh_range = np.asarray([f.tri_range if f.kind == MESH else (0, 0) for f in flat],
+                                np.int32)
+        lmin = np.stack([f.local_min if f.kind in (MESH, TORUS) else _LOCAL_BOUNDS[f.kind][0]
                          for f in flat])
-        lmax = np.stack([f.local_max if f.kind == TORUS else _LOCAL_BOUNDS[f.kind][1]
+        lmax = np.stack([f.local_max if f.kind in (MESH, TORUS) else _LOCAL_BOUNDS[f.kind][1]
                          for f in flat])
         world_min = np.full((N, 3), np.inf)
         world_max = np.full((N, 3), -np.inf)
@@ -428,11 +547,38 @@ def _flatten_numpy(scene: Scene):
         normal_mat = np.tile(np.eye(3), (N, 1, 1))
         material_id = np.zeros(N, np.int32)
         prim_params = np.zeros((N, 2))
+        mesh_range = np.zeros((N, 2), np.int32)
         aabb_min = np.zeros((N, 3))
         aabb_max = np.zeros((N, 3))
     a.update(trans=trans, inv=inv, normal_mat=normal_mat,
-             material_id=material_id, prim_params=prim_params,
+             material_id=material_id, prim_params=prim_params, mesh_range=mesh_range,
              aabb_min=aabb_min, aabb_max=aabb_max)
+
+    # Instance-triangle pairs: instances repeat pairs, not triangle data.
+    tri = soup.arrays()
+    a.update(tri)
+    mesh_ids = np.asarray([i for i, f in enumerate(flat) if f.kind == MESH], np.int64)
+    if mesh_ids.size:
+        starts = np.asarray([flat[i].tri_range[0] for i in mesh_ids])
+        counts = np.asarray([flat[i].tri_range[1] for i in mesh_ids])
+        pair_node = np.repeat(mesh_ids, counts).astype(np.int64)
+        pair_tri = np.concatenate([np.arange(s, s + c) for s, c in zip(starts, counts)]
+                                  ).astype(np.int64)
+        verts3 = np.stack([tri["tri_a"][pair_tri], tri["tri_b"][pair_tri],
+                           tri["tri_c"][pair_tri]], axis=1)             # [P,3,3]
+        rot = t4[pair_node][:, :3, :3]
+        off = t4[pair_node][:, :3, 3]
+        pair_world = np.einsum("pij,pkj->pki", rot, verts3) + off[:, None, :]
+        pair_amin = pair_world.min(axis=1)
+        pair_amax = pair_world.max(axis=1)
+    else:
+        pair_node = pair_tri = np.zeros((0,), np.int64)
+        pair_amin = pair_amax = np.zeros((0, 3))
+        pair_world = np.zeros((0, 3, 3))
+    a["pair_node"] = pair_node if pair_node.size else np.zeros(1, np.int64)
+    a["pair_tri"] = pair_tri if pair_tri.size else np.zeros(1, np.int64)
+    a["pair_aabb_min"] = pair_amin if pair_amin.size else np.zeros((1, 3))
+    a["pair_aabb_max"] = pair_amax if pair_amax.size else np.zeros((1, 3))
 
     L = max(len(scene.lights), 1)
     a["light_pos"] = np.zeros((L, 3))
@@ -451,7 +597,8 @@ def _flatten_numpy(scene: Scene):
     a["ambient"] = scene.ambient
 
     packed, n_chunks, kind_ranges = _build_packed(
-        groups, trans, inv, aabb_min, aabb_max, prim_params)
+        groups, trans, inv, aabb_min, aabb_max, prim_params,
+        pair_node, pair_tri, pair_amin, pair_amax, pair_world)
     a.update({f"packed.{k}": v for k, v in packed.items()})
     meta = dict(
         groups=tuple(groups), kind_ranges=kind_ranges, n_chunks=n_chunks,
@@ -473,7 +620,7 @@ def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
     fields (``packed.f32`` etc. for the packed table) and the static
     metadata of META_FIELDS.  Carries the JAX package's own tables across,
     so that a sweep mismatch can never be a table mismatch."""
-    _check_supported(meta["kind_ranges"], meta["any_image_tex"], meta["any_normal_map"])
+    _check_supported(meta["any_image_tex"], meta["any_normal_map"])
 
     def t(name, x):
         base = name.split(".")[-1]
@@ -498,7 +645,7 @@ def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
     )
 
 
-def flatten_scene(scene: Scene, device) -> SceneTables:
+def flatten_scene(scene: Scene, device="cuda") -> SceneTables:
     """Lower `scene` to SceneTables on `device` (same tables as
     ``portrayer_tpu.flatten_scene``)."""
     arrays, meta = _flatten_numpy(scene)
@@ -543,3 +690,14 @@ def node_record(st: SceneTables) -> torch.Tensor:
         ],
         dim=1,
     )
+
+
+# Fused triangle record (the JAX package's tri_record layout):
+#   0..8 a, b, c   9..17 na, nb, nc   18..23 uva, uvb, uvc   24 smooth  25 has_uv
+def tri_record(st: SceneTables) -> torch.Tensor:
+    """[T,26] fused per-triangle detail record."""
+    dt = st.tri_a.dtype
+    col = lambda x: x[:, None].to(dt)
+    return torch.cat([st.tri_a, st.tri_b, st.tri_c, st.tri_na, st.tri_nb, st.tri_nc,
+                      st.tri_uva, st.tri_uvb, st.tri_uvc, col(st.tri_smooth),
+                      col(st.tri_has_uv)], dim=1)

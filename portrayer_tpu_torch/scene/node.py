@@ -16,6 +16,7 @@ import numpy as np
 from .. import math3d as m3
 from .material import Material
 from .light import Light
+from .mesh import Mesh, Triangle
 
 
 class _MarkerPrimitive:
@@ -56,7 +57,7 @@ class Torus:
         return f"Torus({self.center_radius}, {self.tube_radius})"
 
 
-Primitive = Union[Sphere, Cube, Plane, Cylinder, Cone, Torus]
+Primitive = Union[Sphere, Cube, Plane, Cylinder, Cone, Torus, Mesh, Triangle]
 
 
 class Geometry:

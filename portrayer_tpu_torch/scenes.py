@@ -1,6 +1,7 @@
 """The port's scenes (counterparts of ``scenes/common.py``,
 ``scenes/simple.py``, ``scenes/big_scene.py``, ``scenes/torus_showcase.py``,
-``scenes/glossy_reflection.py`` and ``scenes/primitives_simple.py``), built
+``scenes/glossy_reflection.py``, ``scenes/primitives_simple.py`` and
+``scenes/single_triangle.py``), built
 from the port's own description classes, so that nothing here needs JAX."""
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 from .camera import CameraSettings
 from .math3d import radians
 from .scene import (
-    Scene, SceneNode, Geometry, Sphere, Cube, Cone, Cylinder, Plane, Torus, Material, Light,
+    Scene, SceneNode, Geometry, Sphere, Cube, Cone, Cylinder, Plane, Torus, Triangle, Material,
+    Light,
 )
 
 
@@ -190,9 +192,25 @@ def primitives_simple() -> SceneSpec:
                      background=sky_background, name="primitives-simple")
 
 
+def single_triangle() -> SceneSpec:
+    """examples/single-triangle.rs: one flat triangle."""
+    mat1 = Material(diffuse=(0.541, 0.169, 0.886), specular=(0.5, 0.7, 0.5), shininess=25.0)
+    tri = Triangle.flat((-1.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.5, 0.0))
+    scene = Scene(
+        root=SceneNode([SceneNode(Geometry(tri, mat1))]),
+        lights=[Light(position=(1.0, 1.0, 10.0), color=(0.5, 0.5, 0.5))],
+        ambient=(0.3, 0.3, 0.3),
+    )
+    cam = CameraSettings(eye=(0.0, 0.5, 4.0), center=(0.0, 0.5, 0.0),
+                         up=(0.0, 1.0, 0.0), fovy=deg(50.0))
+    return SceneSpec(scene=scene, camera=cam, size=(640, 480),
+                     background=sky_background, name="single-triangle")
+
+
 _REGISTRY = {
     "simple": simple, "big-scene": big_scene, "torus-showcase": torus_showcase,
     "glossy-reflection": glossy_reflection, "primitives-simple": primitives_simple,
+    "single-triangle": single_triangle,
 }
 
 

@@ -109,4 +109,76 @@ def glass_sphere(pkg):
     return scene, cam, (64, 64)
 
 
-INLINE = {"ellipsoids": ellipsoids, "glass-sphere": glass_sphere}
+def _icosphere(subdiv):
+    """(positions [V,3] on the unit sphere, triangles [F,3]): an icosahedron
+    whose faces are split in four `subdiv` times (20 * 4^subdiv faces)."""
+    p = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = [(-1, p, 0), (1, p, 0), (-1, -p, 0), (1, -p, 0), (0, -1, p), (0, 1, p),
+             (0, -1, -p), (0, 1, -p), (p, 0, -1), (p, 0, 1), (-p, 0, -1), (-p, 0, 1)]
+    verts = [np.asarray(v, np.float64) / np.linalg.norm(v) for v in verts]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9),
+             (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+             (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
+             (8, 6, 7), (9, 8, 1)]
+    for _ in range(subdiv):
+        mid = {}
+
+        def midpoint(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in mid:
+                m = verts[i] + verts[j]
+                mid[key] = len(verts)
+                verts.append(m / np.linalg.norm(m))
+            return mid[key]
+
+        faces = [f for a, b, c in faces for f in (
+            (a, midpoint(a, b), midpoint(c, a)), (b, midpoint(b, c), midpoint(a, b)),
+            (c, midpoint(c, a), midpoint(b, c)),
+            (midpoint(a, b), midpoint(b, c), midpoint(c, a)))]
+    return np.stack(verts), np.asarray(faces, np.int64)
+
+
+def procedural_meshes(pkg, subdiv=5, grid=128):
+    """Meshes built from numpy: an icosphere (subdiv splits, vertex normals
+    equal to positions, smooth) instanced by two nodes sharing one MeshData,
+    a mirror and a diffuse one scaled (1, 0.7, 1); a height field of grid x
+    grid quads with tex coords (flat), scaled 6; a standalone triangle with
+    vertex normals and tex coords; two point lights.  Pairs: 2 * 20 *
+    4^subdiv + 2 * grid^2 + 1 (73,729 at the defaults, in 577 chunks)."""
+    pos, tris = _icosphere(subdiv)
+    sphere = pkg.MeshData(pos, tris, normals=pos)
+    n = grid + 1
+    u, v = np.meshgrid(np.linspace(0.0, 1.0, n), np.linspace(0.0, 1.0, n), indexing="ij")
+    x, z = u - 0.5, v - 0.5
+    y = 0.03 * np.sin(9.0 * x) * np.cos(7.0 * z) + 0.02 * np.cos(13.0 * (x + z))
+    hpos = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    ij = np.arange(n * n).reshape(n, n)
+    a, b, c, d = ij[:-1, :-1], ij[1:, :-1], ij[1:, 1:], ij[:-1, 1:]
+    quads = np.stack([np.stack([a, d, c], -1), np.stack([a, c, b], -1)], axis=2)
+    terrain = pkg.MeshData(hpos, quads.reshape(-1, 3),
+                           tex_coords=np.stack([u, v], axis=-1).reshape(-1, 2))
+    mirror = pkg.Material(diffuse=(0.1, 0.1, 0.12), specular=(0.8, 0.8, 0.8), shininess=60.0,
+                          reflectivity=0.6)
+    clay = pkg.Material(diffuse=(0.8, 0.35, 0.2), specular=(0.4, 0.4, 0.4), shininess=25.0)
+    ground = pkg.Material(diffuse=(0.35, 0.55, 0.3), specular=(0.1, 0.1, 0.1), shininess=10.0)
+    panel = pkg.Material(diffuse=(0.3, 0.4, 0.85), specular=(0.3, 0.3, 0.3), shininess=20.0)
+    tri = pkg.Triangle((-2.6, -0.4, -1.8), (2.6, -0.4, -1.8), (0.0, 2.4, -2.2),
+                       normals=((-0.3, 0.0, 1.0), (0.3, 0.0, 1.0), (0.0, 0.3, 1.0)),
+                       tex_coords=((0.0, 0.0), (1.0, 0.0), (0.5, 1.0)))
+    scene = pkg.Scene(pkg.SceneNode([
+        pkg.SceneNode(pkg.Geometry(pkg.Mesh(sphere, pkg.Shading.Smooth), mirror))
+        .scaled(0.8).translated((-0.9, 0.45, 0.0)),
+        pkg.SceneNode(pkg.Geometry(pkg.Mesh(sphere, pkg.Shading.Smooth), clay))
+        .scaled((1.0, 0.7, 1.0)).scaled(0.6).rotated_y(0.5).translated((0.95, 0.25, 0.6)),
+        pkg.SceneNode(pkg.Geometry(pkg.Mesh(terrain, pkg.Shading.Flat), ground))
+        .scaled(6.0).translated((0.0, -0.4, 0.0)),
+        pkg.SceneNode(pkg.Geometry(tri, panel)),
+    ]), [pkg.Light(position=(-4.0, 6.0, 5.0), color=(0.8, 0.8, 0.8)),
+         pkg.Light(position=(5.0, 4.0, 2.0), color=(0.4, 0.4, 0.5))], (0.25, 0.25, 0.25))
+    cam = pkg.CameraSettings(eye=(0.0, 1.4, 5.5), center=(0.0, 0.2, 0.0), fovy=0.75)
+    return scene, cam, (960, 540)
+
+
+INLINE = {"ellipsoids": ellipsoids, "glass-sphere": glass_sphere,
+          # The test size: 769 pairs in 7 chunks.
+          "procedural-meshes": lambda pkg: procedural_meshes(pkg, subdiv=2, grid=8)}

@@ -3,6 +3,9 @@ card.  These tests need an NVIDIA GPU with nvcc; elsewhere they skip.
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
+single-triangle and procedural-meshes (at its test size) drive the tri_w
+branch, their child rays with (node, tri) source pairs.
+
 Gates: the JAX package's kernel gates (tests/test_pallas.py) for the
 nearest mode, with its torus gate (tests/test_torus.py) on torus hits,
 and equal .hit for the any-hit mode.  Kernel and plain version round every
@@ -25,7 +28,7 @@ from portrayer_tpu_torch.ops.cuda_intersect import (
 from _torch_jax import assert_gates, torus_nodes, INLINE
 
 NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
-         "ellipsoids"]
+         "ellipsoids", "single-triangle", "procedural-meshes"]
 
 pytestmark = pytest.mark.cuda
 INF = float("inf")

@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import scenes
 import portrayer_tpu as P
@@ -128,13 +129,21 @@ def test_odd_frame_70x33():
 
 
 def test_config_needs_a_device_and_a_known_accel():
-    with pytest.raises(TypeError):
-        T.RenderConfig()
+    """A render without a config runs on the card: with no card it raises
+    rather than fall back to the CPU."""
     with pytest.raises(ValueError):
         T.RenderConfig(device="cpu", accel="pallas")
-    spec = tscenes.load("simple")
-    with pytest.raises(ValueError):
-        T.render_u8(spec.scene, spec.camera, (8, 8), spec.background)
+    if not torch.cuda.is_available():
+        spec = tscenes.load("simple")
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            T.render_u8(spec.scene, spec.camera, (8, 8), spec.background)
+
+
+def test_config_defaults_to_the_card():
+    """RenderConfig() names cuda; a caller asks for the CPU by name."""
+    assert T.RenderConfig().device.type == "cuda"
+    assert T.RenderConfig(device="cpu").device == torch.device("cpu")
+    assert T.RenderConfig(samples=3).device.type == "cuda"
 
 
 def test_png_io_against_pil():
@@ -165,7 +174,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import portrayer_tpu_torch as T\n"
         "from portrayer_tpu_torch import scenes\n"
-        "assert len(scenes.names()) == 5, scenes.names()\n"
+        "assert len(scenes.names()) == 6, scenes.names()\n"
         "for name in scenes.names():\n"
         "    s = scenes.load(name)\n"
         "    T.render_u8(s.scene, s.camera, (12, 8), s.background,\n"

@@ -1,6 +1,6 @@
 """The port's scene lowering produces the JAX package's tables array for
 array; tables_from_numpy carries the JAX tables across unchanged; scenes
-whose packing needs tri_w (meshes), or that use textures, are refused."""
+that use textures are refused."""
 
 import numpy as np
 import pytest
@@ -35,7 +35,8 @@ def _assert_tables_equal(js, ts):
     np.testing.assert_array_equal(np.asarray(jax_node_record(js)), ts.rec.numpy())
 
 
-NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple"]
+NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
+         "single-triangle"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -93,10 +94,14 @@ def test_unported_kinds_raise(scene, kind):
 
 
 def test_unported_tri_w_raises_through_bridge():
+    """A tri_w table was refused before its sweep branch was ported; now
+    single-triangle's JAX tables cross the bridge unchanged, triangle soup,
+    pair lists and the tri_w chunk included."""
     js = P.flatten_scene(scenes.load("single-triangle").scene, dtype=jnp.float32)
-    arrays, meta = jax_arrays(js)
-    with pytest.raises(NotImplementedError, match="tri_w"):
-        tables_from_numpy(arrays, meta, "cpu")
+    ts = tables_from_numpy(*jax_arrays(js), "cpu")
+    _assert_tables_equal(js, ts)
+    assert [PACKED_KIND_NAMES[k] for k, _, _ in ts.packed.kind_ranges] == ["tri_w"]
+    assert ts.n_pairs == 1 and ts.mesh_range.tolist() == [[0, 1]]
 
 
 def test_textures_raise():

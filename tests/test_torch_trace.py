@@ -1,7 +1,7 @@
 """The port's bounce loop against the JAX package's, on the CPU: queue
 compaction, traces at max_depth 10 through reflective, glossy and
-refractive scenes, independence of the live-count slicing, and the
-torus-showcase self-golden.
+refractive scenes and an icosphere mirror among meshes, independence of
+the live-count slicing, and the torus-showcase self-golden.
 
 Tolerances, with their reasons:
 - _compact: the port's queue equals the live head of the JAX package's
@@ -46,11 +46,13 @@ jtrace = importlib.import_module("portrayer_tpu.ops.trace")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (frame size, 16x16 tile origin): tiles where reflective surfaces (the
-# teal torus, the glossy sphere, the glass sphere) fill most pixels.
+# teal torus, the glossy sphere, the glass sphere, the mirror icosphere)
+# fill most pixels.
 TILES = {
     "torus-showcase": ((64, 64), (32, 0)),
     "glossy-reflection": ((160, 90), (96, 32)),
     "glass-sphere": ((64, 64), (24, 24)),
+    "procedural-meshes": ((96, 54), (28, 16)),
 }
 TILE = 16
 SPP = 4
