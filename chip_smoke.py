@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs four
+Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs five
 phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, kernel
@@ -17,8 +17,11 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    rays.  Gates: the JAX package's kernel gates, and on torus chunks its
    torus gate; every difference is counted.  Then both versions' times at
    the render's launch shapes of big-scene, torus-showcase,
-   glossy-reflection, procedural-meshes and single-triangle (CUDA events),
-   beside the bound of each launch;
+   glossy-reflection, procedural-meshes and single-triangle (a call by
+   CUDA events), beside the bound of each launch, on the uniform camera
+   rays; the kernel's times on a second set in the render's ray order (the
+   middle tile of the middle tile row, as ``render._tile_rays`` builds it)
+   and its shadow rays, held against the plain version too;
 3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64)
    and single-triangle (160x120) against the committed self-goldens (on
    torus-showcase, the pixels of TORUS_JIT_PIXELS aside);
@@ -29,7 +32,10 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    round, host syncs and dropped throughput (from the render's TraceStats,
    which cost one host sync per chunk more); then simple at 256x256,
    glossy-reflection and procedural-meshes (240x136) at 4 spp through
-   ``render_linear``, held against the flat oracle's render on the card.
+   ``render_linear``, held against the flat oracle's render on the card;
+5. the sweep kernel alone on the device (torch.profiler) at each launch
+   shape of phase 2; last, so that the profiler cannot weigh on the wall
+   times of phase 4.
 
 The last two lines are a JSON object of per-kernel numbers and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
@@ -176,15 +182,45 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters):
+    """Device time per launch of the sweep kernel launched by `fn`: the
+    mean of its kernel events under torch.profiler over `iters` calls (the
+    wrapper's own small kernels and its host time left out; a mean over the
+    events recorded, as the profiler may drop some); None where the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "sweep_kernel" in e.key]
+    us, n = sum(e.device_time_total for e in events), sum(e.count for e in events)
+    return us / n / 1e3 if us > 0 else None
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
 def _bound_ms(args, kw, st, cfg, any_hit):
     """Least time of one sweep launch on these inputs: the larger of its
-    f32 operations over PEAK_F32 and its bytes (rays, the packed table and
-    the outputs, each once) over PEAK_BYTES.  Operations are those this
-    run's data needs, as the plain version counts them: CULL_FLOPS per
-    (ray, chunk) slab test and BRANCH_FLOPS per (ray, primitive) the cull
-    lets through, padding lanes left out, in any-hit mode up to a ray's
-    first hit.  Returns (ms, "operations" or "bytes", {"cull": slab
-    tests, "candidates": (ray, primitive) evaluations})."""
+    f32 operations over PEAK_F32 and its bytes (rays, the packed table
+    with its group boxes and real lanes, and the outputs, each once) over
+    PEAK_BYTES.  Operations are those this run's data needs for the
+    kernel's work, as the plain version counts it (``work=``): CULL_FLOPS
+    per group or chunk slab test of the two-level cull and BRANCH_FLOPS per
+    (ray, primitive) of the chunks it sweeps, padding lanes left out; in
+    nearest mode without the groups and chunks that lie beyond the ray's
+    best t, in any-hit mode up to a ray's first hit.
+    Returns (ms, "operations" or "bytes", one-level ms, {"group_cull",
+    "chunk_cull", "candidates": the kernel's work; "cull",
+    "candidates_one_level": a one-level cull's}).  The one-level figure
+    counts a slab test per (ray, chunk) and every chunk that cull passes,
+    the work of the thread-per-ray kernel, so that its rows compare."""
     from portrayer_tpu_torch.scene.flatten import PACKED_KIND_NAMES, PACK_CHUNK
     from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_sweep_ref
 
@@ -192,17 +228,28 @@ def _bound_ms(args, kw, st, cfg, any_hit):
     pk = st.packed
     work = {}
     intersect_scene_sweep_ref(*args, st, cfg, any_hit=any_hit, work=work, **kw)
-    n_cull = work.pop("cull")
-    flops = CULL_FLOPS * n_cull + sum(
-        BRANCH_FLOPS[PACKED_KIND_NAMES[k]] * n for k, n in work.items())
+    counts = {k: work.pop(k) for k in ("cull", "group_cull", "chunk_cull")}
+    swept = work.pop("swept")
+    counts["candidates"] = sum(swept.values())
+    counts["candidates_one_level"] = sum(work.values())
+
+    def flops(cull, lanes):
+        return CULL_FLOPS * cull + sum(BRANCH_FLOPS[PACKED_KIND_NAMES[k]] * n
+                                       for k, n in lanes.items())
+
     ray_bytes = 4 * (3 + 3 + 1 + 1) + 1 + (8 if kw.get("src_node") is not None else 0)
     ncol = pk.n_chunks * PACK_CHUNK
-    table_bytes = ncol * (21 * 4 + 2 * 4) + pk.n_chunks * (4 + 6 * 4)
     out_bytes = 4 if any_hit else 12
-    nbytes = R * (ray_bytes + out_bytes) + table_bytes
-    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    counts = {"cull": n_cull, "candidates": sum(work.values())}
-    return (t_ops, "operations", counts) if t_ops >= t_bytes else (t_bytes, "bytes", counts)
+    one_level_bytes = (R * (ray_bytes + out_bytes) + ncol * (21 * 4 + 2 * 4)
+                       + pk.n_chunks * (4 + 6 * 4))
+    # Beside those: the real lanes and the group boxes.
+    t_bytes = (one_level_bytes + pk.n_chunks * 4 + pk.groups.n_groups * 6 * 4) / PEAK_BYTES * 1e3
+    t_ops = flops(counts["group_cull"] + counts["chunk_cull"], swept) / PEAK_F32 * 1e3
+    one_level = max(flops(counts["cull"], work) / PEAK_F32 * 1e3,
+                    one_level_bytes / PEAK_BYTES * 1e3)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", one_level, counts
+    return t_bytes, "bytes", one_level, counts
 
 
 def phase_card(dev):
@@ -325,60 +372,136 @@ def phase_kernels(dev):
         print(line + "; kernel and plain version agree", flush=True)
 
         if name in TIMED:
-            timing[name] = _time_launches(name, o, d, src, near, st, cfg, n_rays)
+            ro, rd = _render_order_rays(cam, size, cfg)
+            rsrc = src[:LAUNCH_RAYS]
+            rnear = check(f"{name} render-order camera", ro, rd, cfg.epsilon, st,
+                          {"src_node": rsrc, "src_tri": rsrc}, torus)
+            so, sd, st_min, sact, snode, stri = _shadow_rays(ro, rd, rnear, st, cfg)
+            check(f"{name} render-order shadow", so, sd, st_min, st,
+                  dict(active=sact, src_node=snode, src_tri=stri), torus)
+            print(f"[2 kernels] {name}: {LAUNCH_RAYS} camera rays in render order, "
+                  f"{rnear.hit.float().mean():.3f} hit; {int(sact.sum())} shadow rays; "
+                  f"kernel and plain version agree", flush=True)
+            sets = {"uniform": _launch_shapes(o, d, near, st, cfg),
+                    "render order": _launch_shapes(ro, rd, rnear, st, cfg)}
+            timing[name] = _time_launches(name, sets, st, cfg)
+            timing[name]["launch_sets"] = (sets, st)
     return err, diffs, timing, sorted(branches)
 
 
-def _time_launches(name, o, d, src, near, st, cfg, n_rays):
-    """Both versions at the render path's launch shapes: LAUNCH_RAYS
-    primary rays (a 128x128 tile x 8 spp) and one any-hit launch over L x
-    LAUNCH_RAYS shadow rays; plain (PLAIN_ITERS launches), kernel (20),
-    kernel, plain in turns.  Then the cull alone: the nearest kernel on
-    LAUNCH_RAYS rays, drawn from the camera rays that cross no chunk AABB,
-    each of which slab-tests every chunk and evaluates no candidate.
-    Returns {mode: (kernel ms, plain ms, bound ms, bound_by), "cull_only_ms":
-    ms or None}."""
+def phase_device_times(timing, cfg):
+    """The sweep kernel's device time (_device_ms) on each launch shape of
+    phase 2.  Run last: after the profiler had run in phase 2, the
+    host-bound main paths of phase 4 read slower than in separate
+    processes (PERF.md, section 6).  Adds "device_ms" per mode, and per
+    mode of "render_order", to `timing`."""
+    from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_cuda
+
+    for name, t in timing.items():
+        sets, st = t.pop("launch_sets")
+        for order, shapes in sets.items():
+            for mode, (args, kw, any_hit) in shapes.items():
+                ms = _device_ms(lambda: intersect_scene_cuda(*args, st, cfg, any_hit=any_hit,
+                                                             **kw), 20)
+                (t if order == "uniform" else t["render_order"])[mode] += (ms,)
+                print(f"[5 device] {name} {mode}, {order}: sweep kernel {_fmt(ms)} on the "
+                      f"device", flush=True)
+
+
+def _render_order_rays(cam, size, cfg):
+    """LAUNCH_RAYS primary rays in the render's order: the middle tile of
+    the middle tile row at the spp of one launch, pixel-major with a
+    pixel's samples contiguous, as ``render._tile_rays`` builds them.  (The
+    row's first tile sees only background on big-scene and
+    single-triangle.)"""
+    from portrayer_tpu_torch import render, rng
+
+    th, tw = cfg.tile
+    x0 = (-(-size[0] // tw) - 1) // 2 * tw
+    y0 = (-(-size[1] // th) - 1) // 2 * th
+    o, d, *_ = render._tile_rays(rng.PRNGKey(5), cam, x0, y0, 0, cfg=cfg,
+                                 background=render.default_background, tile_h=th, tile_w=tw,
+                                 spp=LAUNCH_RAYS // (th * tw), samples=FULL_FRAME_SPP)
+    return o, d
+
+
+def _launch_shapes(o, d, near, st, cfg):
+    """The render path's launch shapes on camera rays o, d whose nearest
+    hits are `near`: LAUNCH_RAYS primary rays (a 128x128 tile x 8 spp) and
+    one any-hit launch over their L x LAUNCH_RAYS shadow rays.  Returns
+    {mode: (args, kwargs, any_hit)}."""
+    import torch
+
+    dev = o.device
+    inf = float("inf")
+    R, n_rays = LAUNCH_RAYS, o.shape[0]
+    src = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
+    sel = torch.cat([torch.arange(R, device=dev) + li * n_rays for li in range(st.n_lights)])
+    return {
+        "nearest": ((o[:R].contiguous(), d[:R].contiguous(), cfg.epsilon, inf),
+                    dict(src_node=src, src_tri=src), False),
+        "any_hit": ((so[sel].contiguous(), sd[sel].contiguous(), st_min[sel].contiguous(), inf),
+                    dict(active=sact[sel], src_node=snode[sel], src_tri=stri[sel]), True),
+    }
+
+
+def _time_launches(name, ray_sets, st, cfg):
+    """Both modes at the launch shapes of each ray set ({"uniform": ...,
+    "render order": ...}, from _launch_shapes).  On the uniform set the
+    plain version (PLAIN_ITERS launches) and the kernel (20) in turns:
+    plain, kernel, kernel, plain; on the render-order set the kernel alone,
+    twice.  Then the cull alone: the nearest kernel on LAUNCH_RAYS rays,
+    drawn from the uniform camera rays that cross no chunk AABB, which
+    evaluate no candidate.  Returns {mode: (kernel ms, plain ms, bound ms,
+    bound_by, one-level bound ms), "render_order": {mode: (kernel ms, bound
+    ms, bound_by, one-level bound ms)}, "cull_only_ms": ms or None}; kernel
+    ms is a call of the wrapper by CUDA events (phase_device_times adds the
+    kernel's device ms)."""
     import torch
     from portrayer_tpu_torch.ops import cuda_intersect as ci
     from portrayer_tpu_torch.ops.cuda_intersect import (
         intersect_scene_cuda, intersect_scene_sweep_ref)
 
-    dev = o.device
     inf = float("inf")
     R = LAUNCH_RAYS
-    so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
-    sel = torch.cat([torch.arange(R, device=dev) + li * n_rays for li in range(st.n_lights)])
-    shapes = {
-        "nearest": ((o[:R].contiguous(), d[:R].contiguous(), cfg.epsilon, inf),
-                    dict(src_node=src[:R], src_tri=src[:R]), False),
-        "any_hit": ((so[sel].contiguous(), sd[sel].contiguous(), st_min[sel].contiguous(), inf),
-                    dict(active=sact[sel], src_node=snode[sel], src_tri=stri[sel]), True),
-    }
-    out = {}
-    for mode, (args, kw, any_hit) in shapes.items():
-        kern = lambda: intersect_scene_cuda(*args, st, cfg, any_hit=any_hit, **kw)
-        plain = lambda: intersect_scene_sweep_ref(*args, st, cfg, any_hit=any_hit, **kw)
-        if not torch.equal(kern().hit, plain().hit):
-            raise AssertionError(f"{name} {mode} at the launch shape: hit differs")
-        p1 = _time_ms(plain, PLAIN_ITERS)
-        k1 = _time_ms(kern, 20)
-        k2 = _time_ms(kern, 20)
-        p2 = _time_ms(plain, PLAIN_ITERS)
-        bound, bound_by, work = _bound_ms(args, kw, st, cfg, any_hit)
-        out[mode] = ((k1 + k2) / 2, (p1 + p2) / 2, bound, bound_by)
-        n = args[0].shape[0]
-        live = max(int(kw["active"].sum()) if "active" in kw else n, 1)
-        print(f"[2 timing] {name} {mode} ({n} rays): kernel {out[mode][0]:.3f} ms, plain "
-              f"{out[mode][1]:.3f} ms ({PLAIN_ITERS} launches a turn), bound {bound:.4f} ms "
-              f"({bound_by}); per active ray {work['cull'] / live:.1f} chunk slab tests, "
-              f"{work['candidates'] / live:.1f} candidates", flush=True)
-    oc, dc = o[:R], d[:R]
+    out = {"render_order": {}}
+    for order, shapes in ray_sets.items():
+        for mode, (args, kw, any_hit) in shapes.items():
+            kern = lambda: intersect_scene_cuda(*args, st, cfg, any_hit=any_hit, **kw)
+            plain = lambda: intersect_scene_sweep_ref(*args, st, cfg, any_hit=any_hit, **kw)
+            if not torch.equal(kern().hit, plain().hit):
+                raise AssertionError(f"{name} {mode} at the launch shape ({order}): hit differs")
+            uniform = order == "uniform"
+            p1 = _time_ms(plain, PLAIN_ITERS) if uniform else None
+            k1 = _time_ms(kern, 20)
+            k2 = _time_ms(kern, 20)
+            p2 = _time_ms(plain, PLAIN_ITERS) if uniform else None
+            bound, bound_by, one_level, work = _bound_ms(args, kw, st, cfg, any_hit)
+            ms = (k1 + k2) / 2
+            if uniform:
+                out[mode] = (ms, (p1 + p2) / 2, bound, bound_by, one_level)
+                plain_note = f"plain {out[mode][1]:.3f} ms ({PLAIN_ITERS} launches a turn), "
+            else:
+                out["render_order"][mode] = (ms, bound, bound_by, one_level)
+                plain_note = ""
+            n = args[0].shape[0]
+            live = max(int(kw["active"].sum()) if "active" in kw else n, 1)
+            print(f"[2 timing] {name} {mode}, {order} ({n} rays): kernel {ms:.3f} ms a call "
+                  f"({k1:.3f}, {k2:.3f}), {plain_note}bound {bound:.4f} ms ({bound_by}; a "
+                  f"one-level cull's {one_level:.4f} ms); per active ray "
+                  f"{work['group_cull'] / live:.1f} group and {work['chunk_cull'] / live:.1f} "
+                  f"chunk slab tests, {work['candidates'] / live:.1f} candidates (a one-level "
+                  f"cull: {work['cull'] / live:.1f} and "
+                  f"{work['candidates_one_level'] / live:.1f})", flush=True)
+    (oc, dc, *_), _, _ = ray_sets["uniform"]["nearest"]
     t_min, t_max, active = ci._rays(oc, cfg.epsilon, inf, None)
     none = torch.nonzero(~ci._cull(oc, ci._safe_rcp(dc), t_min, t_max, active,
-                                   st.packed).any(dim=1)).squeeze(1)
+                                   st.packed.chunk_min, st.packed.chunk_max).any(dim=1))
+    none = none.squeeze(1)
     out["cull_only_ms"] = None
     if none.numel():
-        rep = none[torch.arange(R, device=dev) % none.numel()]
+        rep = none[torch.arange(R, device=oc.device) % none.numel()]
         oc, dc = oc[rep].contiguous(), dc[rep].contiguous()
         if intersect_scene_cuda(oc, dc, cfg.epsilon, inf, st, cfg).hit.any():
             raise AssertionError(f"{name}: a ray that crosses no chunk hit")
@@ -535,6 +658,8 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e})", file=sys.stderr)
         return 1
+    from portrayer_tpu_torch import RenderConfig
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -549,10 +674,11 @@ def main():
     _linear_vs_flat(dev, "simple", SIMPLE_SPP)
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
+    phase_device_times(timing, RenderConfig(device=dev))
 
     kernels = []
     for mode in ("nearest", "any_hit"):
-        ms, plain_ms, bound, bound_by = timing["big-scene"][mode]
+        ms, plain_ms, bound, bound_by, one_level, _ = timing["big-scene"][mode]
         kernels.append({
             "name": f"sweep_{mode}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "branches": branches,
@@ -560,8 +686,14 @@ def main():
             "launches_by_path": {p: c[mode] for p, c in path_counts.items()},
             "max_abs_err": err[mode], "rays_differing": diffs[mode],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None,
-            "by_scene": {s: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t[mode]),
+            "bound_ms_one_level": one_level, "library_ms": None,
+            "by_scene": {s: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "bound_ms_one_level", "device_ms"), t[mode]),
+                                 **dict(zip(("ms_render_order", "bound_ms_render_order",
+                                             "bound_by_render_order",
+                                             "bound_ms_one_level_render_order",
+                                             "device_ms_render_order"),
+                                            t["render_order"][mode])),
                                  **({"cull_only_ms": t["cull_only_ms"]}
                                     if mode == "nearest" else {}))
                          for s, t in timing.items()},

@@ -65,7 +65,7 @@ def _nvcc() -> str:
 
 def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    common = [p] * 12 + [i, i, i, f, f, i]
+    common = [p] * 15 + [i, i, i, i, f, f, i]
     lib.sweep_nearest.argtypes = common + [p, p, p, p]
     lib.sweep_nearest.restype = i
     lib.sweep_any_hit.argtypes = common + [p, p]

@@ -9,11 +9,16 @@ only whether an in-range hit exists.  On CUDA tensors it launches
 same per-ray chunk cull, the same branch formulas in the same op order,
 and the same fold, in which ties go to the earlier (chunk, lane).
 Unlike the TPU kernel's 2^-16 quantised key, t is exact f32.
+
+The kernel culls in two levels: ``chunk_groups`` derives, from the packed
+table alone, the boxes of groups of GROUP consecutive chunks and each
+chunk's count of real lanes (``PackedPrims.groups`` keeps them).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,6 +31,8 @@ from ..scene.flatten import (
 from .intersect import Hit
 
 INF = math.inf
+# Chunks per group of the kernel's first cull level: one per lane of a warp.
+GROUP = 32
 
 # Kernel launches per mode, and plain-version calls on CUDA tensors.  A
 # caller zeroes them (reset_counts) before a run and reads them after it.
@@ -43,8 +50,16 @@ def _f32(x: float) -> float:
 
 
 def _rays(o, t_min, t_max, active):
+    """t_min, t_max as [R] tensors (a number is filled in on the device:
+    a tensor made from it would be copied from the host, which waits for
+    the device) and `active`, all true where None."""
     R = o.shape[0]
-    full = lambda x: torch.as_tensor(x, dtype=torch.float32, device=o.device).expand(R)
+
+    def full(x):
+        if isinstance(x, torch.Tensor) or np.ndim(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=o.device).expand(R)
+        return torch.full((R,), float(x), dtype=torch.float32, device=o.device)
+
     if active is None:
         active = torch.ones(R, dtype=torch.bool, device=o.device)
     return full(t_min), full(t_max), active
@@ -378,31 +393,75 @@ _BRANCHES = {
 }
 
 
-def _cull(o, rcp, t_min, t_max, active, pk):
-    """[R, Nc] bool: rays whose slab test crosses each chunk's AABB, with
-    the TPU prologue's conservative rule (1e-30 reciprocal guard in `rcp`,
-    slack 1e-4|t_enter| + 1e-5)."""
-    ten = torch.full((o.shape[0], pk.n_chunks), -INF, dtype=o.dtype, device=o.device)
+def _entry(o, rcp, t_min, active, bmin, bmax):
+    """[R, B]: each ray's entry distance into each box of bmin, bmax [B, 3]
+    by the TPU prologue's conservative slab rule (1e-30 reciprocal guard
+    in `rcp`, slack 1e-4|t_enter| + 1e-5), NaN where the ray misses the
+    box, leaves it before t_min or is inactive.  No hit inside a box is
+    nearer than its entry."""
+    ten = torch.full((o.shape[0], bmin.shape[0]), -INF, dtype=o.dtype, device=o.device)
     tex = torch.full_like(ten, INF)
     for axis in range(3):
-        ta = (pk.chunk_min[None, :, axis] - o[:, None, axis]) * rcp[:, None, axis]
-        tb = (pk.chunk_max[None, :, axis] - o[:, None, axis]) * rcp[:, None, axis]
+        ta = (bmin[None, :, axis] - o[:, None, axis]) * rcp[:, None, axis]
+        tb = (bmax[None, :, axis] - o[:, None, axis]) * rcp[:, None, axis]
         ten = torch.maximum(ten, torch.minimum(ta, tb))
         tex = torch.minimum(tex, torch.maximum(ta, tb))
     te = ten - (1e-4 * torch.abs(ten) + 1e-5)
     te = torch.where(te > 0.0, te, 0.0)
-    return ((ten <= tex) & (tex >= t_min[:, None]) & (te <= t_max[:, None])
-            & active[:, None])
+    return torch.where((ten <= tex) & (tex >= t_min[:, None]) & active[:, None], te, math.nan)
+
+
+def _cull(o, rcp, t_min, t_max, active, bmin, bmax):
+    """[R, B] bool: rays that cross each box of bmin, bmax [B, 3] (an
+    entry at most t_max)."""
+    return _entry(o, rcp, t_min, active, bmin, bmax) <= t_max[:, None]
+
+
+class ChunkGroups(NamedTuple):
+    """What the kernel's two-level cull reads beside the packed table."""
+
+    box_min: torch.Tensor     # [G, 3]: elementwise min of GROUP chunks' chunk_min
+    box_max: torch.Tensor     # [G, 3]
+    real_lanes: torch.Tensor  # [Nc] int32: count of node ids >= 0 (a prefix)
+
+    @property
+    def n_groups(self) -> int:
+        return self.box_min.shape[0]
+
+
+def chunk_groups(pk) -> ChunkGroups:
+    """The groups of GROUP consecutive chunks (table order, the lowering's
+    SAH order) and the real lanes of each chunk, on the table's device,
+    with no host sync.  A group's box is the exact f32 min/max of its
+    members' boxes, so it contains them; the slab rule is monotone in the
+    box, so a group passes whenever one of its chunks does.  The kernel
+    reads them through ``PackedPrims.groups``, which derives them once per
+    table."""
+    nc = pk.n_chunks
+    pad = -nc % GROUP
+    fill = lambda v: torch.full((pad, 3), v, dtype=pk.chunk_min.dtype, device=pk.chunk_min.device)
+    gmin = torch.cat([pk.chunk_min, fill(INF)]).reshape(-1, GROUP, 3).amin(dim=1)
+    gmax = torch.cat([pk.chunk_max, fill(-INF)]).reshape(-1, GROUP, 3).amax(dim=1)
+    real = (pk.ids[0].reshape(nc, PACK_CHUNK) >= 0).sum(dim=1).to(torch.int32)
+    return ChunkGroups(gmin.contiguous(), gmax.contiguous(), real)
 
 
 def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
                               active=None, src_node=None, src_tri=None,
                               any_hit=False, work=None) -> Hit:
-    """Plain PyTorch version of the sweep kernel (same contract).  A dict
-    `work` receives the work the kernel does on these rays: under "cull"
-    the (ray, chunk) slab tests, and per packed kind the (ray, primitive)
-    evaluations, the real lanes of the chunks the cull passes.  In any-hit
-    mode both stop at a ray's first hitting lane, as the kernel does."""
+    """Plain PyTorch version of the sweep kernel (same contract).
+
+    A dict `work` receives the work done on these rays, in any-hit mode
+    each count up to a ray's first hit:
+    - "cull", and per packed kind: a one-level cull's slab tests, one per
+      (ray, chunk), and the (ray, real lane) evaluations of the chunks it
+      passes (a hit's chunk up to its first hitting lane);
+    - "group_cull", "chunk_cull" and "swept" ({kind: evaluations}): the
+      kernel's.  With more than GROUP chunks a ray tests every group box,
+      GROUP a step, and the chunk boxes of each group it crosses, else
+      every chunk box; it sweeps the chunks it crosses.  Nearest mode
+      skips a group or chunk whose entry lies beyond the ray's best t so
+      far, as the kernel does."""
     if o.device.type == "cuda":
         COUNTS["plain_on_cuda"] += 1
     pk = st.packed
@@ -418,8 +477,16 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
     eps_r = _f32(0.5 + cfg.epsilon)
     self_eps = _f32(cfg.self_eps_local)
     rcp = _safe_rcp(d)
-    cross = _cull(o, rcp, t_min, t_max, active, pk)
+    entry = _entry(o, rcp, t_min, active, pk.chunk_min, pk.chunk_max)
+    cross = entry <= t_max[:, None]
     kinds = [k for k, _, n in pk.kind_ranges for _ in range(n)]
+    nc = pk.n_chunks
+    if work is not None:
+        G = pk.groups.n_groups
+        g_entry = _entry(o, rcp, t_min, active, pk.groups.box_min, pk.groups.box_max)
+        for k in ("cull", "group_cull", "chunk_cull"):
+            work.setdefault(k, 0)
+        swept = work.setdefault("swept", {})
 
     best_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
     best_node = torch.full((R,), -1, dtype=torch.int32, device=dev)
@@ -427,7 +494,17 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
     found = torch.zeros(R, dtype=torch.bool, device=dev)
     for ci, kind in enumerate(kinds):
         if work is not None:
-            work["cull"] = work.get("cull", 0) + int((active & ~found).sum())
+            live = active & ~found
+            work["cull"] += int(live.sum())
+            if ci % GROUP == 0:  # the kernel reaches group g
+                g = ci // GROUP
+                g_visit = live
+                if G > 1:
+                    if g % GROUP == 0:  # a step of group tests
+                        work["group_cull"] += int(live.sum()) * min(GROUP, G - g)
+                    e = g_entry[:, g]
+                    g_visit = live & (e <= t_max) & ~(e > best_t)
+                work["chunk_cull"] += int(g_visit.sum()) * min(GROUP, nc - ci)
         sel = cross[:, ci]
         if any_hit:
             sel = sel & ~found
@@ -449,7 +526,10 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
             if any_hit:  # up to the first hitting lane
                 lanes = t < INF
                 last = torch.where(lanes.any(dim=1), lanes.to(torch.int32).argmax(dim=1), last)
-            work[kind] = work.get(kind, 0) + int(real[last].sum())
+            n = real[last]
+            work[kind] = work.get(kind, 0) + int(n.sum())
+            kept = g_visit[idx] & ~(entry[idx, ci] > best_t[idx])
+            swept[kind] = swept.get(kind, 0) + int(n[kept].sum())
         if any_hit:
             found[idx] = (t < INF).any(dim=1)
             continue
@@ -511,6 +591,7 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
     kinds = _check("packed.chunk_kind", pk.chunk_kind, torch.int32, (pk.n_chunks,))
     cmin = _check("packed.chunk_min", pk.chunk_min, torch.float32, (pk.n_chunks, 3))
     cmax = _check("packed.chunk_max", pk.chunk_max, torch.float32, (pk.n_chunks, 3))
+    groups = pk.groups
     src_ptr = srct_ptr = None
     if src_node is not None and cfg.self_eps_local > 0.0:
         src_node = _check("src_node", src_node, torch.int32, (R,))
@@ -521,7 +602,9 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
     stream = torch.cuda.current_stream(o.device).cuda_stream
     args = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             active.data_ptr(), src_ptr, srct_ptr, pf.data_ptr(), pid.data_ptr(),
-            kinds.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), R, pk.n_chunks, ncol,
+            kinds.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), groups.box_min.data_ptr(),
+            groups.box_max.data_ptr(), groups.real_lanes.data_ptr(), R, pk.n_chunks,
+            groups.n_groups, ncol,
             _f32(0.5 + cfg.epsilon), _f32(cfg.self_eps_local),
             int(any(k == TORUS for k, _, _ in pk.kind_ranges)))
     if any_hit:

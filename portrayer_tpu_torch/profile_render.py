@@ -2,6 +2,14 @@
 
     python3 -m portrayer_tpu_torch.profile_render [--scene big-scene] [--out out/profile]
 
+A scene that is not registered goes through ``profile(spec, out)`` with
+its ``scenes.SceneSpec``, e.g. the inline procedural-meshes scene:
+
+    python3 -c "import sys; sys.path.insert(0, 'tests'); import _torch_jax as J, \
+portrayer_tpu_torch as T; from portrayer_tpu_torch import scenes, profile_render as P; \
+s, c, z = J.procedural_meshes(T); P.profile(scenes.SceneSpec(scene=s, camera=c, size=z, \
+background=scenes.sky_background, name='procedural-meshes'), 'out/profile')"
+
 Renders the middle tile row of a scene at its published size (a region
 re-render, so its samples are the full frame's: for big-scene at
 1980x1020, row 3, y = 384..511) at 16 spp, the smoke run's main-path
@@ -74,20 +82,16 @@ def summarize_trace(trace: dict, wall_ms: float, n_chunks: int, top: int = 12) -
     }
 
 
-def main(argv=None):
-    from torch.profiler import ProfilerActivity, profile
+def profile(spec, out=os.path.join("out", "profile")) -> dict:
+    """Profile the render of SceneSpec `spec` on CUDA device 0 (see the
+    module docstring); writes the summary and trace under `out`."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from . import RenderConfig, render_u8, scenes
+    from . import RenderConfig, render_u8
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", default="big-scene", choices=scenes.names())
-    ap.add_argument("--out", default=os.path.join("out", "profile"))
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
-
     dev = torch.device("cuda", 0)
-    spec = scenes.load(args.scene)
     w, h = spec.size
     cfg = RenderConfig(device=dev, samples=SPP, max_rays_per_launch=131072)
     th, tw = cfg.tile
@@ -108,7 +112,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         render()
@@ -121,7 +125,7 @@ def main(argv=None):
             raw = f.read()
     summary = summarize_trace(json.loads(raw), traced_ms, chunks)
     summary.update(
-        scene=args.scene, card=torch.cuda.get_device_name(dev), spp=SPP,
+        scene=spec.name, card=torch.cuda.get_device_name(dev), spp=SPP,
         rows=(y0, region[1][1]),
         untraced_wall_ms=walls, untraced_wall_ms_median=statistics.median(walls),
         untraced_ms_per_chunk=statistics.median(walls) / chunks,
@@ -129,13 +133,13 @@ def main(argv=None):
         host_syncs_per_chunk=sum(s.syncs for s in stats) / chunks,
         live_per_round=[int(n) for n in sum(s.live for s in stats)])
 
-    os.makedirs(args.out, exist_ok=True)
-    with gzip.open(os.path.join(args.out, "trace.json.gz"), "wb") as f:
+    os.makedirs(out, exist_ok=True)
+    with gzip.open(os.path.join(out, "trace.json.gz"), "wb") as f:
         f.write(raw)
-    with open(os.path.join(args.out, "summary.json"), "w") as f:
+    with open(os.path.join(out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     s = summary
-    print(f"[profile] {args.scene} rows {y0}..{region[1][1]}, {tiles} tiles x {SPP} spp = "
+    print(f"[profile] {spec.name} rows {y0}..{region[1][1]}, {tiles} tiles x {SPP} spp = "
           f"{chunks} chunks of {th * tw * min(SPP, cfg.max_rays_per_launch // (th * tw))} "
           f"rays on {s['card']}")
     print(f"[profile] untraced wall {', '.join(f'{x:.3f}' for x in walls)} ms "
@@ -151,6 +155,16 @@ def main(argv=None):
     for k in s["top_kernels"]:
         print(f"[profile]   {k['ms']:9.3f} ms {k['launches']:7d} x  {k['name'][:110]}")
     return summary
+
+
+def main(argv=None):
+    from . import scenes
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", default="big-scene", choices=scenes.names())
+    ap.add_argument("--out", default=os.path.join("out", "profile"))
+    args = ap.parse_args(argv)
+    return profile(scenes.load(args.scene), args.out)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ A scene with a texture or normal map is refused with
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -85,6 +86,14 @@ class PackedPrims:
     chunk_max: torch.Tensor   # [Nc, 3]
     n_chunks: int
     kind_ranges: tuple        # ((kind, chunk_start, chunk_count), ...)
+
+    @functools.cached_property
+    def groups(self):
+        """The sweep kernel's chunk groups and real lanes per chunk
+        (``ops.cuda_intersect.chunk_groups``), derived once per table."""
+        from ..ops.cuda_intersect import chunk_groups
+
+        return chunk_groups(self)
 
 
 @dataclasses.dataclass

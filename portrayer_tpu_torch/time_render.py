@@ -5,7 +5,8 @@ device, to compare two checkouts of the port on the same card.
     python3 portrayer_tpu_torch/time_render.py --against DIR [--turns 2]
 
 The first form renders the scene at its published size and 16 spp with
-131,072 rays per launch (the settings of ``chip_smoke.py``'s main path):
+131,072 rays per launch and the scene's queue caps (the settings of
+``chip_smoke.py``'s main path):
 once to build the kernel and warm up, then ``--repeats`` times, and prints
 one JSON line with each render's seconds, the kernel launches per mode of
 the last render and a hash of its pixels.  ``--root DIR`` imports the
@@ -43,7 +44,8 @@ def _time(root: str, scene: str, repeats: int) -> dict:
     dev = torch.device("cuda", 0)
     spec = scenes.load(scene)
     w, h = spec.size
-    cfg = RenderConfig(device=dev, samples=SPP, max_rays_per_launch=LAUNCH_RAYS)
+    cfg = RenderConfig(device=dev, samples=SPP, max_rays_per_launch=LAUNCH_RAYS,
+                       queue_caps=spec.queue_caps)
     img = Image(None, w, h)
     secs = []
     for i in range(repeats + 1):

@@ -181,4 +181,6 @@ def procedural_meshes(pkg, subdiv=5, grid=128):
 
 INLINE = {"ellipsoids": ellipsoids, "glass-sphere": glass_sphere,
           # The test size: 769 pairs in 7 chunks.
-          "procedural-meshes": lambda pkg: procedural_meshes(pkg, subdiv=2, grid=8)}
+          "procedural-meshes": lambda pkg: procedural_meshes(pkg, subdiv=2, grid=8),
+          # 4,609 pairs in 37 chunks: two groups of the sweep kernel's cull.
+          "procedural-meshes-groups": lambda pkg: procedural_meshes(pkg, subdiv=3, grid=32)}

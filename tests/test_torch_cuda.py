@@ -4,7 +4,10 @@ card.  These tests need an NVIDIA GPU with nvcc; elsewhere they skip.
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 single-triangle and procedural-meshes (at its test size) drive the tri_w
-branch, their child rays with (node, tri) source pairs.
+branch, their child rays with (node, tri) source pairs; procedural-meshes-
+groups (37 chunks) the kernel's group level of the cull.  Built here from
+numpy: exact ties between duplicate triangles and spheres, and a table of
+more than 1,024 chunks.
 
 Gates: the JAX package's kernel gates (tests/test_pallas.py) for the
 nearest mode, with its torus gate (tests/test_torus.py) on torus hits,
@@ -13,6 +16,7 @@ op the same way (the kernel is built with -fmad=false), so in practice
 they agree bit for bit.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,7 +32,7 @@ from portrayer_tpu_torch.ops.cuda_intersect import (
 from _torch_jax import assert_gates, torus_nodes, INLINE
 
 NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
-         "ellipsoids", "single-triangle", "procedural-meshes"]
+         "ellipsoids", "single-triangle", "procedural-meshes", "procedural-meshes-groups"]
 
 pytestmark = pytest.mark.cuda
 INF = float("inf")
@@ -117,3 +121,95 @@ def test_sweep_kernel_rejects_bad_inputs(dev):
     o = torch.zeros((4, 3), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
         intersect_scene_cuda(o, o, 1e-5, INF, st, cfg)
+
+
+def _same(k, p):
+    """Kernel and plain version agree exactly: hit, t, node and tri."""
+    for f in ("hit", "t", "node", "tri"):
+        assert torch.equal(getattr(k, f).cpu(), getattr(p, f).cpu()), f
+
+
+def _both_modes(o, d, st, cfg):
+    k = intersect_scene_cuda(o, d, 1e-5, INF, st, cfg)
+    _same(k, intersect_scene_sweep_ref(o, d, 1e-5, INF, st, cfg))
+    ka = intersect_scene_cuda(o, d, 1e-5, INF, st, cfg, any_hit=True)
+    assert torch.equal(ka.hit, intersect_scene_sweep_ref(o, d, 1e-5, INF, st, cfg,
+                                                         any_hit=True).hit)
+    return k, ka
+
+
+def _down(o):
+    """Rays straight down -z onto the points o [R,3] from 1 above them."""
+    o = torch.as_tensor(o, dtype=torch.float32)
+    d = torch.zeros_like(o)
+    d[:, 2] = -1.0
+    return o + torch.tensor([0.0, 0.0, 1.0]), d
+
+
+def _plain_scene(nodes):
+    return T.Scene(T.SceneNode(nodes), [T.Light(position=(0.0, 5.0, 5.0),
+                                                color=(1.0, 1.0, 1.0))], (0.2, 0.2, 0.2))
+
+
+def test_sweep_kernel_breaks_exact_ties_to_the_earlier_column(dev):
+    """200 copies of one triangle in one mesh (200 columns in two chunks,
+    the second's 72 real lanes ending inside its third step) and 200
+    copies of one sphere (one node each): every copy returns the same t,
+    in the same step, in later steps and in the next chunk, so the
+    earlier column must win, as in the plain version's fold."""
+    mat = T.Material(diffuse=(0.5, 0.5, 0.5), specular=(0.0, 0.0, 0.0), shininess=1.0)
+    tri = np.array([[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]]) + [-3.0, 0.0, 0.0]
+    copies = T.MeshData(np.tile(tri, (200, 1)), np.arange(600).reshape(200, 3))
+    spheres = [T.SceneNode(T.Geometry(T.Sphere(), mat)).translated((3.0, 0.0, 0.0))
+               for _ in range(200)]
+    st = flatten_scene(_plain_scene([T.SceneNode(T.Geometry(T.Mesh(copies), mat))]
+                                     + spheres), dev)
+    cfg = RenderConfig(device=dev)
+    g = np.random.default_rng(2)
+    pts = np.concatenate([np.c_[g.uniform(-3.3, -2.7, 512), g.uniform(-0.9, 0.3, 512),
+                                np.zeros(512)],
+                          np.c_[g.uniform(2.5, 3.5, 512), g.uniform(-0.5, 0.5, 512),
+                                np.full(512, 1.5)]])
+    o, d = (x.to(dev) for x in _down(pts))
+    k, ka = _both_modes(o, d, st, cfg)
+    assert k.hit.all() and ka.hit.all()
+    node, tri = st.packed.ids.cpu()
+    mesh_node = int(k.node[0])
+    on_mesh = node == mesh_node
+    # The earliest column of each copy set, in table order.
+    first_tri = int(tri[on_mesh][0])
+    first_sphere = int(node[(node >= 0) & ~on_mesh][0])
+    assert (k.node[:512] == mesh_node).all() and (k.tri[:512] == first_tri).all()
+    assert (k.node[512:] == first_sphere).all()
+
+
+def test_sweep_kernel_over_more_than_1024_chunks(dev):
+    """132,068 disjoint triangles in a plane: 1,032 chunks in 33 groups,
+    so the group level takes two steps, and the last chunk's 100 real lanes
+    end inside its last step.  Rays straight down onto each triangle of
+    that chunk hit it and nothing else: their first hit is in the last
+    step of the last group.  Plus rays onto random triangles."""
+    n, side = 132068, 364
+    k = np.arange(n)
+    corner = np.stack([k % side, k // side, np.zeros(n)], axis=1).astype(np.float64)
+    pos = np.stack([corner, corner + [0.6, 0.0, 0.0], corner + [0.0, 0.6, 0.0]], axis=1)
+    mat = T.Material(diffuse=(0.5, 0.5, 0.5), specular=(0.0, 0.0, 0.0), shininess=1.0)
+    mesh = T.MeshData(pos.reshape(-1, 3), np.arange(3 * n).reshape(n, 3))
+    st = flatten_scene(_plain_scene([T.SceneNode(T.Geometry(T.Mesh(mesh), mat))]), dev)
+    pk = st.packed
+    groups = pk.groups
+    assert pk.n_chunks == 1032 and groups.n_groups == 33
+    assert int(groups.real_lanes[-1]) == 100
+    last = pk.ids[1, (pk.n_chunks - 1) * 128:(pk.n_chunks - 1) * 128 + 100].cpu().numpy()
+    g = np.random.default_rng(3)
+    tris = np.concatenate([last, g.integers(0, n, 4096)])
+    o, d = (x.to(dev) for x in _down(pos[tris].mean(axis=1)))
+    cfg = RenderConfig(device=dev)
+    hit, occ = _both_modes(o, d, st, cfg)
+    assert hit.hit.all() and occ.hit.all()
+    assert torch.equal(hit.tri.cpu(), torch.as_tensor(tris, dtype=torch.int32))
+    # Rays that miss every triangle walk both group steps to the end.
+    miss = torch.as_tensor(pos[g.integers(0, n, 1024)].mean(axis=1) + [0.45, 0.45, 0.0])
+    mo, md = (x.to(dev) for x in _down(miss))
+    mh, mo_hit = _both_modes(mo, md, st, cfg)
+    assert not mh.hit.any() and not mo_hit.hit.any()

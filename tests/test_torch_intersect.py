@@ -13,6 +13,8 @@ contracts mul+add into FMA and divides by constants through reciprocals,
 so values agree to f32 rounding, not bit for bit.  The JAX side runs op by
 op (no jit), where XLA fuses least."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -224,11 +226,30 @@ def test_sweep_respects_active_and_tmax():
         assert torch.equal(occ.hit, near.hit & kept)
 
 
-@pytest.mark.parametrize("name", ["torus-showcase", "glossy-reflection"])
+def _one_chunk_t(o, d, ts, ci):
+    """[R]: the plain version's nearest t over chunk ci of ts alone."""
+    pk = ts.packed
+    cols = slice(ci * 128, (ci + 1) * 128)
+    kind = [k for k, _, n in pk.kind_ranges for _ in range(n)][ci]
+    one = dataclasses.replace(pk, f32=pk.f32[:, cols], ids=pk.ids[:, cols],
+                              chunk_kind=pk.chunk_kind[ci:ci + 1],
+                              chunk_min=pk.chunk_min[ci:ci + 1], chunk_max=pk.chunk_max[ci:ci + 1],
+                              n_chunks=1, kind_ranges=((kind, 0, 1),))
+    return intersect_scene_sweep_ref(o, d, 1e-5, INF, dataclasses.replace(ts, packed=one),
+                                     T_SWEEP).t
+
+
+@pytest.mark.parametrize("name", ["torus-showcase", "glossy-reflection",
+                                  "procedural-meshes-groups"])
 def test_sweep_work_counts_real_lanes(name):
-    """The work count behind chip_smoke.py's bound.  Nearest mode: one cull
-    test per (active ray, chunk) and, per kind, one evaluation per (ray,
-    real lane) of each chunk the cull passes; padding lanes count nothing.
+    """The work count behind chip_smoke.py's bound.  A one-level cull
+    (nearest mode): one test per (active ray, chunk) and, per kind, one
+    evaluation per (ray, real lane) of each chunk the cull passes; padding
+    lanes count nothing.  The kernel: with more than 32 chunks, one group
+    test per (ray, group) and the chunk tests of each group the ray
+    crosses, else one chunk test per (ray, chunk) and no group test; and
+    it leaves out a group or chunk whose entry lies beyond the ray's best t
+    over the chunks before it (each chunk's t from a one-chunk table).
     Any-hit mode stops at a ray's first hit: as much work as nearest mode
     on rays that hit nothing, less over all rays."""
     from portrayer_tpu_torch.ops import cuda_intersect as ci
@@ -236,25 +257,50 @@ def test_sweep_work_counts_real_lanes(name):
     _, ts, (o, d), _ = setup(name)
     o, d = _t(o), _t(d)
     pk = ts.packed
+    nc = pk.n_chunks
     t_min, t_max, active = ci._rays(o, 1e-5, INF, None)
-    cross = ci._cull(o, ci._safe_rcp(d), t_min, t_max, active, pk)
-    real = (pk.ids[0].reshape(pk.n_chunks, -1) >= 0).sum(dim=1)
+    rcp = ci._safe_rcp(d)
+    entry = ci._entry(o, rcp, t_min, active, pk.chunk_min, pk.chunk_max)
+    cross = entry <= t_max[:, None]
+    assert torch.equal(cross, ci._cull(o, rcp, t_min, t_max, active, pk.chunk_min,
+                                       pk.chunk_max))
+    real = (pk.ids[0].reshape(nc, -1) >= 0).sum(dim=1)
     assert int(real.sum()) < pk.ids.shape[1]  # the table has padding lanes
     kinds = [k for k, _, n in pk.kind_ranges for _ in range(n)]
-    expect = {"cull": o.shape[0] * pk.n_chunks}
+    R = o.shape[0]
+    # The best t before each chunk, in table order.
+    t = torch.stack([_one_chunk_t(o, d, ts, c) for c in range(nc)], dim=1)
+    best = torch.cat([torch.full((R, 1), INF), torch.cummin(t, dim=1).values[:, :-1]], dim=1)
+    visit = cross & ~(entry > best)
+    expect = {"cull": R * nc, "group_cull": 0, "chunk_cull": R * nc, "swept": {}}
+    if nc > 32:
+        expect["group_cull"] = R * -(-nc // 32)
+        expect["chunk_cull"] = 0
+        for g0 in range(0, nc, 32):
+            gmin = pk.chunk_min[g0:g0 + 32].amin(0, keepdim=True)
+            gmax = pk.chunk_max[g0:g0 + 32].amax(0, keepdim=True)
+            e = ci._entry(o, rcp, t_min, active, gmin, gmax)[:, 0]
+            g_visit = (e <= t_max) & ~(e > best[:, g0])
+            expect["chunk_cull"] += int(g_visit.sum()) * min(32, nc - g0)
+            visit[:, g0:g0 + 32] &= g_visit[:, None]
     for c, k in enumerate(kinds):
-        expect[k] = expect.get(k, 0) + int(cross[:, c].sum()) * int(real[c])
+        if cross[:, c].any():
+            expect[k] = expect.get(k, 0) + int(cross[:, c].sum()) * int(real[c])
+            expect["swept"][k] = expect["swept"].get(k, 0) + int(visit[:, c].sum()) * int(real[c])
 
     def run(o, d, **kw):
         work = {}
         return intersect_scene_sweep_ref(o, d, 1e-5, INF, ts, T_SWEEP, work=work, **kw), work
 
+    def total(work):
+        return sum(v for k, v in work.items() if k != "swept") + sum(work["swept"].values())
+
     near, work = run(o, d)
-    assert work == {k: v for k, v in expect.items() if v}
+    assert work == expect
     miss = ~near.hit
     assert miss.any() and near.hit.any()
     assert run(o[miss], d[miss], any_hit=True)[1] == run(o[miss], d[miss])[1]
-    assert sum(run(o, d, any_hit=True)[1].values()) < sum(work.values())
+    assert total(run(o, d, any_hit=True)[1]) < total(work)
 
 
 def test_aabox_grazing_rays_fall_back_to_the_sweep_t():
