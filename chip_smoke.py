@@ -3,18 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs five
+Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs six
 phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, kernel
    build seconds and, per kernel instantiation, ptxas registers and spills;
 2. each sweep kernel (nearest, any-hit) against its plain PyTorch version
    on the card: camera rays of big-scene, simple, torus-showcase,
-   glossy-reflection, primitives-simple, single-triangle and the inline
-   scenes of ellipsoids and procedural meshes (73,729 triangles,
-   ``tests/_torch_jax.py``), their shadow rays, and the child rays of a
-   real bounce round 0 (with their source surfaces) and those rays' shadow
-   rays.  Gates: the JAX package's kernel gates, and on torus chunks its
+   glossy-reflection, primitives-simple, single-triangle, four-shapes and
+   the inline scenes of ``tests/_torch_jax.py``: ellipsoids, procedural
+   meshes (73,729 triangles), normal-mapping-numpy (image and procedural
+   textures, normal maps) and soft-shadows-icosphere (an area light); their
+   shadow rays (towards a point of each area light drawn per ray, as the
+   shading draws it), and the child rays of a real bounce round 0 (with
+   their source surfaces) and those rays' shadow rays.  Gates: the JAX package's kernel gates, and on torus chunks its
    torus gate; every difference is counted.  Then both versions' times at
    the render's launch shapes of big-scene, torus-showcase,
    glossy-reflection, procedural-meshes and single-triangle (a call by
@@ -22,20 +24,30 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    rays; the kernel's times on a second set in the render's ray order (the
    middle tile of the middle tile row, as ``render._tile_rays`` builds it)
    and its shadow rays, held against the plain version too;
-3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64)
-   and single-triangle (160x120) against the committed self-goldens (on
-   torus-showcase, the pixels of TORUS_JIT_PIXELS aside);
+3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64),
+   single-triangle (160x120) and four-shapes (256x68) against the
+   committed self-goldens (on torus-showcase, the pixels of
+   TORUS_JIT_PIXELS aside);
 4. the main paths through ``Image.render``, each with the kernel launch
    counts of its run: big-scene's full 1980x1020 frame, torus-showcase at
-   256x256, glossy-reflection at 910x512, procedural-meshes at 960x540 and
-   single-triangle at 640x480, all at 16 spp, with live rays per bounce
-   round, host syncs and dropped throughput (from the render's TraceStats,
-   which cost one host sync per chunk more); then simple at 256x256,
-   glossy-reflection and procedural-meshes (240x136) at 4 spp through
+   256x256, glossy-reflection at 910x512, procedural-meshes at 960x540,
+   single-triangle at 640x480, normal-mapping-numpy and
+   soft-shadows-icosphere at 910x512 and four-shapes at 1920x512, all at
+   16 spp, with live rays per bounce round, host syncs and dropped
+   throughput (from the render's TraceStats, which cost one host sync per
+   chunk more); then simple at 256x256, glossy-reflection,
+   procedural-meshes and normal-mapping-numpy (240x136) at 4 spp through
    ``render_linear``, held against the flat oracle's render on the card;
-5. the sweep kernel alone on the device (torch.profiler) at each launch
+5. gradients through ``trace``: of sum(acc^2) on a 64x64 tile of big-scene
+   and of torus-showcase with respect to mat_diffuse, light_pos and inv,
+   through the kernel and through its plain version on the card, held
+   together; then a fit at full width, big-scene at 1980x1020 and 1 spp:
+   three gradient steps on mat_diffuse (started at 0.7 of the true one)
+   against the true render, backward per chunk of 131,072 rays, with the
+   loss falling at every step, each step's seconds and the peak memory;
+6. the sweep kernel alone on the device (torch.profiler) at each launch
    shape of phase 2; last, so that the profiler cannot weigh on the wall
-   times of phase 4.
+   times of phases 4 and 5.
 
 The last two lines are a JSON object of per-kernel numbers and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
@@ -61,6 +73,20 @@ GLOSSY_LINEAR_SPP = 4
 # at a 65,536-ray launch.
 MESH_LINEAR_SIZE = (240, 136)
 MESH_LINEAR_SPP = 4
+# Gradient phase: the tiles held kernel against plain version, and the fit.
+GRAD_TILE = 64
+GRAD_TILE_SPP = 4
+GRAD_FIELDS = ("mat_diffuse", "light_pos", "inv")
+# Kernel and plain version select the same winners; their gradients differ
+# only by the order of the float atomics that sum a gather's backward
+# (index_add on the card): this much of the largest gradient entry.
+GRAD_RTOL = 1e-4
+FIT_STEPS = 3
+FIT_START = 0.7
+# Step of the fit: the largest gradient entry moves this far (a small step
+# along the gradient of the quadratic loss lowers it).
+FIT_STEP = 0.05
+FIT_TILE = (256, 512)  # 131,072 rays a chunk at 1 spp
 LAUNCH_RAYS = 131072
 # Timed launches of the plain version per turn (it loops over the chunks in
 # Python: 577 of them on procedural-meshes).
@@ -132,14 +158,23 @@ def _gate_nearest(k, p, label, torus=None):
 def _shadow_rays(o, d, hit, st, cfg):
     """Rays from each nearest hit toward every light ([L*R] rays), as the
     render's shadow batch builds them: t_min = max(eps, eps_rel*|p|),
-    src_node/src_tri = the hit, active = hit."""
+    src_node/src_tri = the hit, active = hit; towards an area light, a
+    point of its parallelogram drawn per ray at the shading's draw site."""
     import torch
-    from portrayer_tpu_torch import math3d as m3
+    from portrayer_tpu_torch import math3d as m3, rng
+    from portrayer_tpu_torch.ops.shade import _uniform
 
     t = torch.where(hit.hit, hit.t, 0.0)
     p = o + t[:, None] * d
     t_eps = torch.clamp(cfg.eps_rel * m3.norm(p, eps=1e-20), min=cfg.epsilon)
-    dirs = [m3.normalize(st.light_pos[li] - p, eps=1e-30) for li in range(st.n_lights)]
+    sid = torch.arange(o.shape[0], dtype=torch.int32, device=o.device)
+    dirs = []
+    for li in range(st.n_lights):
+        lpos = st.light_pos[li]
+        if st.area_flags[li]:
+            ab = _uniform(rng.PRNGKey(5), 1000 + 2 * li, sid, 2) * 2.0 - 1.0
+            lpos = lpos + ab[:, :1] * st.light_area_a[li] + ab[:, 1:] * st.light_area_b[li]
+        dirs.append(m3.normalize(lpos - p, eps=1e-30))
     L = st.n_lights
     return (p.repeat(L, 1), torch.cat(dirs), t_eps.repeat(L), hit.hit.repeat(L),
             hit.node.repeat(L), hit.tri.repeat(L))
@@ -275,16 +310,22 @@ def phase_card(dev):
     return smi
 
 
-def _procedural_meshes():
-    """procedural-meshes at full size as a SceneSpec: the scene of
-    ``tests/_torch_jax.py`` (73,729 triangle pairs in 577 tri_w chunks)."""
+def _inline(name):
+    """An inline scene of ``tests/_torch_jax.py`` at full size as a
+    SceneSpec: procedural-meshes (73,729 triangle pairs in 577 tri_w
+    chunks), normal-mapping-numpy (1024x1024 and 1024x768 textures and
+    normal maps) or soft-shadows-icosphere (two 5,120-triangle icospheres,
+    an area light)."""
     import portrayer_tpu_torch as T
     from portrayer_tpu_torch import scenes
-    from _torch_jax import procedural_meshes  # tests/ is on sys.path (main)
+    import _torch_jax  # tests/ is on sys.path (main)
 
-    scene, cam, size = procedural_meshes(T)
+    build = {"procedural-meshes": _torch_jax.procedural_meshes,
+             "normal-mapping-numpy": _torch_jax.normal_mapping_numpy,
+             "soft-shadows-icosphere": _torch_jax.soft_shadows_icosphere}[name]
+    scene, cam, size = build(T)
     return scenes.SceneSpec(scene=scene, camera=cam, size=size,
-                            background=scenes.sky_background, name="procedural-meshes")
+                            background=scenes.sky_background, name=name)
 
 
 # Scenes whose launches phase 2 times.
@@ -303,12 +344,13 @@ def _scene_cases():
     # The timed scenes draw at least LAUNCH_RAYS camera rays.
     for name, n_rays in (("big-scene", 262144), ("simple", 65536), ("torus-showcase", 131072),
                          ("glossy-reflection", 131072), ("primitives-simple", 65536),
-                         ("single-triangle", 131072)):
+                         ("single-triangle", 131072), ("four-shapes", 131072)):
         spec = scenes.load(name)
         cases.append((name, n_rays, spec.scene, spec.camera, spec.size))
     cases.append(("ellipsoids", 65536) + ellipsoids(T))
-    mesh = _procedural_meshes()
-    cases.append(("procedural-meshes", 131072, mesh.scene, mesh.camera, mesh.size))
+    for name in ("procedural-meshes", "normal-mapping-numpy", "soft-shadows-icosphere"):
+        spec = _inline(name)
+        cases.append((name, 131072, spec.scene, spec.camera, spec.size))
     return cases
 
 
@@ -404,7 +446,7 @@ def phase_device_times(timing, cfg):
                 ms = _device_ms(lambda: intersect_scene_cuda(*args, st, cfg, any_hit=any_hit,
                                                              **kw), 20)
                 (t if order == "uniform" else t["render_order"])[mode] += (ms,)
-                print(f"[5 device] {name} {mode}, {order}: sweep kernel {_fmt(ms)} on the "
+                print(f"[6 device] {name} {mode}, {order}: sweep kernel {_fmt(ms)} on the "
                       f"device", flush=True)
 
 
@@ -518,7 +560,8 @@ def phase_goldens(dev):
     from portrayer_tpu_torch.image_io import read_png
 
     for name, size in (("simple", (64, 64)), ("big-scene", (160, 82)),
-                       ("torus-showcase", (64, 64)), ("single-triangle", (160, 120))):
+                       ("torus-showcase", (64, 64)), ("single-triangle", (160, 120)),
+                       ("four-shapes", (256, 68))):
         spec = scenes.load(name)
         cfg = RenderConfig(device=dev, samples=4, tile=(64, 64), seed=0)
         ours = render_u8(spec.scene, spec.camera, size, spec.background, cfg).astype(np.int16)
@@ -641,6 +684,161 @@ def _linear_vs_flat(dev, spec, spp, size=None):
         raise AssertionError(f"{name}: {frac:.3%} pixels differ from the flat oracle")
 
 
+class _PlainSweep:
+    """Within the block, the render's sweeps run the kernel's plain version
+    on the card's tensors (counted as plain_on_cuda), not the kernel."""
+
+    def __enter__(self):
+        from portrayer_tpu_torch.ops import cuda_intersect as ci
+
+        self.kernel = ci.intersect_scene_cuda
+        ci.intersect_scene_cuda = ci.intersect_scene_sweep_ref
+        return self
+
+    def __exit__(self, *exc):
+        from portrayer_tpu_torch.ops import cuda_intersect as ci
+
+        ci.intersect_scene_cuda = self.kernel
+
+
+def _tile_grads(dev, name, plain):
+    """Gradients of sum(acc^2) over the middle 64x64 tile of `name` at
+    GRAD_TILE_SPP with respect to GRAD_FIELDS, through the kernel or (with
+    `plain`) its plain version; returns ({field: gradient}, loss)."""
+    import contextlib
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, render, rng, scenes
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops.trace import trace
+
+    spec = scenes.load(name)
+    w, h = spec.size
+    cfg = RenderConfig(device=dev)
+    st = flatten_scene(spec.scene, dev)
+    x0 = (w // 2) // GRAD_TILE * GRAD_TILE
+    y0 = (h // 2) // GRAD_TILE * GRAD_TILE
+    o, d, pix, bg, w0 = render._tile_rays(
+        rng.PRNGKey(9), Camera(spec.camera, spec.size, dev), x0, y0, 0, cfg=cfg,
+        background=spec.background, tile_h=GRAD_TILE, tile_w=GRAD_TILE, spp=GRAD_TILE_SPP,
+        samples=GRAD_TILE_SPP)
+    leaves = {f: getattr(st, f).clone().requires_grad_() for f in GRAD_FIELDS}
+    with _PlainSweep() if plain else contextlib.nullcontext():
+        acc = trace(rng.PRNGKey(10), o, d, pix, bg, GRAD_TILE * GRAD_TILE,
+                    st.replace(**leaves), cfg, w0=w0, spp_contiguous=GRAD_TILE_SPP)
+        loss = torch.sum(acc ** 2)
+        loss.backward()
+    return {f: x.grad for f, x in leaves.items()}, float(loss.detach())
+
+
+def _frame_pass(dev, st, spec, cfg, diffuse=None, target=None):
+    """One pass over the frame of `spec` at cfg.samples, tile by tile as
+    ``render._render_tiles`` keys them.  Without `diffuse`: the mean image
+    as {tile origin: [P,3]} (no graph).  With `diffuse` (a leaf tensor) and
+    `target`: the MSE of the mean image against `target` over the frame's
+    pixels, backward run per chunk (the tables replaced per chunk, so one
+    chunk's graph is alive at a time) and the gradients summed in
+    diffuse.grad; returns the loss."""
+    import torch
+    from portrayer_tpu_torch import render, rng
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops.trace import trace
+
+    w, h = spec.size
+    th, tw = cfg.tile
+    spp = cfg.samples
+    cam = Camera(spec.camera, spec.size, dev)
+    key = rng.PRNGKey(cfg.seed)
+    out, loss = {}, 0.0
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            ckey = rng.fold_in(rng.fold_in(rng.fold_in(key, x0), y0), 0)
+            o, d, pix, bg, w0 = render._tile_rays(ckey, cam, x0, y0, 0, cfg=cfg,
+                                                  background=spec.background, tile_h=th,
+                                                  tile_w=tw, spp=spp, samples=spp)
+            tables = st if diffuse is None else st.replace(mat_diffuse=diffuse)
+            with torch.set_grad_enabled(diffuse is not None):
+                mean = trace(rng.fold_in(ckey, 1), o, d, pix, bg, th * tw, tables, cfg,
+                             w0=w0, spp_contiguous=spp) / spp
+            if diffuse is None:
+                out[(x0, y0)] = mean
+                continue
+            rows = torch.arange(th, device=dev)[:, None] + y0
+            cols = torch.arange(tw, device=dev)[None, :] + x0
+            inside = ((rows < h) & (cols < w)).reshape(-1, 1)
+            chunk = torch.where(inside, mean - target[(x0, y0)], 0.0).pow(2).sum() / (3 * w * h)
+            chunk.backward()
+            loss += float(chunk.detach())
+    return out if diffuse is None else loss
+
+
+def phase_gradients(dev):
+    """Kernel against plain version under autograd on two tiles, then the
+    full-width fit (see the module docstring)."""
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, scenes
+    from portrayer_tpu_torch.ops import cuda_intersect
+
+    for name in ("big-scene", "torus-showcase"):
+        cuda_intersect.reset_counts()
+        gk, lk = _tile_grads(dev, name, plain=False)
+        counts = dict(cuda_intersect.COUNTS)
+        cuda_intersect.reset_counts()
+        gp, lp = _tile_grads(dev, name, plain=True)
+        if counts["nearest"] == 0 or counts["plain_on_cuda"] or not cuda_intersect.COUNTS[
+                "plain_on_cuda"]:
+            raise AssertionError(f"{name}: kernel and plain runs were not apart: {counts}")
+        notes = []
+        for f in GRAD_FIELDS:
+            if not (torch.isfinite(gk[f]).all() and torch.isfinite(gp[f]).all()):
+                raise AssertionError(f"{name}: a {f} gradient is not finite")
+            scale = gp[f].abs().max().item()
+            diff = (gk[f] - gp[f]).abs().max().item()
+            if scale == 0.0 or diff > GRAD_RTOL * scale:
+                raise AssertionError(f"{name}: {f} gradients differ by {diff:.3g} (largest "
+                                     f"entry {scale:.3g})")
+            notes.append(f"{f} max |diff| {diff:.3g} of max |g| {scale:.3g}")
+        print(f"[5 gradients] {name} {GRAD_TILE}x{GRAD_TILE} tile x {GRAD_TILE_SPP} spp, "
+              f"sum(acc^2) {lk:.6g} (plain {lp:.6g}); kernel launches nearest "
+              f"{counts['nearest']} any-hit {counts['any_hit']}; kernel against plain version: "
+              + "; ".join(notes), flush=True)
+
+    spec = scenes.load("big-scene")
+    cfg = RenderConfig(device=dev, samples=1, tile=FIT_TILE, max_rays_per_launch=LAUNCH_RAYS)
+    st = flatten_scene(spec.scene, dev)
+    target = _frame_pass(dev, st, spec, cfg)
+    x = (st.mat_diffuse * FIT_START).requires_grad_()
+    losses, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_intersect.reset_counts()
+    for step in range(FIT_STEPS + 1):
+        x.grad = None
+        t0 = time.perf_counter()
+        losses.append(_frame_pass(dev, st, spec, cfg, diffuse=x, target=target))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        g = x.grad
+        if not torch.isfinite(g).all() or g.abs().max() == 0.0:
+            raise AssertionError(f"fit step {step}: gradient not finite or zero")
+        if step < FIT_STEPS:
+            with torch.no_grad():
+                x -= FIT_STEP * g / g.abs().max()
+    counts = dict(cuda_intersect.COUNTS)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if any(b >= a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"fit: the loss did not fall at every step: {losses}")
+    if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"]:
+        raise AssertionError(f"fit did not run through the kernels alone: {counts}")
+    err = ((x.detach() - st.mat_diffuse).abs().max() / st.mat_diffuse.abs().max()).item()
+    w, h = spec.size
+    print(f"[5 fit] big-scene {w}x{h} x 1 spp, {-(-w // FIT_TILE[1]) * -(-h // FIT_TILE[0])} "
+          f"chunks of {FIT_TILE[0] * FIT_TILE[1]} rays, mat_diffuse from {FIT_START} of the "
+          f"truth: MSE per step {[f'{v:.6g}' for v in losses]}; seconds per step "
+          f"(forward + backward) {[f'{v:.3f}' for v in secs]}; peak memory {peak:.3f} GiB; "
+          f"kernel launches nearest {counts['nearest']} any-hit {counts['any_hit']}; "
+          f"largest relative error of mat_diffuse after {FIT_STEPS} steps {err:.3g}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -668,12 +866,15 @@ def main():
     err, diffs, timing, branches = phase_kernels(dev)
     phase_goldens(dev)
     path_counts = {}
-    mesh = _procedural_meshes()
-    for spec in ("big-scene", "torus-showcase", "glossy-reflection", mesh, "single-triangle"):
+    mesh, textured = _inline("procedural-meshes"), _inline("normal-mapping-numpy")
+    for spec in ("big-scene", "torus-showcase", "glossy-reflection", mesh, "single-triangle",
+                 textured, _inline("soft-shadows-icosphere"), "four-shapes"):
         _main_path(dev, spec, path_counts)
     _linear_vs_flat(dev, "simple", SIMPLE_SPP)
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
+    _linear_vs_flat(dev, textured, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
+    phase_gradients(dev)
     phase_device_times(timing, RenderConfig(device=dev))
 
     kernels = []

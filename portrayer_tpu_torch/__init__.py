@@ -6,13 +6,20 @@ so it runs on a machine with a CUDA card and no JAX.  The scene
 description, its lowering to tables and PNG I/O live here for that reason.
 
 It renders scenes of spheres, planes, cubes, cylinders, cones, tori,
-triangle meshes and triangles lit by point lights, through the bounce
+triangle meshes and triangles lit by point and parallelogram area lights,
+with image and procedural textures and normal maps, through the bounce
 rounds of mirror, glossy and refractive materials: the nearest-hit and
 shadow sweeps of every round go through the hand-written kernel in
 ``csrc/sweep.cu`` (``accel="cuda"``), whose plain PyTorch version serves
-CPU tensors.  Textures, normal maps and area lights are refused with
-``NotImplementedError``.  Renders run on the card unless the
-``RenderConfig`` names another device.
+CPU tensors.  Renders run on the card unless the ``RenderConfig`` names
+another device.
+
+Image textures and normal maps take texels as a uint8 array (``data=``)
+or a PNG path.  ``ops.trace.trace`` is differentiable by
+``torch.autograd`` with respect to the material, light and transform
+tables: give ``SceneTables.replace`` a tensor that requires grad, trace
+with the new tables, and call ``backward``.  ``RenderConfig.soft_visibility``
+makes silhouettes differentiable too.
 """
 
 from .config import (
@@ -26,7 +33,7 @@ from .render import Image, render_linear, render_u8, finalize, to_u8
 from .scene import (
     Scene, SceneNode, Geometry, Sphere, Cube, Plane, Cylinder, Cone, Torus,
     Mesh, KDMesh, MeshData, Shading, Triangle, Material, Light, Falloff, Parallelogram,
-    flatten_scene, tables_from_numpy, SceneTables,
+    Texture, ImageTexture, NormalMap, flatten_scene, tables_from_numpy, SceneTables,
 )
 from . import math3d
 
@@ -41,6 +48,7 @@ __all__ = [
     "Sphere", "Cube", "Plane", "Cylinder", "Cone", "Torus",
     "Mesh", "KDMesh", "MeshData", "Shading", "Triangle",
     "Material", "Light", "Falloff", "Parallelogram",
+    "Texture", "ImageTexture", "NormalMap",
     "flatten_scene", "tables_from_numpy", "SceneTables",
     "math3d",
 ]

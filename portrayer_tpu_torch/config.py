@@ -88,8 +88,18 @@ class RenderConfig:
     # Max rays per launch; spp are chunked so tile_px * spp_chunk fits.
     max_rays_per_launch: int = 131072
 
-    # RNG seed for the jitter draws.
+    # RNG seed for the jitter, glossy and area-light draws.
     seed: int = 0
+
+    # Soft-visibility silhouette gradients: when > 0, each hit's
+    # contribution is scaled by sigmoid(margin/width - 3) where margin is a
+    # differentiable distance-to-silhouette (ops/intersect.HitDetail.margin)
+    # and this value is the width in local units; the complementary energy
+    # goes to the background.  The render becomes (nearly) continuous in
+    # scene parameters, so visibility discontinuities produce usable
+    # gradients at the cost of a thin translucent band inside silhouettes.
+    # 0 (default) = exact reference semantics.
+    soft_visibility: float = 0.0
 
     # "cuda": the hand-written sweep kernel on CUDA tensors (its plain
     # PyTorch version on CPU tensors); "flat": the brute-force oracle.

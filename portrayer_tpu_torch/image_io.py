@@ -1,8 +1,11 @@
 """8-bit RGB PNG writer and reader on the standard library's zlib.
 
 The writer stores every row with filter type 0.  The reader accepts
-non-interlaced 8-bit RGB and undoes all five filter types (None, Sub, Up,
-Average, Paeth), which other encoders choose per row.
+non-interlaced 8-bit greyscale, greyscale with alpha, RGB, RGBA and
+palette PNGs, undoes all five filter types (None, Sub, Up, Average,
+Paeth), which other encoders choose per row, and returns RGB as PIL's
+``convert("RGB")`` does: grey replicated, the palette expanded, alpha
+dropped.  Other bit depths and interlaced files raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -45,17 +48,24 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
+# Channels per pixel of each 8-bit colour type: grey, RGB, palette,
+# grey + alpha, RGBA.
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes (8-bit RGB, not interlaced) -> [H,W,3] uint8."""
+    """PNG bytes (8-bit, not interlaced) -> [H,W,3] uint8 RGB."""
     if data[:8] != _SIG:
         raise ValueError("not a PNG file")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + n]
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -64,9 +74,12 @@ def decode_png(data: bytes) -> np.ndarray:
     if hdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
-    if (depth, ctype, interlace) != (8, 2, 0):
-        raise ValueError(f"only 8-bit RGB non-interlaced PNGs are read, got {hdr}")
-    bpp, stride = 3, w * 3
+    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
+        raise ValueError(f"only 8-bit non-interlaced PNGs are read, got {hdr}")
+    if ctype == 3 and plte is None:
+        raise ValueError("palette PNG without PLTE")
+    bpp = _CHANNELS[ctype]
+    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     raw = raw.reshape(h, stride + 1)
     out = np.zeros((h, stride), np.int32)
@@ -93,7 +106,14 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError(f"bad PNG filter type {ftype}")
         out[y] = cur
         prev = cur
-    return out.astype(np.uint8).reshape(h, w, 3)
+    px = out.astype(np.uint8).reshape(h, w, bpp)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte[:256]
+        return pal[px[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
 
 
 def read_png(path) -> np.ndarray:

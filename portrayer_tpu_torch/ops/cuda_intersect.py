@@ -8,7 +8,10 @@ only whether an in-range hit exists.  On CUDA tensors it launches
 ``intersect_scene_sweep_ref``, the same computation in PyTorch ops: the
 same per-ray chunk cull, the same branch formulas in the same op order,
 and the same fold, in which ties go to the earlier (chunk, lane).
-Unlike the TPU kernel's 2^-16 quantised key, t is exact f32.
+Unlike the TPU kernel's 2^-16 quantised key, t is exact f32.  Both select
+only: they read rays without their graph (child rays carry the tables'
+gradients) and return tensors without one, as the JAX package
+``stop_gradient``s its sweeps.
 
 The kernel culls in two levels: ``chunk_groups`` derives, from the packed
 table alone, the boxes of groups of GROUP consecutive chunks and each
@@ -446,6 +449,7 @@ def chunk_groups(pk) -> ChunkGroups:
     return ChunkGroups(gmin.contiguous(), gmax.contiguous(), real)
 
 
+@torch.no_grad()
 def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
                               active=None, src_node=None, src_tri=None,
                               any_hit=False, work=None) -> Hit:
@@ -579,6 +583,9 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
     lib = _build.load()
     R = o.shape[0]
     pk = st.packed
+    o, d = o.detach(), d.detach()
+    if isinstance(t_min, torch.Tensor):
+        t_min = t_min.detach()
     t_min, t_max, active = _rays(o, t_min, t_max, active)
     o = _check("o", o, torch.float32, (R, 3))
     d = _check("d", d, torch.float32, (R, 3))

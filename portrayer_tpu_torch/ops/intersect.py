@@ -14,6 +14,12 @@ test (triangle.rs:39-80).
 ``accel="cuda"`` sends nearest and any-hit queries to the sweep in
 ``cuda_intersect`` (its kernel on CUDA tensors, its plain version on CPU
 tensors); ``accel="flat"`` keeps them here.
+
+Gradients: every sweep only selects the winners and returns tensors
+without a graph; ``hit_detail`` recomputes the winner's t from the tables,
+so autograd reaches the node, material and triangle tables through it, and
+through ``HitDetail.margin`` the silhouettes when
+``RenderConfig.soft_visibility`` > 0.
 """
 
 from __future__ import annotations
@@ -55,8 +61,9 @@ class HitDetail(NamedTuple):
     has_nmt: torch.Tensor  # [R] bool
     material: torch.Tensor  # [R] int32
     rec: torch.Tensor      # [R,34] the hit node's fused record
-    margin: torch.Tensor   # [R] silhouette margin (inf: soft visibility is
-    #                        a later slice)
+    margin: torch.Tensor   # [R] differentiable silhouette margin in local
+    #                        units (> 0 inside, -> 0 at the silhouette; inf
+    #                        when RenderConfig.soft_visibility is 0)
 
 
 def _guarded_div(n, d, fill=INF):
@@ -312,6 +319,7 @@ def _as_rays(x, R, like):
     return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(R)
 
 
+@torch.no_grad()
 def _flat_intersect(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
                     active=None, src_node=None, src_tri=None):
     R = o.shape[0]
@@ -612,14 +620,73 @@ def winner_t(o, d, node, tri, st: SceneTables, cfg: RenderConfig,
                                present)
 
 
+def _silhouette_margin(kind, lo, ld, p_local, trec, params):
+    """Differentiable distance-to-silhouette proxy in local units: > 0
+    inside the primitive's visible region, -> 0 at the silhouette.
+    sphere: tangency; plane and cube: face-edge distance; mesh: barycentric
+    edge distance; cylinder, cone and torus: the grazing margin
+    (n-hat . d-hat)^2, 0 where the surface normal is perpendicular to the
+    ray, with the rim distance of caps and part edges (min)."""
+
+    def grazing(n):
+        nd = m3.dot(n, ld)
+        n2 = torch.clamp(m3.dot(n, n), min=1e-30)
+        d2 = torch.clamp(m3.dot(ld, ld), min=1e-30)
+        return nd * nd / (n2 * d2)
+
+    if kind == SPHERE:
+        # 1 - (distance of the ray line from the centre)^2: 0 at tangency.
+        cr = m3.cross(lo, ld)
+        ld2 = torch.clamp(m3.dot(ld, ld), min=1e-30)
+        return 1.0 - m3.dot(cr, cr) / ld2
+    if kind == PLANE:
+        return torch.minimum(0.5 - torch.abs(p_local[..., 0]), 0.5 - torch.abs(p_local[..., 2]))
+    if kind == CUBE:
+        # The face axis carries |p| == 0.5 (the largest): the margin is 0.5
+        # minus the second-largest coordinate magnitude.
+        ap = torch.abs(p_local)
+        top = torch.amax(ap, dim=-1)
+        second = torch.sum(ap, dim=-1) - top - torch.amin(ap, dim=-1)
+        return 0.5 - second
+    x, y, z = p_local[..., 0], p_local[..., 1], p_local[..., 2]
+    if kind in (CYLINDER, CONE):
+        r2 = x * x + z * z
+        m_cap = (0.25 - r2) / 0.25  # 0 at the cap rim
+        if kind == CYLINDER:
+            is_cap = torch.abs(y) > 0.5 - 1e-4
+            n_body = torch.stack([x, torch.zeros_like(y), z], dim=-1)
+            m_body = torch.minimum(grazing(n_body), 2.0 * (0.5 - torch.abs(y)))
+        else:
+            is_cap = y < -0.5 + 1e-4
+            tangent1 = _vec([0.0, 0.5, 0.0], p_local) - p_local
+            across = torch.stack([-2.0 * x, torch.zeros_like(y), -2.0 * z], dim=-1)
+            n_body = m3.cross(tangent1, m3.cross(tangent1, across))
+            m_body = torch.minimum(grazing(n_body), 2.0 * (y + 0.5))
+        return torch.where(is_cap, m_cap, m_body)
+    if kind == TORUS:
+        rxz = torch.sqrt(torch.clamp(x * x + z * z, min=1e-30))
+        scale = params[..., 0] / rxz
+        tube_center = torch.stack([x * scale, torch.zeros_like(y), z * scale], dim=-1)
+        return grazing(p_local - tube_center)
+    # MESH: the barycentric distance to the nearest edge, over the whole line.
+    R = lo.shape[0]
+    _, beta, gamma = triangle_candidate(
+        lo, ld, trec[:, 0:3], trec[:, 3:6], trec[:, 6:9],
+        torch.full((R,), -INF, dtype=lo.dtype, device=lo.device),
+        torch.full((R,), INF, dtype=lo.dtype, device=lo.device))
+    return torch.minimum(torch.minimum(beta, gamma), 1.0 - beta - gamma)
+
+
 def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
                src_node=None, src_tri=None) -> HitDetail:
     """World hit point, normal, uv and tangent frame of the winners.  The
     winner's t is recomputed from the tables and becomes the value used
-    downstream; the sweep's t is the fallback where the recompute loses the
-    root to float asymmetry."""
+    downstream, differentiable in them; the sweep's t, which carries no
+    gradient, is the fallback where the recompute loses the root to float
+    asymmetry.  With ``cfg.soft_visibility`` > 0 the silhouette margin is
+    filled in too."""
     R = o.shape[0]
-    t = torch.where(hit.hit, hit.t, torch.ones_like(hit.t))
+    t = torch.where(hit.hit, hit.t, torch.ones_like(hit.t)).detach()
     rec, inv, lo, ld, t_min = _winner_frame(o, d, hit.node, st, cfg, t_min,
                                             src_node, src_tri, hit.tri)
     # Normal matrix = transposed rotation of world->local (scene.rs:204).
@@ -642,6 +709,7 @@ def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
     has_uv = torch.zeros(R, dtype=torch.bool, device=o.device)
     nmt = torch.eye(3, dtype=o.dtype, device=o.device).expand(R, 3, 3)
     has_nmt = has_uv
+    margin = torch.full((R,), INF, dtype=o.dtype, device=o.device)
     for kind in sorted(present):
         if kind == SPHERE:
             parts = _sphere_detail(p_local, eps)
@@ -664,6 +732,9 @@ def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
         has_uv = torch.where(mask, huv_k, has_uv)
         nmt = torch.where(mask[:, None, None], nmt_k, nmt)
         has_nmt = torch.where(mask, hnmt_k, has_nmt)
+        if cfg.soft_visibility > 0.0:
+            margin = torch.where(mask, _silhouette_margin(kind, lo, ld, p_local, trec, params),
+                                 margin)
 
     normal_w = m3.matvec3(nmat, normal)
     material = rec[:, 24].to(torch.int32)
@@ -671,5 +742,5 @@ def hit_detail(o, d, hit: Hit, st: SceneTables, cfg: RenderConfig, t_min,
         point=point, normal=normal_w, uv=uv, has_uv=has_uv, nmt=nmt,
         has_nmt=has_nmt,
         material=torch.where(hit.hit, material, torch.zeros_like(material)),
-        rec=rec, margin=torch.full((R,), INF, dtype=o.dtype, device=o.device),
+        rec=rec, margin=margin,
     )

@@ -1,13 +1,16 @@
-"""Shading (counterpart of ``portrayer_tpu/ops/shade.py``), point lights.
+"""Shading (counterpart of ``portrayer_tpu/ops/shade.py``).
 
 Ambient + per light [Lambert diffuse + Blinn-Phong specular with the 4x
 shininess compensation (material.rs:196-204)] / attenuation, with the
 occlusion deferred: ``shade_pre`` returns the per-light contributions,
 directions and shadow-need masks, and the trace loop resolves all lights'
-shadow rays in one any-hit launch.  Children are the reflect and refract
-rays with their throughput multipliers (material.rs:216-317): mirror and
-glossy reflection (per-sample-id draws) and Schlick/TIR refraction.
-Textures, normal maps and area lights are later slices and raise.
+shadow rays in one any-hit launch.  An area light is sampled at one point
+of its parallelogram per lane (per-sample-id draws).  Image and
+procedural textures override the diffuse colour, a normal map the shading
+normal (in the primitive's local tangent frame, as the reference leaves
+it).  Children are the reflect and refract rays with their throughput
+multipliers (material.rs:216-317): mirror and glossy reflection and
+Schlick/TIR refraction.
 """
 
 from __future__ import annotations
@@ -30,6 +33,43 @@ def _uniform(key, site: int, sid, n: int):
     return rng.uniform_lanes(rng.fold_in_lanes(rng.fold_in(key, site), sid), n)
 
 
+def sample_atlas(data, meta, tex_ix, uv, srgb: bool = True):
+    """Nearest-neighbour, euclidean-wraparound atlas sampling
+    (src/texture.rs:104-141): x = trunc(u*(w-1)) rem_euclid w, the same
+    for y; texels [R,3] as c/255, then c^2.2 for sRGB (texture.rs:162-168).
+    data: [P,3] uint8; meta: [K,3] int32 (offset, w, h); tex_ix: [R]."""
+    m = meta[torch.clamp(tex_ix, min=0).long()]
+    off, w, h = m[..., 0], m[..., 1], m[..., 2]
+    x = torch.trunc(uv[..., 0] * (w - 1).to(uv.dtype)).to(torch.int32)
+    y = torch.trunc(uv[..., 1] * (h - 1).to(uv.dtype)).to(torch.int32)
+    # jnp.mod: the remainder takes the divisor's sign (torch.remainder,
+    # not torch.fmod).
+    x = torch.remainder(x, torch.clamp(w, min=1))
+    y = torch.remainder(y, torch.clamp(h, min=1))
+    idx = off.long() + y.long() * w.long() + x.long()
+    texel = data[idx].to(uv.dtype) * (1.0 / 255.0)
+    if srgb:
+        texel = texel ** 2.2
+    return texel
+
+
+def _apply_uv_trans(uvt6, uv):
+    """uv' = (uv_trans @ (u, v, 1)).xy (material.rs:113-117); uvt6 [R,6] is
+    the first two rows of the 3x3 transform (node record cols 25..30)."""
+    u = uvt6[..., 0] * uv[..., 0] + uvt6[..., 1] * uv[..., 1] + uvt6[..., 2]
+    v = uvt6[..., 3] * uv[..., 0] + uvt6[..., 4] * uv[..., 1] + uvt6[..., 5]
+    return torch.stack([u, v], dim=-1)
+
+
+def _decode_normal_map(texel):
+    """RGB -> right-handed tangent-space normal (texture.rs:192-221): the
+    left-handed (2r-1, 2g-1, -(2b-1)), then (nx, ny, nz) -> (nx, -nz, -ny)."""
+    nx = 2.0 * texel[..., 0] - 1.0
+    ny = 2.0 * texel[..., 1] - 1.0
+    nz = -(2.0 * texel[..., 2] - 1.0)
+    return torch.stack([nx, -nz, -ny], dim=-1)
+
+
 class Children(NamedTuple):
     origin: torch.Tensor     # [R,3]
     refl_dir: torch.Tensor   # [R,3]
@@ -50,9 +90,8 @@ class ShadePre(NamedTuple):
 def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, key, active,
               sid=None):
     """Occlusion-independent shading: returns (ShadePre, Children).  `key`
-    seeds the glossy draws, per sample id `sid` [R] (default: lane index)."""
-    if any(st.area_flags):
-        raise NotImplementedError("area lights: later slice of the port")
+    seeds the glossy and area-light draws, per sample id `sid` [R]
+    (default: lane index)."""
     R = d.shape[0]
     if sid is None:
         sid = torch.arange(R, dtype=torch.int32, device=d.device)
@@ -64,6 +103,23 @@ def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, k
 
     view = -d
     n = m3.normalize(det.normal, eps=1e-30)
+    # Scenes without textures or normal maps skip this block entirely.
+    if st.any_normal_map or st.any_image_tex or st.fn_textures:
+        uv = _apply_uv_trans(rec[:, 25:31], det.uv)
+        mat_tex = rec[:, 22].to(torch.int32)
+    if st.any_normal_map:
+        mat_nm = rec[:, 23].to(torch.int32)
+        use_nm = (mat_nm >= 0) & det.has_nmt & det.has_uv
+        nm_vec = m3.normalize(_decode_normal_map(
+            sample_atlas(st.nm_data, st.nm_meta, mat_nm, uv, srgb=False)), eps=1e-30)
+        n = torch.where(use_nm[..., None], m3.matvec3(det.nmt, nm_vec), n)
+    # Diffuse colour: texture override (material.rs:137-143).
+    if st.any_image_tex:
+        texel = sample_atlas(st.tex_data, st.tex_meta, mat_tex, uv)
+        mat_diffuse = torch.where((mat_tex >= 0)[..., None], texel, mat_diffuse)
+    for fi, fn in enumerate(st.fn_textures):
+        mat_diffuse = torch.where((mat_tex == -(fi + 2))[..., None], fn(uv).to(d.dtype),
+                                  mat_diffuse)
     color = st.ambient[None, :] * mat_diffuse
 
     # Secondary-ray start offset: EPSILON plus a relative term for f32
@@ -82,6 +138,9 @@ def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, k
         lpos = st.light_pos[li]
         lcol = st.light_color[li]
         c0, c1, c2 = st.light_falloff[li]
+        if st.area_flags[li]:  # one point of the parallelogram per lane
+            ab = _uniform(key, 1000 + 2 * li, sid, 2) * 2.0 - 1.0
+            lpos = lpos + ab[:, :1] * st.light_area_a[li] + ab[:, 1:] * st.light_area_b[li]
         hit_to_light = lpos - p
         light_dist = m3.norm(hit_to_light, eps=1e-20)
         ldir = hit_to_light / torch.clamp(light_dist, min=1e-30)[..., None]

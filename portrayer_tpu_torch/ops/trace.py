@@ -93,12 +93,22 @@ def _round_shade(q: _Queue, hit, acc, bg, st: SceneTables, cfg: RenderConfig, rk
     miss_w = torch.where(active & ~hit.hit, q.w, 0.0)
     shade_active = active & hit.hit
     pre, children = shade_pre(q.d, hit, det, st, cfg, rkey, shade_active, sid=q.sid)
-    w_refl = q.w * children.refl_mult
-    w_refr = q.w * children.refr_mult
+    w_hit = q.w
+    if cfg.soft_visibility > 0.0:
+        # Soft silhouettes: the hit's energy is scaled by a coverage alpha
+        # differentiable in the scene, and the complement goes to the
+        # background.  The -3 shift puts the transition band inside the
+        # silhouette: the jump left at the true edge is sigmoid(-3), ~5%.
+        alpha = torch.sigmoid(det.margin / cfg.soft_visibility - 3.0)
+        alpha = torch.where(shade_active & torch.isfinite(det.margin), alpha, 1.0)
+        w_hit = q.w * alpha
+        miss_w = miss_w + (q.w - w_hit)
+    w_refl = w_hit * children.refl_mult
+    w_refr = w_hit * children.refr_mult
     bg_w = miss_w + (w_refl + w_refr if is_last else 0.0)
     base = torch.where(shade_active[..., None], pre.base, 0.0)
-    acc = _acc_add(acc, q.pix, bg_w[:, None] * bgc + q.w[:, None] * base, spp_c)
-    lc = torch.where(shade_active[None, :, None], q.w[None, :, None] * pre.light_contrib,
+    acc = _acc_add(acc, q.pix, bg_w[:, None] * bgc + w_hit[:, None] * base, spp_c)
+    lc = torch.where(shade_active[None, :, None], w_hit[None, :, None] * pre.light_contrib,
                      0.0)
     shadow = _Shadow(o=det.point, dirs=pre.shadow_dir, need=pre.shadow_need, lc=lc,
                      t_eps=pre.t_eps, src_node=hit.node, src_tri=hit.tri, pix=q.pix)

@@ -220,4 +220,9 @@ class Image:
         return self.save_as(self.path)
 
     def save_as(self, path):
+        """Write the buffer as a PNG.  The port has no other encoder: a
+        path whose suffix is not ``.png`` (in any case) raises."""
+        suffix = os.path.splitext(os.fspath(path))[1]
+        if suffix.lower() != ".png":
+            raise ValueError(f"{path}: only PNG is written, not {suffix or 'no suffix'!r}")
         return write_png(path, self.buffer)

@@ -4,4 +4,5 @@ from .node import Scene, SceneNode, Geometry, Sphere, Cube, Plane, Cylinder, Con
 from .material import Material
 from .light import Light, Falloff, Parallelogram
 from .mesh import Mesh, KDMesh, MeshData, Shading, Triangle
+from .texture import Texture, ImageTexture, NormalMap
 from .flatten import flatten_scene, tables_from_numpy, SceneTables

@@ -6,19 +6,16 @@ equal array for array: the BFS transform compose (src/flat_scene.rs:27-40),
 the kind grouping, the material and light tables, the 8-corner world AABBs
 (src/bounding_box.rs:123-148), the mesh triangle soup shared between
 instances with its (instance, triangle) pair lists, and the packed chunk
-table of the sweep kernel with its SAH chunk order and specialised kinds.
-Only the last step differs: the arrays become torch tensors on the
-configured device.
-
-A scene with a texture or normal map is refused with
-``NotImplementedError``.
+table of the sweep kernel with its SAH chunk order and specialised kinds,
+and the texture and normal-map atlases.  Only the last step differs: the
+arrays become torch tensors on the configured device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +23,7 @@ import torch
 from .. import math3d as m3
 from .mesh import Mesh, Shading, Triangle
 from .node import Scene, SceneNode, Sphere, Plane, Cube, Cylinder, Cone, Torus
+from .texture import Texture
 
 # Primitive kind codes (order = group order in the tables).
 SPHERE, PLANE, CUBE, CYLINDER, CONE, MESH, TORUS = range(7)
@@ -54,16 +52,18 @@ TABLE_FIELDS = (
     "mat_normal_map_id",
     "light_pos", "light_color", "light_falloff", "light_area_a",
     "light_area_b", "light_is_area", "ambient",
+    "tex_data", "tex_meta", "nm_data", "nm_meta",
 )
 PACKED_FIELDS = ("f32", "ids", "chunk_kind", "chunk_min", "chunk_max")
 META_FIELDS = (
     "groups", "kind_ranges", "n_chunks", "n_lights", "area_flags",
     "any_reflective", "any_refractive", "any_glossy", "any_image_tex",
-    "any_normal_map",
+    "any_normal_map", "fn_textures",
 )
 _INT_FIELDS = {"material_id", "mat_tex_id", "mat_normal_map_id", "ids", "chunk_kind",
-               "mesh_range", "pair_node", "pair_tri"}
+               "mesh_range", "pair_node", "pair_tri", "tex_meta", "nm_meta"}
 _BOOL_FIELDS = {"light_is_area", "tri_smooth", "tri_has_uv"}
+_U8_FIELDS = {"tex_data", "nm_data"}
 
 
 @dataclasses.dataclass
@@ -98,6 +98,15 @@ class PackedPrims:
 
 @dataclasses.dataclass
 class SceneTables:
+    """The scene as device tables.  ``rec`` and ``trec``, the fused node
+    and triangle records that hit detail and shading gather from, are
+    derived from the other fields when the tables are made, and again by
+    ``replace``: a material, light or transform table replaced by a tensor
+    that requires grad carries its gradient into the render.  ``packed``,
+    the sweep kernel's table, is not rebuilt: the sweeps only select the
+    winners (their outputs carry no gradient), so replaced tables select
+    on the old geometry, as the JAX package's ``replace`` does."""
+
     trans: torch.Tensor        # [N,3,4] local->world
     inv: torch.Tensor          # [N,3,4] world->local
     normal_mat: torch.Tensor   # [N,3,3]
@@ -141,8 +150,15 @@ class SceneTables:
     light_area_b: torch.Tensor
     light_is_area: torch.Tensor
     ambient: torch.Tensor
+    # Texture atlases: texels of every image (every normal map) back to
+    # back, and per image (offset, width, height).
+    tex_data: torch.Tensor     # [Ptex,3] uint8 sRGB texels
+    tex_meta: torch.Tensor     # [K,3] int32
+    nm_data: torch.Tensor      # [Pnm,3] uint8 normal-map texels
+    nm_meta: torch.Tensor      # [Knm,3] int32
     packed: PackedPrims
     groups: Tuple[Tuple[int, int, int], ...]
+    fn_textures: Tuple[Callable, ...]  # procedural textures (mat_tex_id -(i+2))
     n_lights: int
     area_flags: Tuple[bool, ...]
     any_reflective: bool
@@ -150,14 +166,17 @@ class SceneTables:
     any_glossy: bool
     any_image_tex: bool
     any_normal_map: bool
-    rec: torch.Tensor = None   # [N,34] fused node record (node_record)
-    trec: torch.Tensor = None  # [T,26] fused triangle record (tri_record)
+    rec: torch.Tensor = dataclasses.field(init=False, repr=False)   # [N,34] node_record
+    trec: torch.Tensor = dataclasses.field(init=False, repr=False)  # [T,26] tri_record
 
     def __post_init__(self):
-        if self.rec is None:
-            self.rec = node_record(self)
-        if self.trec is None:
-            self.trec = tri_record(self)
+        self.rec = node_record(self)
+        self.trec = tri_record(self)
+
+    def replace(self, **fields) -> "SceneTables":
+        """New tables with `fields` replaced and the records rebuilt from
+        them (``packed`` is kept; see the class docstring)."""
+        return dataclasses.replace(self, **fields)
 
     @property
     def n_nodes(self) -> int:
@@ -171,11 +190,6 @@ class SceneTables:
     @property
     def device(self) -> torch.device:
         return self.inv.device
-
-
-def _check_supported(any_image_tex, any_normal_map):
-    if any_image_tex or any_normal_map:
-        raise NotImplementedError("textures and normal maps: later slice")
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +519,39 @@ def _flatten_numpy(scene: Scene):
             mat_index[id(f.material)] = len(materials)
             materials.append(f.material)
 
+    image_textures: List[Any] = []
+    img_index: Dict[int, int] = {}
+    fn_textures: List[Callable] = []
+    fn_index: Dict[int, int] = {}
+    normal_maps: List[Any] = []
+    nm_index: Dict[int, int] = {}
+
+    def tex_code(tex) -> int:
+        """-1 none; i >= 0 the i-th image; -(i+2) the i-th procedural."""
+        if tex is None:
+            return -1
+        if not isinstance(tex, Texture):
+            tex = Texture(tex)
+        if tex.is_image:
+            img = tex.image
+            if id(img) not in img_index:
+                img_index[id(img)] = len(image_textures)
+                image_textures.append(img)
+            return img_index[id(img)]
+        fn = tex.fn
+        if id(fn) not in fn_index:
+            fn_index[id(fn)] = len(fn_textures)
+            fn_textures.append(fn)
+        return -(fn_index[id(fn)] + 2)
+
+    def nm_code(nm) -> int:
+        if nm is None:
+            return -1
+        if id(nm) not in nm_index:
+            nm_index[id(nm)] = len(normal_maps)
+            normal_maps.append(nm)
+        return nm_index[id(nm)]
+
     M = max(len(materials), 1)
     a = {
         "mat_diffuse": np.zeros((M, 3)), "mat_specular": np.zeros((M, 3)),
@@ -515,8 +562,6 @@ def _flatten_numpy(scene: Scene):
         "mat_normal_map_id": np.full(M, -1, dtype=np.int32),
     }
     for i, m in enumerate(materials):
-        if m.texture is not None or m.normals is not None:
-            raise NotImplementedError("textures and normal maps: later slice")
         a["mat_diffuse"][i] = m.diffuse
         a["mat_specular"][i] = m.specular
         a["mat_shininess"][i] = m.shininess
@@ -525,6 +570,8 @@ def _flatten_numpy(scene: Scene):
         a["mat_refraction"][i] = m.refraction_index
         if m.uv_trans is not None:
             a["mat_uv_trans"][i] = m.uv_trans
+        a["mat_tex_id"][i] = tex_code(m.texture)
+        a["mat_normal_map_id"][i] = nm_code(m.normals)
 
     N = max(len(flat), 1)
     if flat:
@@ -604,6 +651,8 @@ def _flatten_numpy(scene: Scene):
         a["light_area_b"][i] = lt.area.b
         a["light_is_area"][i] = not lt.area.is_empty()
     a["ambient"] = scene.ambient
+    a["tex_data"], a["tex_meta"] = _build_atlas(image_textures)
+    a["nm_data"], a["nm_meta"] = _build_atlas(normal_maps)
 
     packed, n_chunks, kind_ranges = _build_packed(
         groups, trans, inv, aabb_min, aabb_max, prim_params,
@@ -618,9 +667,25 @@ def _flatten_numpy(scene: Scene):
             m.reflectivity > 0.0 and m.refraction_index > 0.0 for m in materials),
         any_glossy=any(
             m.reflectivity > 0.0 and m.glossy_side_length > 0.0 for m in materials),
-        any_image_tex=False, any_normal_map=False,
+        any_image_tex=len(image_textures) > 0, any_normal_map=len(normal_maps) > 0,
+        fn_textures=tuple(fn_textures),
     )
     return a, meta
+
+
+def _build_atlas(images: List):
+    """(texels [P,3] uint8 of every image back to back, meta [K,3] int32
+    (offset, width, height)); one zero texel and meta row without images."""
+    if not images:
+        return np.zeros((1, 3), np.uint8), np.zeros((1, 3), np.int32)
+    metas, chunks, off = [], [], 0
+    for img in images:
+        data = img.raw
+        h, w = data.shape[:2]
+        metas.append((off, w, h))
+        chunks.append(data.reshape(-1, 3))
+        off += h * w
+    return np.concatenate(chunks, axis=0), np.asarray(metas, np.int32)
 
 
 def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
@@ -628,13 +693,15 @@ def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
     """SceneTables on `device` from numpy arrays named as the JAX package's
     fields (``packed.f32`` etc. for the packed table) and the static
     metadata of META_FIELDS.  Carries the JAX package's own tables across,
-    so that a sweep mismatch can never be a table mismatch."""
-    _check_supported(meta["any_image_tex"], meta["any_normal_map"])
+    so that a sweep mismatch can never be a table mismatch.  The JAX
+    package's procedural textures are jnp callables: pass torch ones as
+    ``meta["fn_textures"]`` to render with them here."""
 
     def t(name, x):
         base = name.split(".")[-1]
         dtype = (torch.int32 if base in _INT_FIELDS else
-                 torch.bool if base in _BOOL_FIELDS else torch.float32)
+                 torch.bool if base in _BOOL_FIELDS else
+                 torch.uint8 if base in _U8_FIELDS else torch.float32)
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
     packed = PackedPrims(
@@ -646,6 +713,7 @@ def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
         **{k: t(k, arrays[k]) for k in TABLE_FIELDS},
         packed=packed,
         groups=tuple(tuple(int(v) for v in g) for g in meta["groups"]),
+        fn_textures=tuple(meta["fn_textures"]),
         n_lights=int(meta["n_lights"]),
         area_flags=tuple(bool(v) for v in meta["area_flags"]),
         **{k: bool(meta[k]) for k in (

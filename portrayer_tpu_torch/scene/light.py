@@ -2,7 +2,7 @@
 
 Point lights with quadratic falloff, attenuation = c0 + c1*r + c2*r^2
 (src/light.rs:31-33), and the parallelogram area description
-(src/light.rs:62-70), which the shading of this slice refuses.
+(src/light.rs:62-70): the shading samples one point of it per lane.
 """
 
 from __future__ import annotations

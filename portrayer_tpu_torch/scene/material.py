@@ -1,9 +1,8 @@
 """Materials (counterpart of ``portrayer_tpu/scene/material.py``).
 
 Diffuse, specular, shininess (Blinn-Phong with 4x compensation),
-reflectivity, glossy side length, refraction index and a uv transform
-(src/material.rs:51-86).  Textures and normal maps belong to a later
-slice: the lowering refuses a material that sets them.
+reflectivity, glossy side length, refraction index, a uv transform, and
+an optional texture and normal map (src/material.rs:51-86).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The port's scenes (counterparts of ``scenes/common.py``,
 ``scenes/simple.py``, ``scenes/big_scene.py``, ``scenes/torus_showcase.py``,
-``scenes/glossy_reflection.py``, ``scenes/primitives_simple.py`` and
-``scenes/single_triangle.py``), built
+``scenes/glossy_reflection.py``, ``scenes/primitives_simple.py``,
+``scenes/single_triangle.py`` and ``scenes/four_shapes.py``), built
 from the port's own description classes, so that nothing here needs JAX."""
 
 from __future__ import annotations
@@ -38,6 +38,10 @@ def sky_background(uv):
     top = torch.tensor([0.2, 0.4, 0.6], dtype=uv.dtype, device=uv.device)
     blue = torch.tensor([0.0, 0.0, 1.0], dtype=uv.dtype, device=uv.device)
     return top * (1.0 - v) + blue * v
+
+
+def white_background(uv):
+    return torch.ones(uv.shape[:-1] + (3,), dtype=uv.dtype, device=uv.device)
 
 
 deg = radians
@@ -207,10 +211,35 @@ def single_triangle() -> SceneSpec:
                      background=sky_background, name="single-triangle")
 
 
+def four_shapes() -> SceneSpec:
+    """examples/four-shapes.rs: a sphere, a cube, a cone and a cylinder on
+    a white background."""
+    base = dict(specular=(0.3, 0.3, 0.3), shininess=100.0)
+    mat_sphere = Material(diffuse=(0.8, 0.0, 0.0), **base)
+    mat_cube = Material(diffuse=(0.0, 0.158481, 0.8), **base)
+    mat_cone = Material(diffuse=(0.064785, 0.8, 0.174433), **base)
+    mat_cylinder = Material(diffuse=(0.127564, 0.016029, 0.8), **base)
+    scene = Scene(
+        root=SceneNode([
+            SceneNode(Geometry(Sphere(), mat_sphere)).translated((-4.0, 0.0, 0.0)),
+            SceneNode(Geometry(Cube(), mat_cube)).scaled(1.6)
+            .rotated_y(deg(-17.5411)).translated((-1.1, 0.0, 0.0)),
+            SceneNode(Geometry(Cone(), mat_cone)).scaled(1.8).translated((1.5, 0.2, 0.0)),
+            SceneNode(Geometry(Cylinder(), mat_cylinder)).scaled(1.6).translated((4.0, 0.0, 0.0)),
+        ]),
+        lights=[Light(position=(0.0, 3.0, 11.0), color=(0.9, 0.9, 0.9))],
+        ambient=(0.1, 0.1, 0.1),
+    )
+    cam = CameraSettings(eye=(0.0, 6.473007, 15.607252), center=(0.0, -2.181935, -5.702181),
+                         up=(0.0, 1.0, 0.0), fovy=deg(10.0))
+    return SceneSpec(scene=scene, camera=cam, size=(1920, 512),
+                     background=white_background, name="four-shapes")
+
+
 _REGISTRY = {
     "simple": simple, "big-scene": big_scene, "torus-showcase": torus_showcase,
     "glossy-reflection": glossy_reflection, "primitives-simple": primitives_simple,
-    "single-triangle": single_triangle,
+    "single-triangle": single_triangle, "four-shapes": four_shapes,
 }
 
 

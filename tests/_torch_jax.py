@@ -13,6 +13,10 @@ def jax_arrays(st):
     arrays.update({f"packed.{f}": np.asarray(getattr(st.packed, f)) for f in PACKED_FIELDS})
     meta = {f: getattr(st, f) for f in META_FIELDS if hasattr(st, f)}
     meta.update(kind_ranges=st.packed.kind_ranges, n_chunks=st.packed.n_chunks)
+    # Procedural textures are callables of one package: the inline scenes'
+    # jnp checker crosses as its torch twin.
+    meta["fn_textures"] = tuple(_checker_torch if f is _checker_jax else f
+                                for f in st.fn_textures)
     return arrays, meta
 
 
@@ -184,3 +188,138 @@ INLINE = {"ellipsoids": ellipsoids, "glass-sphere": glass_sphere,
           "procedural-meshes": lambda pkg: procedural_meshes(pkg, subdiv=2, grid=8),
           # 4,609 pairs in 37 chunks: two groups of the sweep kernel's cull.
           "procedural-meshes-groups": lambda pkg: procedural_meshes(pkg, subdiv=3, grid=32)}
+
+
+# ---------------------------------------------------------------------------
+# Stand-ins for the asset-backed texture scenes, from seeded numpy data.
+# ---------------------------------------------------------------------------
+
+def _checker_torch(uv):
+    """The floor's procedural checker on torch tensors."""
+    import torch
+
+    c = torch.remainder(torch.floor(uv[..., 0]) + torch.floor(uv[..., 1]), 2.0)
+    return torch.stack([0.25 + 0.5 * c, 0.3 + 0.4 * c, 0.35 + 0.3 * c], dim=-1)
+
+
+def _checker_jax(uv):
+    """The same checker on jax arrays, op for op."""
+    import jax.numpy as jnp
+
+    c = jnp.mod(jnp.floor(uv[..., 0]) + jnp.floor(uv[..., 1]), 2.0)
+    return jnp.stack([0.25 + 0.5 * c, 0.3 + 0.4 * c, 0.35 + 0.3 * c], axis=-1)
+
+
+def checker(pkg):
+    """The checker callable for package `pkg` (the JAX package's shading
+    traces jnp, the port's torch)."""
+    return _checker_jax if pkg.__name__ == "portrayer_tpu" else _checker_torch
+
+
+def colour_image(seed, h, w):
+    """[h, w, 3] uint8: blocks of 32 texels of random colour with per-texel
+    noise."""
+    g = np.random.default_rng(seed)
+    base = g.integers(0, 256, (h // 32 + 1, w // 32 + 1, 3))
+    img = np.repeat(np.repeat(base, 32, axis=0), 32, axis=1)[:h, :w]
+    return np.clip(img + g.integers(-24, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def normal_image(seed, h, w):
+    """[h, w, 3] uint8 tangent-space normal map, (n + 1) / 2 * 255, of a
+    height field made of six random sinusoids."""
+    g = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    dx = np.zeros((h, w))
+    dy = np.zeros((h, w))
+    for _ in range(6):
+        fx, fy = g.integers(2, 24, 2) * 2.0 * np.pi
+        ph, amp = g.uniform(0.0, 2.0 * np.pi), g.uniform(0.002, 0.01)
+        c = amp * np.cos(fx * x + fy * y + ph)
+        dx += fx * c
+        dy += fy * c
+    n = np.stack([-dx, -dy, np.ones((h, w))], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return np.round((n + 1.0) * 127.5).astype(np.uint8)
+
+
+def normal_mapping_numpy(pkg, tex=1024):
+    """scenes/normal_mapping.py with its three base-colour JPGs replaced by
+    seeded u8 images (two planar tex x tex, the cube's a 4x3 cube map of
+    tex x 3/4 tex) and its three normal maps by maps of seeded height
+    fields of the same sizes; the floor takes the procedural checker, tiled
+    20 times by its uv_trans.  910x512."""
+    deg = lambda x: float(np.deg2rad(x))
+    cube_h = tex * 3 // 4
+    tex_plane = pkg.Texture(pkg.ImageTexture(data=colour_image(1, tex, tex)))
+    norm_plane = pkg.NormalMap(data=normal_image(2, tex, tex))
+    tex_sphere = pkg.Texture(pkg.ImageTexture(data=colour_image(3, tex, tex)))
+    norm_sphere = pkg.NormalMap(data=normal_image(4, tex, tex))
+    tex_cube = pkg.Texture(pkg.ImageTexture(data=colour_image(5, cube_h, tex)))
+    norm_cube = pkg.NormalMap(data=normal_image(6, cube_h, tex))
+    purple = dict(diffuse=(0.37168, 0.236767, 0.692066), shininess=25.0)
+    mat = lambda spec, t, nm=None: pkg.Material(specular=(spec,) * 3, texture=t, normals=nm,
+                                                **purple)
+    m_plane, m_plane_n = mat(0.4, tex_plane), mat(0.4, tex_plane, norm_plane)
+    m_sphere, m_sphere_n = mat(0.6, tex_sphere), mat(0.6, tex_sphere, norm_sphere)
+    m_cube, m_cube_n = mat(0.3, tex_cube), mat(0.3, tex_cube, norm_cube)
+    floor = pkg.Material(diffuse=(0.424858, 0.531206, 0.8), specular=(0.3, 0.3, 0.3),
+                         shininess=25.0, texture=pkg.Texture(checker(pkg)),
+                         uv_trans=np.diag([20.0, 20.0, 1.0]))
+    node = lambda prim, m: pkg.SceneNode(pkg.Geometry(prim, m))
+    root = pkg.SceneNode([
+        node(pkg.Plane(), floor).scaled(40.0).translated((0.0, -1.0, 0.0)),
+        node(pkg.Plane(), m_plane).scaled(6.0).rotated_x(deg(90.0)).translated((-4.0, 2.0, -6.0)),
+        node(pkg.Cube(), m_cube).scaled(2.0).translated((-7.0, 0.0, -1.0)),
+        node(pkg.Sphere(), m_sphere).translated((-7.0, 2.0, -1.0)),
+        node(pkg.Cube(), m_cube).scaled(2.0).translated((-2.0, 0.0, 3.0)),
+        node(pkg.Sphere(), m_sphere).translated((-2.0, 2.0, 3.0)),
+        node(pkg.Plane(), m_plane_n).scaled(6.0).rotated_x(deg(90.0)).translated((4.0, 2.0, -6.0)),
+        node(pkg.Cube(), m_cube_n).scaled(2.0).translated((7.0, 0.0, -1.0)),
+        node(pkg.Sphere(), m_sphere_n).translated((7.0, 2.0, -1.0)),
+        node(pkg.Cube(), m_cube_n).scaled(2.0).translated((2.0, 0.0, 3.0)),
+        node(pkg.Sphere(), m_sphere_n).translated((2.0, 2.0, 3.0)),
+    ])
+    scene = pkg.Scene(root, [pkg.Light(position=(0.0, 8.0, 10.0), color=(0.9, 0.9, 0.9))],
+                      (0.2, 0.2, 0.2))
+    cam = pkg.CameraSettings(eye=(0.0, 8.07551, 23.078941),
+                             center=(0.0, -2.854475, -16.437334), fovy=deg(22.0))
+    return scene, cam, (910, 512)
+
+
+def soft_shadows_icosphere(pkg, subdiv=4):
+    """scenes/soft_shadows.py with its two cows replaced by icospheres
+    (subdiv splits, smooth, radius 3 in their own frame, about a cow's
+    size), placed and materialled as the cows are: a point light and a
+    parallelogram area light.  910x512."""
+    deg = lambda x: float(np.deg2rad(x))
+    pos, tris = _icosphere(subdiv)
+    ball = pkg.MeshData(3.0 * pos, tris, normals=pos)
+    mat_cow = pkg.Material(diffuse=(0.37168, 0.236767, 0.692066), specular=(0.3, 0.3, 0.3),
+                           shininess=25.0)
+    wall = pkg.Material(diffuse=(0.627459, 0.8, 0.589836), specular=(0.3, 0.3, 0.3),
+                        shininess=25.0)
+    node = lambda prim, m: pkg.SceneNode(pkg.Geometry(prim, m))
+    scene = pkg.Scene(pkg.SceneNode([
+        node(pkg.Plane(), wall).scaled(30.0),
+        node(pkg.Cube(), wall).scaled((0.2, 20.0, 20.0)).translated((0.0, 8.0, 8.0)),
+        node(pkg.Cube(), wall).scaled((30.0, 30.0, 0.4)).translated((0.0, 8.0, -2.0)),
+        node(pkg.Mesh(ball, pkg.Shading.Smooth), mat_cow)
+        .scaled(0.5).rotated_y(deg(-15.0)).translated((-4.2, 1.8, 4.0)),
+        node(pkg.Mesh(ball, pkg.Shading.Smooth), mat_cow)
+        .scaled(0.5).rotated_y(deg(195.0)).translated((4.2, 1.8, 4.0)),
+    ]), [
+        pkg.Light(position=(-2.0, 2.0, 16.0), color=(0.5, 0.5, 0.5)),
+        pkg.Light(position=(2.0, 2.0, 16.0), color=(0.5, 0.5, 0.5),
+                  area=pkg.Parallelogram(a=(0.0, 0.5, 0.0), b=(0.5, 0.0, 0.0))),
+    ], (0.3, 0.3, 0.3))
+    cam = pkg.CameraSettings(eye=(0.0, 5.04746, 24.827951),
+                             center=(0.012231, -0.459716, -15.800501), fovy=deg(25.0))
+    return scene, cam, (910, 512)
+
+
+INLINE.update({
+    # Test sizes: 64 x 64 (64 x 48) textures; icospheres of 1,280 triangles.
+    "normal-mapping-numpy": lambda pkg: normal_mapping_numpy(pkg, tex=64),
+    "soft-shadows-icosphere": lambda pkg: soft_shadows_icosphere(pkg, subdiv=3),
+})

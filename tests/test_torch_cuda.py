@@ -5,9 +5,13 @@ card.  These tests need an NVIDIA GPU with nvcc; elsewhere they skip.
 
 single-triangle and procedural-meshes (at its test size) drive the tri_w
 branch, their child rays with (node, tri) source pairs; procedural-meshes-
-groups (37 chunks) the kernel's group level of the cull.  Built here from
-numpy: exact ties between duplicate triangles and spheres, and a table of
-more than 1,024 chunks.
+groups (37 chunks) the kernel's group level of the cull; normal-mapping-
+numpy (textures, normal maps) and soft-shadows-icosphere (an area light)
+the textured and soft-shadowed scenes.  Built here from numpy: exact ties
+between duplicate triangles and spheres, and a table of more than 1,024
+chunks.  Under autograd, gradients of a traced tile through the kernel
+equal those through the plain version up to the order of the float
+atomics that sum a gather's backward (1e-4 of the largest entry).
 
 Gates: the JAX package's kernel gates (tests/test_pallas.py) for the
 nearest mode, with its torus gate (tests/test_torus.py) on torus hits,
@@ -32,7 +36,8 @@ from portrayer_tpu_torch.ops.cuda_intersect import (
 from _torch_jax import assert_gates, torus_nodes, INLINE
 
 NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
-         "ellipsoids", "single-triangle", "procedural-meshes", "procedural-meshes-groups"]
+         "ellipsoids", "single-triangle", "procedural-meshes", "procedural-meshes-groups",
+         "four-shapes", "normal-mapping-numpy", "soft-shadows-icosphere"]
 
 pytestmark = pytest.mark.cuda
 INF = float("inf")
@@ -213,3 +218,50 @@ def test_sweep_kernel_over_more_than_1024_chunks(dev):
     mo, md = (x.to(dev) for x in _down(miss))
     mh, mo_hit = _both_modes(mo, md, st, cfg)
     assert not mh.hit.any() and not mo_hit.hit.any()
+
+
+@pytest.mark.parametrize("name, soft, origin", [
+    ("big-scene", 0.0, None), ("torus-showcase", 0.0, None),
+    ("normal-mapping-numpy", 0.0, None),
+    # The penumbra behind the right ball (the frame's middle is unlit).
+    ("soft-shadows-icosphere", 0.05, (560, 200)),
+])
+def test_gradients_through_kernel_match_plain_version(dev, monkeypatch, name, soft, origin):
+    """Gradients of sum(acc^2) over a 32x32 tile at 2 spp (the frame's
+    middle unless `origin` is given) with respect to
+    the DIFF_FIELDS tables, through the kernel and through its plain version
+    (run on the card's tensors): the sweeps select the same winners, so the
+    gradients agree; all finite; the kernel's inputs carried a graph from
+    round 1 on (child rays depend on the tables)."""
+    from portrayer_tpu_torch import render
+    from portrayer_tpu_torch.ops.trace import trace
+
+    scene, camera, (w, h) = _scene(name)
+    st = flatten_scene(scene, dev)
+    cfg = RenderConfig(device=dev, soft_visibility=soft)
+    x0, y0 = origin or (w // 2 - 16, h // 2 - 16)
+    o, d, pix, bg, w0 = render._tile_rays(
+        rng.PRNGKey(4), Camera(camera, (w, h), dev), x0, y0, 0, cfg=cfg,
+        background=render.default_background, tile_h=32, tile_w=32, spp=2, samples=2)
+    fields = ("mat_diffuse", "mat_specular", "mat_reflectivity", "mat_shininess",
+              "light_color", "light_pos", "ambient", "inv")
+
+    def grads():
+        leaves = {f: getattr(st, f).clone().requires_grad_() for f in fields}
+        acc = trace(rng.PRNGKey(5), o, d, pix, bg, 32 * 32, st.replace(**leaves), cfg, w0=w0,
+                    spp_contiguous=2)
+        torch.sum(acc ** 2).backward()
+        return {f: x.grad for f, x in leaves.items()}
+
+    cuda_intersect.reset_counts()
+    gk = grads()
+    assert cuda_intersect.COUNTS["nearest"] > 0 and cuda_intersect.COUNTS["plain_on_cuda"] == 0
+    monkeypatch.setattr(cuda_intersect, "intersect_scene_cuda", intersect_scene_sweep_ref)
+    gp = grads()
+    assert cuda_intersect.COUNTS["plain_on_cuda"] > 0
+    for f in fields:
+        assert torch.isfinite(gk[f]).all(), f
+        scale = gp[f].abs().max()
+        torch.testing.assert_close(gk[f], gp[f], rtol=0, atol=float(1e-4 * scale), msg=f)
+    # (The middle of normal-mapping-numpy is all textured: no mat_diffuse.)
+    assert gk["light_color"].abs().max() > 0 and gk["inv"].abs().max() > 0

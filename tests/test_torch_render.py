@@ -31,7 +31,8 @@ from portrayer_tpu_torch import image_io, scenes as tscenes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "self_golden")
-SIZES = {"simple": (64, 64), "big-scene": (160, 82)}
+# The self-goldens' sizes (tools/gen_self_goldens.py).
+SIZES = {"simple": (64, 64), "big-scene": (160, 82), "four-shapes": (256, 68)}
 _cache = {}
 
 
@@ -73,7 +74,7 @@ def test_render_linear_matches_jax(name):
     assert_images_close(_render("port", name), _render("jax", name))
 
 
-@pytest.mark.parametrize("name", ["simple", "big-scene"])
+@pytest.mark.parametrize("name", ["simple", "big-scene", "four-shapes"])
 def test_render_u8_matches_self_golden_and_jax(name):
     ours = _render("port", name, as_u8=True)
     assert ours.dtype == np.uint8
@@ -168,17 +169,35 @@ def test_png_io_against_pil():
 
 
 def test_port_imports_no_jax():
-    """`import portrayer_tpu_torch` and a CPU render of each of its scenes
-    leave JAX, flax, PIL and the JAX package out of sys.modules."""
+    """`import portrayer_tpu_torch`, a CPU render of each of its scenes and
+    of the textured and area-lit stand-ins of tests/_torch_jax.py (which
+    chip_smoke.py imports on the card) and a gradient through trace leave
+    JAX, flax, PIL and the JAX package out of sys.modules."""
     code = (
         "import sys\n"
         "import portrayer_tpu_torch as T\n"
         "from portrayer_tpu_torch import scenes\n"
-        "assert len(scenes.names()) == 6, scenes.names()\n"
+        "assert len(scenes.names()) == 7, scenes.names()\n"
         "for name in scenes.names():\n"
         "    s = scenes.load(name)\n"
         "    T.render_u8(s.scene, s.camera, (12, 8), s.background,\n"
         "                T.RenderConfig(device='cpu', samples=1))\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from _torch_jax import INLINE\n"
+        "for name in ('normal-mapping-numpy', 'soft-shadows-icosphere'):\n"
+        "    scene, cam, _ = INLINE[name](T)\n"
+        "    T.render_u8(scene, cam, (12, 8), cfg=T.RenderConfig(device='cpu', samples=1))\n"
+        "import torch\n"
+        "from portrayer_tpu_torch import rng\n"
+        "from portrayer_tpu_torch.ops.trace import trace\n"
+        "st = T.flatten_scene(scenes.load('simple').scene, 'cpu')\n"
+        "x = st.mat_diffuse.clone().requires_grad_()\n"
+        "o = torch.zeros(4, 3); d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1)\n"
+        "pix = torch.arange(4, dtype=torch.int32)\n"
+        "acc = trace(rng.PRNGKey(0), o, d, pix, torch.zeros(4, 3), 4, st.replace(mat_diffuse=x),\n"
+        "            T.RenderConfig(device='cpu', soft_visibility=0.05))\n"
+        "acc.sum().backward()\n"
+        "assert x.grad.abs().sum() > 0\n"
         "bad = [m for m in ('jax', 'flax', 'PIL', 'portrayer_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

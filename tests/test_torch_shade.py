@@ -145,9 +145,9 @@ def test_trace_matches_jax_on_same_rays(name):
     (0.5, None, "refraction"),
 ])
 def test_later_slice_features_raise(reflectivity, area, match):
-    """Area lights are a later slice: a render that needs them is refused,
-    not approximated.  Bounce rounds (a mirror sphere in a mirror box at
-    max_depth 10) and refraction (a glass sphere, max_depth 0, so the
+    """Bounce rounds (a mirror sphere in a mirror box at max_depth 10),
+    area lights (a parallelogram light over a matte sphere, a point of it
+    drawn per sample) and refraction (a glass sphere, max_depth 0, so the
     children end in the background) were refused before; they now render
     what the JAX package renders (atol 1e-4, per pixel mean of 2 spp)."""
     scene_of = lambda pkg: _feature_scene(pkg, reflectivity, area,
@@ -155,10 +155,6 @@ def test_later_slice_features_raise(reflectivity, area, match):
     cam = lambda pkg: pkg.CameraSettings(eye=(0.0, 0.0, 0.0), center=(0.0, 0.0, -1.0))
     max_depth = 0 if match == "refraction" else 10
     cfg = T.RenderConfig(device="cpu", samples=2, tile=(8, 8), max_depth=max_depth)
-    if match == "area lights":
-        with pytest.raises(NotImplementedError, match=match):
-            T.render_u8(scene_of(T), cam(T), (8, 8), cfg=cfg)
-        return
     ours = T.render_linear(scene_of(T), cam(T), (8, 8), cfg=cfg)
     ref = P.render_linear(scene_of(P), cam(P), (8, 8),
                           cfg=P.RenderConfig(accel="flat", samples=2, tile=(8, 8),

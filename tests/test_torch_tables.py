@@ -1,6 +1,6 @@
 """The port's scene lowering produces the JAX package's tables array for
-array; tables_from_numpy carries the JAX tables across unchanged; scenes
-that use textures are refused."""
+array, texture atlases included; tables_from_numpy carries the JAX tables
+across unchanged."""
 
 import numpy as np
 import pytest
@@ -16,7 +16,7 @@ from portrayer_tpu_torch.scene.flatten import (
     TABLE_FIELDS, PACKED_FIELDS, PACKED_KIND_NAMES, tables_from_numpy,
 )
 
-from _torch_jax import jax_arrays
+from _torch_jax import INLINE, checker, jax_arrays
 
 
 def _assert_tables_equal(js, ts):
@@ -30,13 +30,15 @@ def _assert_tables_equal(js, ts):
     assert ts.groups == js.groups
     assert ts.packed.kind_ranges == js.packed.kind_ranges
     assert ts.packed.n_chunks == js.packed.n_chunks
-    for f in ("n_lights", "area_flags", "any_reflective", "any_refractive", "any_glossy"):
+    for f in ("n_lights", "area_flags", "any_reflective", "any_refractive", "any_glossy",
+              "any_image_tex", "any_normal_map"):
         assert getattr(ts, f) == getattr(js, f), f
+    assert len(ts.fn_textures) == len(js.fn_textures)
     np.testing.assert_array_equal(np.asarray(jax_node_record(js)), ts.rec.numpy())
 
 
 NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
-         "single-triangle"]
+         "single-triangle", "four-shapes"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -105,7 +107,27 @@ def test_unported_tri_w_raises_through_bridge():
 
 
 def test_textures_raise():
-    mat = T.Material(diffuse=(1.0, 1.0, 1.0), texture=object())
-    scene = T.Scene(T.SceneNode([T.SceneNode(T.Geometry(T.Sphere, mat))]), [], 0.1)
-    with pytest.raises(NotImplementedError, match="textures"):
-        T.flatten_scene(scene, "cpu")
+    """Textures and normal maps were refused; now a scene with both lowers
+    to the JAX package's tables: image and procedural texture codes (-(i+2)
+    for the i-th procedural), normal-map codes, each image and map once in
+    its atlas however many materials share it, and the uv transform."""
+    ts = T.flatten_scene(INLINE["normal-mapping-numpy"](T)[0], "cpu")
+    js = P.flatten_scene(INLINE["normal-mapping-numpy"](P)[0], dtype=jnp.float32)
+    _assert_tables_equal(js, ts)
+    assert ts.mat_tex_id.tolist() == js.mat_tex_id.tolist()
+    assert sorted(ts.mat_tex_id.tolist()) == [-2, 0, 0, 1, 1, 2, 2]
+    assert sorted(ts.mat_normal_map_id.tolist()) == [-1, -1, -1, -1, 0, 1, 2]
+    # 64x64 plane and sphere images, a 64x48 cube map.
+    assert ts.tex_meta.tolist() == ts.nm_meta.tolist() == [[0, 64, 64], [4096, 64, 64],
+                                                            [8192, 64, 48]]
+    assert ts.tex_data.dtype == torch.uint8 and ts.tex_data.shape == (11264, 3)
+    assert ts.fn_textures == (checker(T),)
+    assert 20.0 in ts.mat_uv_trans.numpy()
+
+
+def test_tables_without_textures_carry_empty_atlases():
+    """One zero texel and one zero meta row, as the JAX package's."""
+    ts = T.flatten_scene(tscenes.load("simple").scene, "cpu")
+    assert ts.tex_data.tolist() == ts.nm_data.tolist() == [[0, 0, 0]]
+    assert ts.tex_meta.tolist() == ts.nm_meta.tolist() == [[0, 0, 0]]
+    assert not ts.any_image_tex and not ts.any_normal_map and ts.fn_textures == ()
