@@ -155,29 +155,23 @@ def _gate_nearest(k, p, label, torus=None):
     return ((kt[same] - pt[same]).abs().max().item() if same.any() else 0.0), n_diff
 
 
-def _shadow_rays(o, d, hit, st, cfg):
+def _shadow_rays(o, d, hit, st, cfg, t_min=None, src_node=None, src_tri=None):
     """Rays from each nearest hit toward every light ([L*R] rays), as the
-    render's shadow batch builds them: t_min = max(eps, eps_rel*|p|),
-    src_node/src_tri = the hit, active = hit; towards an area light, a
-    point of its parallelogram drawn per ray at the shading's draw site."""
-    import torch
-    from portrayer_tpu_torch import math3d as m3, rng
-    from portrayer_tpu_torch.ops.shade import _uniform
+    render's shadow batch builds them: from the hit detail's point along
+    shade_pre's directions (towards an area light, to a point of its
+    parallelogram drawn per ray), t_min = shade_pre's offset, src_node /
+    src_tri = the hit, active = hit.  `t_min` and the sources are those of
+    the rays o, d (default: cfg.epsilon, none)."""
+    from portrayer_tpu_torch import rng
+    from portrayer_tpu_torch.ops.intersect import hit_detail
+    from portrayer_tpu_torch.ops.shade import shade_pre
 
-    t = torch.where(hit.hit, hit.t, 0.0)
-    p = o + t[:, None] * d
-    t_eps = torch.clamp(cfg.eps_rel * m3.norm(p, eps=1e-20), min=cfg.epsilon)
-    sid = torch.arange(o.shape[0], dtype=torch.int32, device=o.device)
-    dirs = []
-    for li in range(st.n_lights):
-        lpos = st.light_pos[li]
-        if st.area_flags[li]:
-            ab = _uniform(rng.PRNGKey(5), 1000 + 2 * li, sid, 2) * 2.0 - 1.0
-            lpos = lpos + ab[:, :1] * st.light_area_a[li] + ab[:, 1:] * st.light_area_b[li]
-        dirs.append(m3.normalize(lpos - p, eps=1e-30))
+    det = hit_detail(o, d, hit, st, cfg, cfg.epsilon if t_min is None else t_min,
+                     src_node=src_node, src_tri=src_tri)
+    pre, _ = shade_pre(d, hit, det, st, cfg, rng.PRNGKey(5), hit.hit)
     L = st.n_lights
-    return (p.repeat(L, 1), torch.cat(dirs), t_eps.repeat(L), hit.hit.repeat(L),
-            hit.node.repeat(L), hit.tri.repeat(L))
+    return (det.point.repeat(L, 1), pre.shadow_dir.reshape(-1, 3), pre.t_eps.repeat(L),
+            hit.hit.repeat(L), hit.node.repeat(L), hit.tri.repeat(L))
 
 
 def _bounce_rays(o, d, st, cfg):
@@ -406,7 +400,7 @@ def phase_kernels(dev):
             bo, bd, bt, bn, btri = _bounce_rays(o, d, st, cfg)
             bhit = check(f"{name} bounce", bo, bd, bt, st,
                          {"src_node": bn, "src_tri": btri}, torus)
-            so, sd, st_min, sact, snode, stri = _shadow_rays(bo, bd, bhit, st, cfg)
+            so, sd, st_min, sact, snode, stri = _shadow_rays(bo, bd, bhit, st, cfg, bt, bn, btri)
             check(f"{name} bounce shadow", so, sd, st_min, st,
                   dict(active=sact, src_node=snode, src_tri=stri), torus)
             line += (f"; {bo.shape[0]} round-0 child rays, {bhit.hit.float().mean():.3f} hit, "

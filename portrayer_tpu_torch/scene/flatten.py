@@ -175,7 +175,10 @@ class SceneTables:
 
     def replace(self, **fields) -> "SceneTables":
         """New tables with `fields` replaced and the records rebuilt from
-        them (``packed`` is kept; see the class docstring)."""
+        them (``packed`` is kept; see the class docstring).  The same as
+        ``dataclasses.replace(self, **fields)``; it is here so that code
+        written against the JAX package's ``SceneTables.replace`` (a flax
+        struct method) reads the same on the port's tables."""
         return dataclasses.replace(self, **fields)
 
     @property

@@ -263,5 +263,10 @@ def test_gradients_through_kernel_match_plain_version(dev, monkeypatch, name, so
         assert torch.isfinite(gk[f]).all(), f
         scale = gp[f].abs().max()
         torch.testing.assert_close(gk[f], gp[f], rtol=0, atol=float(1e-4 * scale), msg=f)
-    # (The middle of normal-mapping-numpy is all textured: no mat_diffuse.)
-    assert gk["light_color"].abs().max() > 0 and gk["inv"].abs().max() > 0
+    # Every tile gives these a gradient; the middle of normal-mapping-numpy
+    # is all textured, so its mat_diffuse gets none.
+    nonzero = ("light_color", "inv")
+    if name != "normal-mapping-numpy":
+        nonzero += ("mat_diffuse",)
+    for f in nonzero:
+        assert gk[f].abs().max() > 0, f

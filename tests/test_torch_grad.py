@@ -5,7 +5,8 @@ differences, the sweep's plain version against the flat sweep, silhouette
 gradients with soft visibility, and tables replaced without stale records.
 
 Tolerances, with their reasons:
-- Port against JAX: rtol 1e-3 / atol 1e-4 of the largest gradient entry.
+- Port against JAX, with soft visibility off and on: gradients and
+  per-ray colours within rtol 1e-3 / atol 1e-4 of their largest entry.
   The JAX loss is jitted: XLA contracts mul+add into FMA, which moves
   hit points and colours by ulps, and x^(4 shininess) = x^80 highlights
   multiply that by the exponent.  Both losses agree to rtol 1e-5.
@@ -40,6 +41,8 @@ CFG = T.RenderConfig(device="cpu", accel="flat")
 JCFG = P.RenderConfig(node_chunk=8, accel="flat")
 KEY = rng.PRNGKey(0)
 N_RAYS = 64
+# Soft visibility width of the JAX comparison (world units of margin).
+SOFT = 0.05
 
 
 def _scene(pkg):
@@ -70,53 +73,88 @@ def _rays(n=N_RAYS):
     return _fan(np.linspace(-0.4, 0.4, n, dtype=np.float32))
 
 
-def _port_loss(st, o, d, cfg=CFG):
+def _port_acc(st, o, d, cfg=CFG):
     n = o.shape[0]
-    acc = trace(KEY, torch.from_numpy(o), torch.from_numpy(d),
-                torch.arange(n, dtype=torch.int32), torch.full((n, 3), 0.3), n, st, cfg)
-    return torch.sum(acc ** 2)
+    return trace(KEY, torch.from_numpy(o), torch.from_numpy(d),
+                 torch.arange(n, dtype=torch.int32), torch.full((n, 3), 0.3), n, st, cfg)
+
+
+def _port_loss(st, o, d, cfg=CFG):
+    return torch.sum(_port_acc(st, o, d, cfg) ** 2)
 
 
 def _port_grads(st, fields, cfg=CFG):
-    """(loss, {field: gradient}) of sum(acc^2) on the fan."""
+    """(loss, {field: gradient}, acc) of sum(acc^2) on the fan."""
     leaves = {f: getattr(st, f).clone().requires_grad_() for f in fields}
-    loss = _port_loss(st.replace(**leaves), *_rays(), cfg)
+    acc = _port_acc(st.replace(**leaves), *_rays(), cfg)
+    loss = torch.sum(acc ** 2)
     loss.backward()
-    return float(loss.detach()), {f: x.grad.numpy() for f, x in leaves.items()}
+    return float(loss.detach()), {f: x.grad.numpy() for f, x in leaves.items()}, acc.detach()
 
 
-@pytest.fixture(scope="module")
-def jax_grads():
-    """The JAX package's loss and gradients for every DIFF_FIELDS entry,
-    from one jitted grad, and the tables they were taken on."""
+def _jax_grads(soft_visibility):
+    """The JAX package's loss, gradients for every DIFF_FIELDS entry and
+    per-ray colours, from one jitted grad, and the tables they were taken
+    on."""
     js = P.flatten_scene(_scene(P), dtype=jnp.float32)
     o, d = _rays()
     n = o.shape[0]
     pix = jnp.arange(n, dtype=jnp.int32)
     bg = jnp.full((n, 3), 0.3, jnp.float32)
+    jcfg = P.RenderConfig(node_chunk=8, accel="flat", soft_visibility=soft_visibility)
 
     def loss(vals):
         acc = jax_trace(jax.random.PRNGKey(0), jnp.asarray(o), jnp.asarray(d), pix, bg, n,
-                        js.replace(**vals), JCFG)
-        return jnp.sum(acc ** 2)
+                        js.replace(**vals), jcfg)
+        return jnp.sum(acc ** 2), acc
 
-    val, g = jax.jit(jax.value_and_grad(loss))({f: getattr(js, f) for f in DIFF_FIELDS})
-    return js, float(val), {f: np.asarray(v) for f, v in g.items()}
+    (val, acc), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        {f: getattr(js, f) for f in DIFF_FIELDS})
+    return js, float(val), {f: np.asarray(v) for f, v in g.items()}, np.asarray(acc)
+
+
+@pytest.fixture(scope="module")
+def jax_grads():
+    return _jax_grads(0.0)
+
+
+@pytest.fixture(scope="module")
+def jax_grads_soft():
+    return _jax_grads(SOFT)
+
+
+def _match_jax(jax_result, field, soft_visibility):
+    """The port's colours, loss and gradients of sum(acc^2) on the JAX
+    package's own tables (carried across) and rays, in both accel modes."""
+    js, jloss, jg, jacc = jax_result
+    ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
+    for accel in ("flat", "cuda"):
+        cfg = T.RenderConfig(device="cpu", accel=accel, soft_visibility=soft_visibility)
+        loss, g, acc = _port_grads(ts, (field,), cfg)
+        np.testing.assert_allclose(acc.numpy(), jacc, rtol=1e-3, atol=1e-4 * np.abs(jacc).max(),
+                                   err_msg=f"acc ({accel})")
+        assert loss == pytest.approx(jloss, rel=1e-5)
+        got, ref = g[field], jg[field]
+        assert np.isfinite(got).all() and np.abs(ref).max() > 0, field
+        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4 * np.abs(ref).max(),
+                                   err_msg=f"{field} ({accel})")
 
 
 @pytest.mark.parametrize("field", DIFF_FIELDS)
 def test_grads_match_jax(jax_grads, field):
     """The port's gradients of sum(acc^2) on the JAX package's own tables
     (carried across) and rays, field by field, in both accel modes."""
-    js, jloss, jg = jax_grads
-    ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
-    for accel in ("flat", "cuda"):
-        loss, g = _port_grads(ts, (field,), T.RenderConfig(device="cpu", accel=accel))
-        assert loss == pytest.approx(jloss, rel=1e-5)
-        got, ref = g[field], jg[field]
-        assert np.isfinite(got).all() and np.abs(ref).max() > 0, field
-        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4 * np.abs(ref).max(),
-                                   err_msg=f"{field} ({accel})")
+    _match_jax(jax_grads, field, 0.0)
+
+
+@pytest.mark.parametrize("field", DIFF_FIELDS)
+def test_grads_match_jax_with_soft_visibility(jax_grads, jax_grads_soft, field):
+    """As test_grads_match_jax with soft visibility on: the coverage alpha
+    scales the ambient term, the light terms and the children of the
+    sphere's edge rays, and sends the complement to the background."""
+    # The fan has rays in the sphere's soft band: their colours move.
+    assert np.abs(jax_grads_soft[3] - jax_grads[3]).max() > 1e-2
+    _match_jax(jax_grads_soft, field, SOFT)
 
 
 # ---------------------------------------------------------------------------

@@ -139,21 +139,21 @@ def test_trace_matches_jax_on_same_rays(name):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("reflectivity, area, match", [
+@pytest.mark.parametrize("reflectivity, area, feature", [
     (0.5, None, "bounce rounds"),
     (0.0, T.Parallelogram(a=(1.0, 0.0, 0.0), b=(0.0, 0.0, 1.0)), "area lights"),
     (0.5, None, "refraction"),
 ])
-def test_later_slice_features_raise(reflectivity, area, match):
+def test_features_render_as_jax(reflectivity, area, feature):
     """Bounce rounds (a mirror sphere in a mirror box at max_depth 10),
     area lights (a parallelogram light over a matte sphere, a point of it
     drawn per sample) and refraction (a glass sphere, max_depth 0, so the
     children end in the background) were refused before; they now render
     what the JAX package renders (atol 1e-4, per pixel mean of 2 spp)."""
     scene_of = lambda pkg: _feature_scene(pkg, reflectivity, area,
-                                          1.5 if match == "refraction" else 0.0)
+                                          1.5 if feature == "refraction" else 0.0)
     cam = lambda pkg: pkg.CameraSettings(eye=(0.0, 0.0, 0.0), center=(0.0, 0.0, -1.0))
-    max_depth = 0 if match == "refraction" else 10
+    max_depth = 0 if feature == "refraction" else 10
     cfg = T.RenderConfig(device="cpu", samples=2, tile=(8, 8), max_depth=max_depth)
     ours = T.render_linear(scene_of(T), cam(T), (8, 8), cfg=cfg)
     ref = P.render_linear(scene_of(P), cam(P), (8, 8),

@@ -106,7 +106,7 @@ def test_unported_tri_w_raises_through_bridge():
     assert ts.n_pairs == 1 and ts.mesh_range.tolist() == [[0, 1]]
 
 
-def test_textures_raise():
+def test_textures_lower_as_jax():
     """Textures and normal maps were refused; now a scene with both lowers
     to the JAX package's tables: image and procedural texture codes (-(i+2)
     for the i-th procedural), normal-map codes, each image and map once in
