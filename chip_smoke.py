@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs six
+Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs seven
 phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, kernel
@@ -45,9 +45,25 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    three gradient steps on mat_diffuse (started at 0.7 of the true one)
    against the true render, backward per chunk of 131,072 rays, with the
    loss falling at every step, each step's seconds and the peak memory;
-6. the sweep kernel alone on the device (torch.profiler) at each launch
+6. multi-device (``portrayer_tpu_torch.parallel``): world size 1 under
+   NCCL in this process, then two gloo ranks sharing the card (started by
+   torch.multiprocessing), each through render_frame_distributed on
+   big-scene's full 1980x1020 frame at 4 spp (one trace per rank: 8,078,400
+   rays at world size 1), trace_sharded's per-rank partials and train_step
+   at 1 spp with respect to mat_diffuse; every rank's image, partials,
+   loss and gradients against the single-process oracle on the card (the
+   shards traced one after the other, keys fold_in(key, r), summed) within
+   1e-5; wall seconds, Mrays/s, peak memory, kernel launches and the
+   all-reduce's own time of each rank, and beside the one-shard render
+   Image.render's tiled path at the same size and spp.  Then the beam
+   sweep on big-scene's uniform camera rays and their shadow rays, against
+   the flat sweep and the kernel, with its time and loop steps;
+   checked_trace on simple's 16x16 tile, clean; the float64 check mode
+   (accel="flat") against the float32 kernel render of simple at 48x36 x
+   2 spp;
+7. the sweep kernel alone on the device (torch.profiler) at each launch
    shape of phase 2; last, so that the profiler cannot weigh on the wall
-   times of phases 4 and 5.
+   times of phases 4 to 6.
 
 The last two lines are a JSON object of per-kernel numbers and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
@@ -59,6 +75,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "out")
@@ -110,6 +128,30 @@ PEAK_BYTES = 3.35e12
 BRANCH_FLOPS = {"sphere_g": 66, "plane_g": 43, "cube_g": 86, "cylinder_g": 82,
                 "cone_g": 91, "torus_g": 429, "sphere_w": 26, "aabox": 22, "tri_w": 39}
 CULL_FLOPS = 28
+# Multi-device phase: big-scene's full frame through render_frame_distributed
+# in one trace per rank, at MD_SPP; train_step at MD_TRAIN_SPP with respect to
+# MD_FIELDS, from mat_diffuse at MD_START of the truth; ranks and oracle
+# agree within MD_TOL (absolute on the image, relative on the loss, of the
+# largest entry on the gradients).
+MD_SIZE = (1980, 1020)
+MD_SPP = 4
+MD_TRAIN_SPP = 1
+MD_TRAIN_KEY = 21
+MD_FIELDS = ("mat_diffuse",)
+MD_START = 0.7
+MD_TOL = 1e-5
+MD_GLOO_RANKS = 2
+MD_ALLREDUCE_ITERS = 5
+# The beam sweep on big-scene's uniform camera rays and their shadow rays;
+# the float64 check mode on simple (tests/test_render.py's size and spp).
+BEAM_RAYS = 131072
+# Rays (a share of those traced) on which the beam sweep and the kernel
+# may disagree (_apart), grazing rays that the kernel's own formulas
+# decide apart from the flat sweep's: the share of node mismatches that the JAX package's kernel
+# gates allow (tests/test_pallas.py).
+MAX_APART = 2e-3
+F64_SIZE = (48, 36)
+F64_SPP = 2
 
 
 def _torus_ids(st):
@@ -440,7 +482,7 @@ def phase_device_times(timing, cfg):
                 ms = _device_ms(lambda: intersect_scene_cuda(*args, st, cfg, any_hit=any_hit,
                                                              **kw), 20)
                 (t if order == "uniform" else t["render_order"])[mode] += (ms,)
-                print(f"[6 device] {name} {mode}, {order}: sweep kernel {_fmt(ms)} on the "
+                print(f"[7 device] {name} {mode}, {order}: sweep kernel {_fmt(ms)} on the "
                       f"device", flush=True)
 
 
@@ -833,6 +875,410 @@ def phase_gradients(dev):
           f"largest relative error of mat_diffuse after {FIT_STEPS} steps {err:.3g}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: multi-device, and the beam sweep, float checks and float64 mode
+# ---------------------------------------------------------------------------
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _md_setup(dev, size):
+    """big-scene's tables, its spec and the uv background of `size`."""
+    import torch
+    from portrayer_tpu_torch import flatten_scene, scenes
+    from portrayer_tpu_torch.parallel.sharding import _pixel_uv
+
+    spec = scenes.load("big-scene")
+    bg = spec.background(_pixel_uv(size[0], size[1], torch.float32, dev))
+    return spec, flatten_scene(spec.scene, dev), bg
+
+
+def _train_rays(dev, spec, size):
+    """The train step's rays: the frame's grid at MD_TRAIN_SPP, keyed
+    MD_TRAIN_KEY, built whole (train_step slices each rank's block)."""
+    from portrayer_tpu_torch import rng
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.parallel import frame_rays
+
+    w, h = size
+    cam = Camera(spec.camera, size, dev)
+    return frame_rays(cam, MD_TRAIN_SPP, rng.PRNGKey(MD_TRAIN_KEY), 0, w * h * MD_TRAIN_SPP,
+                      cam.dtype, dev)[:3]
+
+
+def _timed(dev, fn):
+    """(result, seconds, kernel launch counts, peak GiB) of fn(), the counts
+    zeroed just before it."""
+    from portrayer_tpu_torch.ops import cuda_intersect
+
+    _sync(dev)
+    _reset_peak(dev)
+    cuda_intersect.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    return out, secs, dict(cuda_intersect.COUNTS), _peak_gib(dev)
+
+
+def _check_counts(label, counts, dev):
+    if dev.type == "cuda" and (counts["nearest"] == 0 or counts["any_hit"] == 0
+                               or counts["plain_on_cuda"]):
+        raise AssertionError(f"{label} did not run through both kernel modes alone: {counts}")
+
+
+def _allreduce_ms(dev, n_pixels, group=None):
+    """The all-reduce's own time: a [n_pixels, 3] float32 framebuffer,
+    summed over the group MD_ALLREDUCE_ITERS times (host clock around
+    each, synchronised)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones((n_pixels, 3), device=dev)
+    dist.all_reduce(x, group=group)
+    _sync(dev)
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(MD_ALLREDUCE_ITERS):
+        dist.all_reduce(x, group=group)
+        _sync(dev)
+    return (time.perf_counter() - t0) / MD_ALLREDUCE_ITERS * 1e3
+
+
+def _md_run(dev, mesh, size, spp, spec, st, bg, target, label):
+    """On this rank: render_frame_distributed of big-scene at `size` x
+    spp, the per-rank partials of trace_sharded (reduce=False) over this
+    rank's rows of that frame, and train_step with respect to MD_FIELDS.
+    Returns a dict of results (tensors on the host) and prints them."""
+    import torch
+    from portrayer_tpu_torch import RenderConfig, parallel as par, rng
+    from portrayer_tpu_torch.camera import Camera
+
+    w, h = size
+    n, r = mesh.size(), mesh.get_local_rank()
+    cfg = RenderConfig(device=dev, samples=spp)
+    # Twice: the first call grows the caching allocator to the trace's
+    # size; the second is the one reported beside the tiled path.
+    render = lambda: par.render_frame_distributed(mesh, st, spec.camera, size,
+                                                  spec.background, cfg)
+    cold = _timed(dev, render)[1]
+    img, secs, counts, peak = _timed(dev, render)
+    _check_counts(f"{label} render_frame_distributed", counts, dev)
+    if img.shape != (h, w, 3) or not np.isfinite(img).all() or img.max() <= 0.0:
+        raise AssertionError(f"{label}: the frame is empty, misshapen or not finite")
+    ar_ms = _allreduce_ms(dev, w * h, mesh.get_group())
+    # The partials over this rank's own rows (the same rows and keys).
+    key = rng.PRNGKey(cfg.seed)
+    R0 = w * h * spp
+    per = (R0 + (-R0) % n) // n
+    o, d, pix, w0 = par.frame_rays(Camera(spec.camera, size, dev), spp, key, r * per,
+                                   (r + 1) * per, torch.float32, dev)
+    parts = par.trace_sharded(mesh, rng.fold_in(key, 1), o, d, pix, bg, w * h, st, cfg, w0=w0,
+                              reduce=False, local=True)
+    del o, d, pix, w0
+    to, td, tpix = _train_rays(dev, spec, size)
+    st0 = st.replace(mat_diffuse=st.mat_diffuse * MD_START)
+    tcfg = RenderConfig(device=dev, samples=MD_TRAIN_SPP)
+    step = lambda: par.train_step(mesh, rng.PRNGKey(MD_TRAIN_KEY), to, td, tpix, bg, w * h,
+                                  MD_TRAIN_SPP, target, st0, tcfg, fields=MD_FIELDS)
+    tcold = _timed(dev, step)[1]
+    (loss, grads), tsecs, tcounts, tpeak = _timed(dev, step)
+    _check_counts(f"{label} train_step", tcounts, dev)
+    print(f"[6 multi-device] {label}: render_frame_distributed big-scene {w}x{h} x {spp} spp "
+          f"({R0} rays, {per} on this rank in one trace): {secs:.3f} s (the first call "
+          f"{cold:.3f} s), {R0 / secs / 1e6:.3f} Mrays/s, peak memory {peak:.3f} GiB, launches "
+          f"nearest "
+          f"{counts['nearest']} any-hit {counts['any_hit']}; all-reduce of the "
+          f"{w * h}x3 framebuffer {ar_ms:.3f} ms; train_step ({w}x{h} x {MD_TRAIN_SPP} spp, "
+          f"{MD_FIELDS}) {tsecs:.3f} s a step (the first {tcold:.3f} s), peak memory "
+          f"{tpeak:.3f} GiB, loss "
+          f"{float(loss):.8g}, launches nearest {tcounts['nearest']} any-hit "
+          f"{tcounts['any_hit']}", flush=True)
+    return {"img": torch.from_numpy(img), "parts": parts.cpu(), "loss": float(loss),
+            "grads": {f: g.cpu() for f, g in grads.items()}, "counts": counts,
+            "train_counts": tcounts}
+
+
+def _gloo_rank(rank, world, tmp, device, size, spp):
+    """One of the ranks that share the card under gloo (started by
+    torch.multiprocessing.spawn): _md_run, its results saved to
+    tmp/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    from portrayer_tpu_torch import parallel as par
+
+    dev = torch.device(device)
+    par.initialize(f"file://{tmp}/store", world, rank, device=dev, backend="gloo")
+    try:
+        mesh = par.make_mesh(world, device=dev.type)
+        spec, st, bg = _md_setup(dev, size)
+        target = torch.load(os.path.join(tmp, "target.pt")).to(dev)
+        out = _md_run(dev, mesh, size, spp, spec, st, bg, target,
+                      f"{world} gloo ranks on one card, rank {rank}")
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _md_oracles(dev, size, spp, spec, st, bg, target, world):
+    """The single-process oracles of `world` ranks on this device: the
+    frame's shards traced one after the other, keys fold_in(fold_in(key,
+    1), r), summed ([P,3] and the per-shard partials); and the train
+    step's shards traced one after the other, keys fold_in(key, r),
+    summed, the MSE and one backward: (loss, {field: gradient})."""
+    import torch
+    from portrayer_tpu_torch import RenderConfig, rng
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops.trace import trace
+    from portrayer_tpu_torch.parallel import frame_rays
+
+    w, h = size
+    cfg = RenderConfig(device=dev, samples=spp)
+    key = rng.PRNGKey(cfg.seed)
+    R0 = w * h * spp
+    per = (R0 + (-R0) % world) // world
+    cam = Camera(spec.camera, size, dev)
+    parts = []
+    with torch.no_grad():
+        for r in range(world):
+            o, d, pix, w0 = frame_rays(cam, spp, key, r * per, (r + 1) * per, torch.float32, dev)
+            parts.append(trace(rng.fold_in(rng.fold_in(key, 1), r), o, d, pix, bg, w * h, st,
+                               cfg, w0=w0))
+            del o, d, pix, w0
+    to, td, tpix = _train_rays(dev, spec, size)
+    leaves = {f: (getattr(st, f) * (MD_START if f == "mat_diffuse" else 1.0)
+                  ).detach().requires_grad_() for f in MD_FIELDS}
+    tables = st.replace(**leaves)
+    tkey = rng.PRNGKey(MD_TRAIN_KEY)
+    tper = to.shape[0] // world
+    tcfg = RenderConfig(device=dev, samples=MD_TRAIN_SPP)
+    acc = sum(trace(rng.fold_in(tkey, r), to[r * tper:(r + 1) * tper],
+                    td[r * tper:(r + 1) * tper], tpix[r * tper:(r + 1) * tper], bg, w * h,
+                    tables, tcfg) for r in range(world))
+    loss = torch.mean((acc / MD_TRAIN_SPP - target) ** 2)
+    loss.backward()
+    return ([p.cpu() for p in parts], float(loss.detach()),
+            {f: x.grad.cpu() for f, x in leaves.items()})
+
+
+def _md_compare(label, got, oracle, spp):
+    """A rank's results against the oracle: the linear image and each
+    partial within MD_TOL absolute, the loss within MD_TOL relative and
+    the gradients within MD_TOL of their largest entry."""
+    import torch
+
+    parts, loss, grads = oracle
+    ref = (sum(parts) / spp).double().numpy().reshape(got["img"].shape)
+    img_err = float(np.abs(got["img"].numpy() - ref).max())
+    part_err = max(float((g - p).abs().max()) for g, p in zip(got["parts"], parts))
+    if not (img_err <= MD_TOL and part_err <= MD_TOL and got["parts"].shape[0] == len(parts)):
+        raise AssertionError(f"{label}: image differs from the shard sum by {img_err:.3g}, "
+                             f"a partial by {part_err:.3g}")
+    if abs(got["loss"] - loss) > MD_TOL * abs(loss):
+        raise AssertionError(f"{label}: loss {got['loss']!r} against the oracle's {loss!r}")
+    notes = []
+    for f, g in grads.items():
+        scale = float(g.abs().max())
+        diff = float((got["grads"][f] - g).abs().max())
+        if scale == 0.0 or not torch.isfinite(got["grads"][f]).all() or diff > MD_TOL * scale:
+            raise AssertionError(f"{label}: {f} gradient differs by {diff:.3g} (largest entry "
+                                 f"{scale:.3g})")
+        notes.append(f"{f} max |diff| {diff:.3g} of max |g| {scale:.3g}")
+    print(f"[6 multi-device] {label} against the single-process oracle: image max |diff| "
+          f"{img_err:.3g}, partials {part_err:.3g}; loss {got['loss']:.8g} (oracle "
+          f"{loss:.8g}); " + "; ".join(notes), flush=True)
+
+
+def phase_multi_device(dev, path_counts, size=None, spp=MD_SPP, tiled=True):
+    """World size 1 (NCCL on the card) in this process, then MD_GLOO_RANKS
+    gloo ranks sharing the card, each held against the single-process
+    oracle on the card; beside the one-shard render, the tiled path of
+    Image.render at the same size and spp."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from portrayer_tpu_torch import Image, RenderConfig, parallel as par, rng
+    from portrayer_tpu_torch.ops.trace import trace
+
+    size = size or MD_SIZE
+    w, h = size
+    spec, st, bg = _md_setup(dev, size)
+    # The fit's target: the true image of the train step's rays.
+    with torch.no_grad():
+        to, td, tpix = _train_rays(dev, spec, size)
+        target = trace(rng.PRNGKey(MD_TRAIN_KEY), to, td, tpix, bg, w * h, st,
+                       RenderConfig(device=dev, samples=MD_TRAIN_SPP)) / MD_TRAIN_SPP
+        del to, td, tpix
+
+    par.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=dev)
+    try:
+        backend = dist.get_backend()
+        got = _md_run(dev, par.make_mesh(1, device=dev.type), size, spp, spec, st, bg, target,
+                      f"world size 1 ({backend})")
+    finally:
+        dist.destroy_process_group()
+    path_counts["big-scene distributed, world 1"] = got["counts"]
+    path_counts["train_step, world 1"] = got["train_counts"]
+    _md_compare(f"world size 1 ({backend})", got, _md_oracles(dev, size, spp, spec, st, bg,
+                                                              target, 1), spp)
+    if tiled:
+        cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=LAUNCH_RAYS)
+        img = Image(None, w, h)
+        _, secs, counts, peak = _timed(dev, lambda: img.render(spec.scene, spec.camera,
+                                                               spec.background, cfg))
+        _check_counts("tiled Image.render", counts, dev)
+        path_counts[f"big-scene tiled, {spp} spp"] = counts
+        print(f"[6 multi-device] beside it, Image.render's tiled path, big-scene {w}x{h} x "
+              f"{spp} spp, tile {cfg.tile}, {LAUNCH_RAYS} rays/launch: {secs:.3f} s, "
+              f"{w * h * spp / secs / 1e6:.3f} Mrays/s, peak memory {peak:.3f} GiB, launches "
+              f"nearest {counts['nearest']} any-hit {counts['any_hit']}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(target.cpu(), os.path.join(tmp, "target.pt"))
+        t0 = time.perf_counter()
+        mp.spawn(_gloo_rank, args=(MD_GLOO_RANKS, tmp, str(dev), size, spp),
+                 nprocs=MD_GLOO_RANKS, join=True)
+        spawn_secs = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(MD_GLOO_RANKS)]
+    oracle = _md_oracles(dev, size, spp, spec, st, bg, target, MD_GLOO_RANKS)
+    for r, got in enumerate(ranks):
+        label = f"{MD_GLOO_RANKS} gloo ranks on one card, rank {r}"
+        _md_compare(label, got, oracle, spp)
+        path_counts[f"big-scene distributed, gloo rank {r}"] = got["counts"]
+        path_counts[f"train_step, gloo rank {r}"] = got["train_counts"]
+    print(f"[6 multi-device] the {MD_GLOO_RANKS} gloo ranks took {spawn_secs:.3f} s from spawn "
+          f"to exit (each starts CUDA and loads the kernels)", flush=True)
+
+
+def _beam_gates(ref, got, label):
+    """tests/test_beam.py's gates: .hit equal, t within rtol 1e-4 / atol
+    1e-5, a node mismatch only on a tie within 1e-4 relative t."""
+    import torch
+
+    if not torch.equal(ref.hit, got.hit):
+        raise AssertionError(f"{label}: hit differs on {(ref.hit != got.hit).sum().item()} rays")
+    m = ref.hit
+    torch.testing.assert_close(got.t[m], ref.t[m], rtol=1e-4, atol=1e-5)
+    mism = ref.node[m] != got.node[m]
+    tie = (ref.t[m] - got.t[m]).abs() <= 1e-4 * torch.clamp(ref.t[m].abs(), min=1.0)
+    if not bool((~mism | tie).all()):
+        raise AssertionError(f"{label}: node mismatch outside a tie")
+    return float((got.t[m] - ref.t[m]).abs().max()) if bool(m.any()) else 0.0
+
+
+def _apart(kern, got, src_node=None):
+    """Rays on which the kernel and a general-formula sweep (flat, beam)
+    disagree: .hit, the node hit, or t beyond rtol 1e-4 / atol 1e-5 on
+    the same node.  Grazing rays, which the kernel's formulas (world-space
+    spheres among them, its own op order) decide apart from the general
+    ones of the flat sweep; a shadow ray's re-hit of its own source (`src_node`),
+    ill-conditioned there, counts on hit and node only."""
+    import torch
+
+    both = kern.hit & got.hit
+    off = (got.t - kern.t).abs() > 1e-5 + 1e-4 * kern.t.abs()
+    if src_node is not None:
+        off &= kern.node != src_node
+    return int(((kern.hit != got.hit) | (both & ((kern.node != got.node) | off))).sum())
+
+
+def phase_checks(dev, beam_rays=BEAM_RAYS):
+    """The beam sweep against the kernel on big-scene, checked_trace on
+    simple, and the float64 check mode against the float32 render."""
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, render_linear, rng, scenes
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.debug import checked_trace
+    from portrayer_tpu_torch.ops.beam import intersect_scene_beam
+    from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_cuda
+    from portrayer_tpu_torch.ops.intersect import intersect_scene
+
+    spec = scenes.load("big-scene")
+    st = flatten_scene(spec.scene, dev)
+    w, h = spec.size
+    cfg = RenderConfig(device=dev)
+    bcfg = RenderConfig(device=dev, accel="beam")
+    inf = float("inf")
+    u = rng.uniform(rng.PRNGKey(7), (beam_rays, 2), dev)
+    o, d = Camera(spec.camera, spec.size, dev).rays_at(u[:, 0] * w, u[:, 1] * h)
+    near = intersect_scene_cuda(o, d, cfg.epsilon, inf, st, cfg)
+    so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
+    skw = dict(active=sact, src_node=snode, src_tri=stri)
+    fcfg = RenderConfig(device=dev, accel="flat")
+    for label, args, kw in (("camera", (o, d, cfg.epsilon, inf), {}),
+                            ("shadow", (so, sd, st_min, inf), skw)):
+        stats = {}
+        got = intersect_scene_beam(*args, st, bcfg, stats=stats, **kw)
+        err = _beam_gates(intersect_scene(*args, st, fcfg, **kw), got, f"beam {label}")
+        # Against the kernel: its formulas may decide a grazing ray apart
+        # from the general ones that the flat and beam sweeps share (see
+        # _apart): at most MAX_APART.
+        kern = intersect_scene_cuda(*args, st, cfg, **kw)
+        apart = _apart(kern, got, kw.get("src_node"))
+        if apart > MAX_APART * args[0].shape[0]:
+            raise AssertionError(f"beam {label}: {apart} rays apart from the kernel")
+        ms = _time_ms(lambda: intersect_scene_beam(*args, st, bcfg, **kw), 3)
+        kms = _time_ms(lambda: intersect_scene_cuda(*args, st, cfg, **kw), 20)
+        print(f"[6 beam] big-scene {label} rays ({args[0].shape[0]}): beam sweep {ms:.3f} ms a "
+              f"call, {stats['trips']} steps of its loop (one host sync each); the kernel "
+              f"{kms:.3f} ms; the gates of tests/test_beam.py hold against the flat sweep (max "
+              f"|dt| {err:.3g}); {apart} rays apart from the kernel (hit, node, or t beyond "
+              f"rtol 1e-4)", flush=True)
+
+    simple = scenes.load("simple")
+    ys, xs = torch.meshgrid(torch.arange(16, device=dev), torch.arange(16, device=dev),
+                            indexing="ij")
+    o, d = Camera(simple.camera, (16, 16), dev).rays_at(xs.reshape(-1).float() + 0.5,
+                                                       ys.reshape(-1).float() + 0.5)
+    err, acc = checked_trace(rng.PRNGKey(0), o, d, torch.arange(256, dtype=torch.int32,
+                                                                 device=dev),
+                             torch.zeros((256, 3), device=dev), 256,
+                             flatten_scene(simple.scene, dev), RenderConfig(device=dev))
+    err.throw()
+    if not torch.isfinite(acc).all():
+        raise AssertionError("checked_trace: the framebuffer is not finite")
+    print(f"[6 checks] checked_trace on simple's 16x16 tile on {acc.device}: no op made or met "
+          f"a NaN", flush=True)
+
+    args = (simple.scene, simple.camera, F64_SIZE, simple.background)
+    img64 = render_linear(*args, RenderConfig(device=dev, samples=F64_SPP, tile=(48, 48),
+                                              accel="flat", dtype=torch.float64))
+    img32 = render_linear(*args, RenderConfig(device=dev, samples=F64_SPP, tile=(48, 48)))
+    diff = np.abs(img64 - img32)
+    if not (diff.mean() < 2e-3 and diff.max() < 0.05) or img64.dtype != np.float64:
+        raise AssertionError(f"float64 against float32: mean {diff.mean():.3g}, max "
+                             f"{diff.max():.3g}")
+    print(f"[6 checks] float64 check mode, simple {F64_SIZE[0]}x{F64_SIZE[1]} x {F64_SPP} spp "
+          f"(accel='flat') against the float32 kernel render: mean |diff| {diff.mean():.3g}, "
+          f"max {diff.max():.3g} (gate: mean < 2e-3, max < 0.05)", flush=True)
+
+
 def main():
     try:
         import torch
@@ -869,6 +1315,8 @@ def main():
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
     _linear_vs_flat(dev, textured, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
     phase_gradients(dev)
+    phase_multi_device(dev, path_counts)
+    phase_checks(dev)
     phase_device_times(timing, RenderConfig(device=dev))
 
     kernels = []

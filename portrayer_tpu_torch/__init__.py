@@ -20,6 +20,18 @@ or a PNG path.  ``ops.trace.trace`` is differentiable by
 tables: give ``SceneTables.replace`` a tensor that requires grad, trace
 with the new tables, and call ``backward``.  ``RenderConfig.soft_visibility``
 makes silhouettes differentiable too.
+
+``parallel`` splits rays over devices, one process per device joined by
+``torch.distributed`` (NCCL on the card, gloo on the CPU or for ranks that
+share a card): ``trace_sharded``, ``render_tiles_sharded``,
+``render_frame_distributed`` and ``train_step``, whose gradients do not
+depend on the world size.  ``accel="beam"`` runs the JAX package's beam
+sweep in plain torch ops; ``RenderConfig(dtype=torch.float64,
+accel="flat")`` is the float64 check mode; ``render_bounding_volumes``
+renders meshes as their boxes; the render entry points take a
+``reporter`` (``reporter.py``); ``debug`` holds ``checked_trace`` (the
+first op that makes a NaN), ``queue_overflow_fraction`` and
+``assert_image_finite``.
 """
 
 from .config import (
@@ -30,6 +42,7 @@ from .config import (
 )
 from .camera import Camera, CameraSettings
 from .render import Image, render_linear, render_u8, finalize, to_u8
+from .reporter import Reporter, RenderProgress, NullProgress
 from .scene import (
     Scene, SceneNode, Geometry, Sphere, Cube, Plane, Cylinder, Cone, Torus,
     Mesh, KDMesh, MeshData, Shading, Triangle, Material, Light, Falloff, Parallelogram,
@@ -44,6 +57,7 @@ __all__ = [
     "DIAMOND_REFRACTION_INDEX",
     "Camera", "CameraSettings",
     "Image", "render_linear", "render_u8", "finalize", "to_u8",
+    "Reporter", "RenderProgress", "NullProgress",
     "Scene", "SceneNode", "Geometry",
     "Sphere", "Cube", "Plane", "Cylinder", "Cone", "Torus",
     "Mesh", "KDMesh", "MeshData", "Shading", "Triangle",

@@ -23,17 +23,16 @@ class CameraSettings:
 
 
 class Camera:
-    def __init__(self, settings: CameraSettings, size, device):
+    def __init__(self, settings: CameraSettings, size, device, dtype=torch.float32):
         width, height = size
         self.width = float(width)
         self.height = float(height)
         self.aspect = self.width / self.height
         self.fov_factor = float(np.tan(settings.fovy / 2.0))
         v2w = m3.invert(m3.look_at_rh(settings.eye, settings.center, settings.up))
-        self.eye = torch.as_tensor(np.asarray(settings.eye), dtype=torch.float32,
-                                   device=device)
-        self.view_to_world = torch.as_tensor(m3.to_affine34(v2w), dtype=torch.float32,
-                                             device=device)
+        self.eye = torch.as_tensor(np.asarray(settings.eye), dtype=dtype, device=device)
+        self.view_to_world = torch.as_tensor(m3.to_affine34(v2w), dtype=dtype, device=device)
+        self.dtype = dtype
 
     def rays_at(self, x, y):
         """Primary rays through sample positions x, y [R] (pixels).

@@ -3,7 +3,8 @@
 The reference constants and the ``SAMPLES`` env semantics are the JAX
 package's.  The TPU tuning knobs (Pallas block/slab sizes, queue slicing,
 remat, scan unrolling) have no meaning here and are gone; ``device`` and
-``accel`` choose where and through which sweep the port runs.
+``accel`` choose where and through which sweep the port runs, ``dtype``
+in which precision.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ WINDOW_GLASS_REFRACTION_INDEX = 1.51
 OPTICAL_GLASS_REFRACTION_INDEX = 1.92
 DIAMOND_REFRACTION_INDEX = 2.42
 
-ACCELS = ("flat", "cuda")
+ACCELS = ("flat", "cuda", "beam")
+DTYPES = (torch.float32, torch.float64)
 
 
 def _env_samples(default: int = 100) -> int:
@@ -101,14 +103,44 @@ class RenderConfig:
     # 0 (default) = exact reference semantics.
     soft_visibility: float = 0.0
 
+    # Debug: render every mesh as its AABB cube instead of its triangles,
+    # the reference's `render_bounding_volumes` cargo feature
+    # (src/primitive/mesh.rs:170-176).  Applied when the renderer is given
+    # a Scene (not tables).
+    render_bounding_volumes: bool = False
+
     # "cuda": the hand-written sweep kernel on CUDA tensors (its plain
-    # PyTorch version on CPU tensors); "flat": the brute-force oracle.
+    # PyTorch version on CPU tensors); "flat": the brute-force oracle;
+    # "beam": the ordered warp-beam sweep of ops/beam.py for nearest hits
+    # on scenes of at least beam_min_prims nodes + mesh pairs (the flat
+    # sweep below that, and for shadow rays through the nearest query).
     accel: str = "cuda"
+
+    # Compute dtype of the ray pipeline.  float64 is the check mode: the
+    # same jitter and shading draws (made in float32, then cast) in double
+    # precision, to hold the float32 render against.  The sweep kernel is
+    # float32 only, so float64 needs accel="flat" or "beam".
+    dtype: torch.dtype = torch.float32
+
+    # Beam sweep: rays per warp, candidates per step of a warp's ordered
+    # sweep, and the scene size (nodes + mesh pairs) from which
+    # accel="beam" uses it.  n_segments is kept for the JAX package's
+    # signature; its beam sweep does not read it either.
+    warp_size: int = 256
+    n_segments: int = 16
+    beam_chunk: int = 64
+    beam_min_prims: int = 192
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
         if self.accel not in ACCELS:
             raise ValueError(f"accel must be one of {ACCELS}, got {self.accel!r}")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {self.dtype!r}")
+        if self.dtype == torch.float64 and self.accel == "cuda":
+            raise ValueError(
+                "RenderConfig(dtype=torch.float64): the sweep kernel (accel='cuda') is "
+                "float32 only; pass accel='flat' (or 'beam') for the float64 check mode")
         if self.queue_caps is not None and len(self.queue_caps) == 0:
             raise ValueError("queue_caps must be None or non-empty")
 

@@ -41,6 +41,10 @@ GROUP = 32
 # caller zeroes them (reset_counts) before a run and reads them after it.
 COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0}
 
+# The kernel reads ray i's origin at o[3 * i + 2] with a 32-bit int: a
+# launch of this many rays or more would overflow it.
+MAX_LAUNCH_RAYS = (2 ** 31 - 1) // 3
+
 
 def reset_counts():
     for k in COUNTS:
@@ -578,10 +582,14 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
         return intersect_scene_sweep_ref(o, d, t_min, t_max, st, cfg, active=active,
                                          src_node=src_node, src_tri=src_tri,
                                          any_hit=any_hit)
+    R = o.shape[0]
+    if R >= MAX_LAUNCH_RAYS:
+        raise ValueError(f"sweep kernel: {R} rays in one launch; it indexes rays with a "
+                         f"32-bit int and takes fewer than {MAX_LAUNCH_RAYS} rays: split "
+                         f"the launch")
     from .. import _build
 
     lib = _build.load()
-    R = o.shape[0]
     pk = st.packed
     o, d = o.detach(), d.detach()
     if isinstance(t_min, torch.Tensor):

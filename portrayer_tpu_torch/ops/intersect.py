@@ -13,7 +13,10 @@ test (triangle.rs:39-80).
 
 ``accel="cuda"`` sends nearest and any-hit queries to the sweep in
 ``cuda_intersect`` (its kernel on CUDA tensors, its plain version on CPU
-tensors); ``accel="flat"`` keeps them here.
+tensors); ``accel="beam"`` sends nearest queries (and shadow rays, as
+nearest queries) to the beam sweep of ``ops/beam.py`` on scenes of at
+least ``cfg.beam_min_prims`` nodes + mesh pairs; ``accel="flat"`` and
+smaller scenes stay here.
 
 Gradients: every sweep only selects the winners and returns tensors
 without a graph; ``hit_detail`` recomputes the winner's t from the tables,
@@ -396,6 +399,11 @@ def intersect_scene(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
 
         return intersect_scene_cuda(o, d, t_min, t_max, st, cfg, active=active,
                                     src_node=src_node, src_tri=src_tri)
+    if cfg.accel == "beam" and st.n_nodes + st.n_pairs >= cfg.beam_min_prims:
+        from .beam import intersect_scene_beam
+
+        return intersect_scene_beam(o, d, t_min, t_max, st, cfg, active=active,
+                                    src_node=src_node, src_tri=src_tri)
     return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node, src_tri)
 
 
@@ -410,7 +418,8 @@ def occluded(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
         return intersect_scene_cuda(o, d, t_min, t_max, st, cfg, active=active,
                                     src_node=src_node, src_tri=src_tri,
                                     any_hit=True).hit
-    return _flat_intersect(o, d, t_min, t_max, st, cfg, active, src_node, src_tri).hit
+    return intersect_scene(o, d, t_min, t_max, st, cfg, active=active, src_node=src_node,
+                           src_tri=src_tri).hit
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Where the render's time goes on one CUDA device.
 
     python3 -m portrayer_tpu_torch.profile_render [--scene big-scene] [--out out/profile]
+        [--one-shard SPP]
 
 A scene that is not registered goes through ``profile(spec, out)`` with
 its ``scenes.SceneSpec``, e.g. the inline procedural-meshes scene:
@@ -21,6 +22,10 @@ and memset intervals), the device's busy share of the traced wall, the
 number of kernel launches, the sweep kernels' share, and the kernels that
 take the most time.  ``--out`` receives the summary as JSON and the trace
 (gzipped Chrome trace format).
+
+``--one-shard SPP`` profiles the whole frame at SPP instead, traced in
+one ``trace`` call through ``parallel.render_frame_distributed`` at world
+size 1 (one chunk), to set against the tiled render's chunks.
 """
 
 from __future__ import annotations
@@ -82,27 +87,35 @@ def summarize_trace(trace: dict, wall_ms: float, n_chunks: int, top: int = 12) -
     }
 
 
-def profile(spec, out=os.path.join("out", "profile")) -> dict:
+def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dict:
     """Profile the render of SceneSpec `spec` on CUDA device 0 (see the
     module docstring); writes the summary and trace under `out`."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from . import RenderConfig, render_u8
+    from . import RenderConfig, flatten_scene, parallel, render_u8
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
     dev = torch.device("cuda", 0)
     w, h = spec.size
-    cfg = RenderConfig(device=dev, samples=SPP, max_rays_per_launch=131072)
+    spp = one_shard_spp or SPP
+    cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=131072)
     th, tw = cfg.tile
-    y0 = (-(-h // th) - 1) // 2 * th
-    region = ((0, y0), (w - 1, min(y0 + th, h) - 1))
-    tiles = -(-w // tw)
-    chunks = tiles * -(-SPP // max(1, cfg.max_rays_per_launch // (th * tw)))
-    render = lambda stats=None: render_u8(spec.scene, spec.camera, (w, h), spec.background,
-                                          cfg, region=region, stats=stats)
-
     stats = []
+    if one_shard_spp:
+        y0, region, tiles, chunks = 0, ((0, 0), (w - 1, h - 1)), 1, 1
+        st = flatten_scene(spec.scene, dev)
+        mesh = parallel.make_mesh(1, device="cuda")
+        render = lambda stats=None: parallel.render_frame_distributed(
+            mesh, st, spec.camera, (w, h), spec.background, cfg)
+    else:
+        y0 = (-(-h // th) - 1) // 2 * th
+        region = ((0, y0), (w - 1, min(y0 + th, h) - 1))
+        tiles = -(-w // tw)
+        chunks = tiles * -(-spp // max(1, cfg.max_rays_per_launch // (th * tw)))
+        render = lambda stats=None: render_u8(spec.scene, spec.camera, (w, h),
+                                              spec.background, cfg, region=region, stats=stats)
+
     render(stats)  # builds the kernel, warms the allocator, counts the rounds
     torch.cuda.synchronize()
     walls = []
@@ -125,13 +138,16 @@ def profile(spec, out=os.path.join("out", "profile")) -> dict:
             raw = f.read()
     summary = summarize_trace(json.loads(raw), traced_ms, chunks)
     summary.update(
-        scene=spec.name, card=torch.cuda.get_device_name(dev), spp=SPP,
-        rows=(y0, region[1][1]),
+        scene=spec.name, card=torch.cuda.get_device_name(dev), spp=spp,
+        one_shard=bool(one_shard_spp), rows=(y0, region[1][1]),
         untraced_wall_ms=walls, untraced_wall_ms_median=statistics.median(walls),
         untraced_ms_per_chunk=statistics.median(walls) / chunks,
-        rounds_per_chunk=sum(int((s.live > 0).sum()) for s in stats) / chunks,
-        host_syncs_per_chunk=sum(s.syncs for s in stats) / chunks,
-        live_per_round=[int(n) for n in sum(s.live for s in stats)])
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    if stats:
+        summary.update(
+            rounds_per_chunk=sum(int((s.live > 0).sum()) for s in stats) / chunks,
+            host_syncs_per_chunk=sum(s.syncs for s in stats) / chunks,
+            live_per_round=[int(n) for n in sum(s.live for s in stats)])
 
     os.makedirs(out, exist_ok=True)
     with gzip.open(os.path.join(out, "trace.json.gz"), "wb") as f:
@@ -139,9 +155,14 @@ def profile(spec, out=os.path.join("out", "profile")) -> dict:
     with open(os.path.join(out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     s = summary
-    print(f"[profile] {spec.name} rows {y0}..{region[1][1]}, {tiles} tiles x {SPP} spp = "
-          f"{chunks} chunks of {th * tw * min(SPP, cfg.max_rays_per_launch // (th * tw))} "
-          f"rays on {s['card']}")
+    if one_shard_spp:
+        print(f"[profile] {spec.name} {w}x{h} x {spp} spp in one trace ({w * h * spp} rays, "
+              f"render_frame_distributed at world size 1) on {s['card']}; peak memory "
+              f"{s['peak_gib']:.3f} GiB")
+    else:
+        print(f"[profile] {spec.name} rows {y0}..{region[1][1]}, {tiles} tiles x {spp} spp = "
+              f"{chunks} chunks of {th * tw * min(spp, cfg.max_rays_per_launch // (th * tw))} "
+              f"rays on {s['card']}")
     print(f"[profile] untraced wall {', '.join(f'{x:.3f}' for x in walls)} ms "
           f"(median {s['untraced_wall_ms_median']:.3f} ms, {s['untraced_ms_per_chunk']:.3f} "
           f"ms per chunk)")
@@ -150,8 +171,10 @@ def profile(spec, out=os.path.join("out", "profile")) -> dict:
           f"launches ({s['kernel_launches_per_chunk']:.1f} per chunk), {s['kernel_ms']:.3f} ms")
     print(f"[profile] sweep kernels: {s['sweep_launches']} launches, {s['sweep_ms']:.3f} ms "
           f"({s['sweep_ms'] / max(s['device_ms'], 1e-9):.1%} of device time)")
-    print(f"[profile] bounce rounds {s['rounds_per_chunk']:.2f} and host syncs "
-          f"{s['host_syncs_per_chunk']:.2f} per chunk; live rays per round {s['live_per_round']}")
+    if stats:
+        print(f"[profile] bounce rounds {s['rounds_per_chunk']:.2f} and host syncs "
+              f"{s['host_syncs_per_chunk']:.2f} per chunk; live rays per round "
+              f"{s['live_per_round']}")
     for k in s["top_kernels"]:
         print(f"[profile]   {k['ms']:9.3f} ms {k['launches']:7d} x  {k['name'][:110]}")
     return summary
@@ -163,8 +186,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", default="big-scene", choices=scenes.names())
     ap.add_argument("--out", default=os.path.join("out", "profile"))
+    ap.add_argument("--one-shard", type=int, default=None, metavar="SPP",
+                    help="the whole frame at SPP in one trace (see the module docstring)")
     args = ap.parse_args(argv)
-    return profile(scenes.load(args.scene), args.out)
+    return profile(scenes.load(args.scene), args.out, args.one_shard)
 
 
 if __name__ == "__main__":

@@ -51,13 +51,15 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.tensor(threefry2x32(k1, k2, 0, int(data) & _M), dtype=torch.int64)
 
 
-def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
-    """jax.random.uniform(key, shape, float32) in [0, 1), drawn on device."""
+def uniform(key: torch.Tensor, shape, device, start: int = 0) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32) in [0, 1), drawn on device.
+    With `start`, the draws of a larger array from flat position `start`
+    on (rows [lo, lo + shape[0]) of a [R, k] draw: start = lo * k)."""
     k1, k2 = (int(v) for v in key.tolist())
     n = 1
     for s in shape:
         n *= int(s)
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    lo = torch.arange(start, start + n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return _bits_to_unit(b1 ^ b2).reshape(tuple(shape))
 

@@ -692,20 +692,23 @@ def _build_atlas(images: List):
 
 
 def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
-                      device) -> SceneTables:
+                      device, dtype=torch.float32) -> SceneTables:
     """SceneTables on `device` from numpy arrays named as the JAX package's
     fields (``packed.f32`` etc. for the packed table) and the static
     metadata of META_FIELDS.  Carries the JAX package's own tables across,
     so that a sweep mismatch can never be a table mismatch.  The JAX
     package's procedural textures are jnp callables: pass torch ones as
-    ``meta["fn_textures"]`` to render with them here."""
+    ``meta["fn_textures"]`` to render with them here.  Float tables take
+    `dtype`; the packed table, which only the float32 sweep kernel reads,
+    stays float32."""
 
     def t(name, x):
         base = name.split(".")[-1]
-        dtype = (torch.int32 if base in _INT_FIELDS else
-                 torch.bool if base in _BOOL_FIELDS else
-                 torch.uint8 if base in _U8_FIELDS else torch.float32)
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+        dt = (torch.int32 if base in _INT_FIELDS else
+              torch.bool if base in _BOOL_FIELDS else
+              torch.uint8 if base in _U8_FIELDS else
+              torch.float32 if name.startswith("packed.") else dtype)
+        return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
     packed = PackedPrims(
         **{k: t(f"packed.{k}", arrays[f"packed.{k}"]) for k in PACKED_FIELDS},
@@ -725,11 +728,11 @@ def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
     )
 
 
-def flatten_scene(scene: Scene, device="cuda") -> SceneTables:
+def flatten_scene(scene: Scene, device="cuda", dtype=torch.float32) -> SceneTables:
     """Lower `scene` to SceneTables on `device` (same tables as
-    ``portrayer_tpu.flatten_scene``)."""
+    ``portrayer_tpu.flatten_scene``), float tables in `dtype`."""
     arrays, meta = _flatten_numpy(scene)
-    return tables_from_numpy(arrays, meta, device)
+    return tables_from_numpy(arrays, meta, device, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -132,3 +132,37 @@ class Scene:
         if ambient.ndim == 0:
             ambient = np.full(3, float(ambient))
         self.ambient = ambient
+
+
+def bounding_volume_scene(scene: Scene) -> Scene:
+    """Debug lowering: every Mesh geometry replaced by its local-space AABB
+    rendered as a Cube of the same material, the reference's
+    `render_bounding_volumes` cargo feature (src/primitive/mesh.rs:170-176,
+    src/bounding_box.rs:150-163).  Instanced subtrees stay shared and the
+    input scene is not changed.  A flat box gets the EPSILON size floor of
+    src/bounding_box.rs:61-63."""
+    from ..config import EPSILON
+
+    memo = {}
+
+    def conv(node: SceneNode) -> SceneNode:
+        if id(node) in memo:
+            return memo[id(node)]
+        new = SceneNode()
+        memo[id(node)] = new
+        new.trans = np.array(node.trans)
+        if node.geometry is not None:
+            prim = node.geometry.primitive
+            if isinstance(prim, Mesh):
+                data = prim.data
+                center = (data.bounds_min + data.bounds_max) / 2.0
+                extent = np.maximum(data.bounds_max - data.bounds_min, EPSILON)
+                box = SceneNode(Geometry(Cube(), node.geometry.material))
+                box.trans = m3.translation(center) @ m3.scaling(extent)
+                new.children.append(box)
+            else:
+                new.geometry = node.geometry
+        new.children.extend(conv(ch) for ch in node.children)
+        return new
+
+    return Scene(conv(scene.root), scene.lights, scene.ambient)

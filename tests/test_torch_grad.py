@@ -1,6 +1,7 @@
 """Gradients through the port's bounce loop, on the CPU, mirroring
 tests/test_grad.py: against the JAX package's gradients on the same tables
-and rays for every field of its DIFF_FIELDS, against central finite
+and rays for every field of DIFF_FIELDS (the port's parallel.DIFF_FIELDS;
+tests/test_torch_parallel.py holds it equal to the JAX package's), against central finite
 differences, the sweep's plain version against the flat sweep, silhouette
 gradients with soft visibility, and tables replaced without stale records.
 
@@ -29,11 +30,11 @@ import portrayer_tpu as P
 from portrayer_tpu.camera import Camera as JaxCamera
 from portrayer_tpu.ops import intersect as jx
 from portrayer_tpu.ops.trace import trace as jax_trace
-from portrayer_tpu.parallel.sharding import DIFF_FIELDS
 import portrayer_tpu_torch as T
 from portrayer_tpu_torch import rng, scenes as tscenes
 from portrayer_tpu_torch.ops import intersect as tx
 from portrayer_tpu_torch.ops.trace import trace
+from portrayer_tpu_torch.parallel import DIFF_FIELDS
 
 from _torch_jax import INLINE, jax_arrays, torus_nodes, TORUS_TOL
 

@@ -1,8 +1,8 @@
 """The port's intersection against the JAX package on the same rays and
 the same tables (carried across by tables_from_numpy): candidate
 functions, the flat sweep and occlusion query, winner_t and hit_detail,
-and the sweep kernel's plain version against the JAX Pallas kernel run in
-interpret mode.
+the sweep kernel's plain version against the JAX Pallas kernel run in
+interpret mode, and the beam sweep against the JAX package's.
 
 Tolerances: the JAX package's kernel gates (tests/test_pallas.py) — .hit
 equal; node mismatches on at most 0.2% of hits and only within 2*2^-16
@@ -11,7 +11,10 @@ JAX package's torus gate (tests/test_torus.py), rtol 1e-3 / atol 1e-3,
 since the f32 quartic's root moves with rounding.  XLA on the CPU
 contracts mul+add into FMA and divides by constants through reciprocals,
 so values agree to f32 rounding, not bit for bit.  The JAX side runs op by
-op (no jit), where XLA fuses least."""
+op (no jit), where XLA fuses least.  The beam sweep against JAX's beam
+sweep and the port's flat sweep: the gates of tests/test_beam.py (.hit
+equal, t within rtol 1e-4 / atol 1e-5, a node mismatch only on a tie
+within 1e-4 relative t)."""
 
 import dataclasses
 
@@ -26,8 +29,12 @@ import portrayer_tpu as P
 from portrayer_tpu.camera import Camera as JaxCamera
 from portrayer_tpu.ops import intersect as jx
 from portrayer_tpu.ops.pallas_intersect import intersect_scene_pallas
+from portrayer_tpu.ops.beam import intersect_scene_beam as jax_beam
 import portrayer_tpu_torch as T
+from portrayer_tpu_torch import _build, scenes as tscenes
 from portrayer_tpu_torch.ops import intersect as tx
+from portrayer_tpu_torch.ops import cuda_intersect
+from portrayer_tpu_torch.ops.beam import intersect_scene_beam
 from portrayer_tpu_torch.ops.cuda_intersect import (
     intersect_scene_cuda, intersect_scene_sweep_ref,
 )
@@ -379,3 +386,105 @@ def test_torus_root_is_the_jax_quartic_op_for_op():
     assert (np.isfinite(ref) != np.isfinite(got)).mean() < 1e-3
     assert (got[both] == ref[both]).mean() >= 0.99
     np.testing.assert_allclose(got[both], ref[both], rtol=TORUS_TOL, atol=TORUS_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Beam sweep (tests/test_beam.py's cases; its knobs)
+# ---------------------------------------------------------------------------
+
+J_BEAM = P.RenderConfig(accel="beam", warp_size=64, n_segments=8, beam_chunk=64)
+T_BEAM = T.RenderConfig(device="cpu", accel="beam", warp_size=64, n_segments=8, beam_chunk=64)
+
+
+def _beam_gates(ref, got):
+    """tests/test_beam.py's gates."""
+    m = np.asarray(ref.hit)
+    np.testing.assert_array_equal(m, np.asarray(got.hit))
+    rt, gt = np.asarray(ref.t)[m], np.asarray(got.t)[m]
+    np.testing.assert_allclose(gt, rt, rtol=1e-4, atol=1e-5)
+    mism = np.asarray(ref.node)[m] != np.asarray(got.node)[m]
+    tie = np.abs(rt - gt) <= 1e-4 * np.maximum(np.abs(rt), 1.0)
+    assert np.all(~mism | tie)
+
+
+def _beam_rays(name, n, seed, scattered):
+    """tests/test_beam.py::_compare's rays: camera rays through uniform
+    image points or, scattered, from 0.7 of the way to their flat hits
+    along random unit directions (incoherent)."""
+    scene, camera, (w, h) = jax_scene(name)
+    js = P.flatten_scene(scene, dtype=jnp.float32)
+    key = jax.random.PRNGKey(seed)
+    xs = jax.random.uniform(jax.random.fold_in(key, 0), (n,)) * w
+    ys = jax.random.uniform(jax.random.fold_in(key, 1), (n,)) * h
+    o, d = JaxCamera(camera, (w, h), dtype=jnp.float32).rays_at(xs, ys)
+    if scattered:
+        hit = jx.intersect_scene(o, d, 1e-5, jnp.inf, js, J_FLAT)
+        o = o + jnp.where(hit.hit, hit.t, 1.0)[:, None] * d * 0.7
+        d = jax.random.normal(jax.random.fold_in(key, 2), (n, 3))
+        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
+    return js, np.array(o), np.array(d)
+
+
+@pytest.mark.parametrize("name, scattered", [("big-scene", False), ("big-scene", True),
+                                             ("procedural-meshes", False),
+                                             ("procedural-meshes", True)])
+def test_beam_matches_jax_beam_and_port_flat(name, scattered):
+    js, o, d = _beam_rays(name, 512, 0, scattered)
+    ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
+    assert ts.n_nodes + ts.n_pairs >= T_BEAM.beam_min_prims
+    stats = {}
+    got = intersect_scene_beam(_t(o), _t(d), 1e-5, INF, ts, T_BEAM, stats=stats)
+    assert np.asarray(got.hit).mean() > 0.1 and stats["trips"] > 0
+    _beam_gates(jax_beam(o, d, 1e-5, jnp.inf, js, J_BEAM), got)
+    _beam_gates(tx.intersect_scene(_t(o), _t(d), 1e-5, INF, ts, T_FLAT), got)
+    # The dispatch: accel="beam" reaches it for nearest and any-hit queries.
+    via = tx.intersect_scene(_t(o), _t(d), 1e-5, INF, ts, T_BEAM)
+    np.testing.assert_array_equal(via.t.numpy(), got.t.numpy())
+    np.testing.assert_array_equal(tx.occluded(_t(o), _t(d), 1e-5, INF, ts, T_BEAM).numpy(),
+                                  got.hit.numpy())
+
+
+def test_beam_with_sources_matches_jax():
+    """Shadow rays leaving their hit surfaces (src_node / src_tri), on the
+    mesh scene, whose source is an (instance, triangle) pair."""
+    js, ts, _, sh = setup("procedural-meshes")
+    src = dict(active=sh["active"], src_node=sh["src_node"], src_tri=sh["src_tri"])
+    ref = jax_beam(sh["o"], sh["d"], sh["t_min"], jnp.inf, js, J_BEAM, **src)
+    got = intersect_scene_beam(_t(sh["o"]), _t(sh["d"]), _t(sh["t_min"]), INF, ts, T_BEAM,
+                               **{k: _t(v) for k, v in src.items()})
+    _beam_gates(ref, got)
+
+
+def test_beam_render_matches_flat_render_and_small_scenes_stay_flat():
+    """tests/test_beam.py's render check on simple (beam_min_prims=1 sends
+    its nine nodes through the beam sweep), and simple under the default
+    beam_min_prims renders through the flat sweep."""
+    spec = tscenes.load("simple")
+    args = (spec.scene, spec.camera, (48, 40), spec.background)
+    kw = dict(device="cpu", samples=2, tile=(32, 32))
+    flat = T.render_linear(*args, T.RenderConfig(accel="flat", **kw))
+    beam = T.render_linear(*args, T.RenderConfig(accel="beam", beam_min_prims=1, warp_size=64,
+                                                 **kw))
+    np.testing.assert_allclose(beam, flat, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(T.render_linear(*args, T.RenderConfig(accel="beam", **kw)),
+                                  flat)
+
+
+def test_kernel_wrapper_refuses_a_launch_past_its_index_range(monkeypatch):
+    """The kernel indexes rays with a 32-bit int (o[3 * i + 2]): the wrapper
+    refuses MAX_LAUNCH_RAYS rays or more before it builds or launches
+    anything.  The shape is faked: a tensor that says it lies on the card
+    and has that many rows."""
+    assert cuda_intersect.MAX_LAUNCH_RAYS == (2 ** 31 - 1) // 3
+
+    class _Fake:
+        device = torch.device("cuda", 0)
+        shape = (cuda_intersect.MAX_LAUNCH_RAYS, 3)
+
+    monkeypatch.setattr(_build, "load", lambda: pytest.fail("built the kernel"))
+    st = T.flatten_scene(tscenes.load("simple").scene, "cpu")
+    with pytest.raises(ValueError, match="715827882 rays"):
+        intersect_scene_cuda(_Fake(), _Fake(), 1e-5, INF, st, T_SWEEP)
+    _Fake.shape = (cuda_intersect.MAX_LAUNCH_RAYS - 1, 3)
+    with pytest.raises(pytest.fail.Exception, match="built the kernel"):
+        intersect_scene_cuda(_Fake(), _Fake(), 1e-5, INF, st, T_SWEEP)

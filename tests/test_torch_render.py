@@ -14,6 +14,10 @@ Tolerances, with their reasons:
   big-scene 0.42% of pixels, max 9.6e-3).
 - u8 images: the self-golden rule of tests/test_golden.py, fewer than 0.1%
   of pixels off by more than 2/255.
+- The float64 check mode against the JAX package's under x64: atol 1e-9
+  (measured 7e-13: both round every op in float64); against the port's
+  float32 render, the JAX package's own gate (tests/test_render.py:141-144,
+  mean < 2e-3 and max < 0.05).
 """
 
 import os
@@ -140,6 +144,46 @@ def test_config_needs_a_device_and_a_known_accel():
             T.render_u8(spec.scene, spec.camera, (8, 8), spec.background)
 
 
+@pytest.mark.parametrize("name, size", [("simple", (48, 36)), ("glossy-reflection", (32, 24)),
+                                        ("four-shapes", (32, 24))])
+def test_float64_check_mode_matches_jax_x64_and_float32(name, size):
+    """dtype=float64 threads through the camera, the tables, the sweep,
+    shading and the render; its jitter and glossy draws are the float32
+    ones, cast."""
+    import jax
+    import jax.numpy as jnp
+
+    spec = tscenes.load(name)
+    kw = dict(device="cpu", samples=2, tile=(48, 48), accel="flat")
+    args = (spec.scene, spec.camera, size, spec.background)
+    img64 = T.render_linear(*args, T.RenderConfig(dtype=torch.float64, **kw))
+    img32 = T.render_linear(*args, T.RenderConfig(**kw))
+    jspec = scenes.load(name)
+    with jax.enable_x64(True):
+        ref = P.render_linear(jspec.scene, jspec.camera, size, jspec.background,
+                              P.RenderConfig(samples=2, tile=(48, 48), accel="flat",
+                                             dtype=jnp.float64))
+    assert img64.dtype == np.float64
+    np.testing.assert_allclose(img64, ref, rtol=0, atol=1e-9)
+    diff = np.abs(img64 - img32)
+    assert diff.mean() < 2e-3 and diff.max() < 0.05, (diff.mean(), diff.max())
+    assert diff.max() > 0  # the two precisions really differ
+
+
+def test_float64_refuses_the_kernel():
+    """The sweep kernel is float32 only: float64 with accel="cuda" (the
+    default) raises at construction, naming accel="flat"; no hidden
+    fallback."""
+    with pytest.raises(ValueError, match="accel='flat'"):
+        T.RenderConfig(dtype=torch.float64)
+    with pytest.raises(ValueError, match="accel='flat'"):
+        T.RenderConfig(device="cpu", dtype=torch.float64, accel="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        T.RenderConfig(device="cpu", dtype=torch.float16, accel="flat")
+    assert T.RenderConfig(device="cpu", dtype=torch.float64, accel="beam").dtype == torch.float64
+    assert T.RenderConfig().dtype == torch.float32
+
+
 def test_config_defaults_to_the_card():
     """RenderConfig() names cuda; a caller asks for the CPU by name."""
     assert T.RenderConfig().device.type == "cuda"
@@ -171,8 +215,10 @@ def test_png_io_against_pil():
 def test_port_imports_no_jax():
     """`import portrayer_tpu_torch`, a CPU render of each of its scenes and
     of the textured and area-lit stand-ins of tests/_torch_jax.py (which
-    chip_smoke.py imports on the card) and a gradient through trace leave
-    JAX, flax, PIL and the JAX package out of sys.modules."""
+    chip_smoke.py imports on the card), a gradient through trace, and the
+    parallel, debug, reporter and beam modules (a one-rank train_step
+    through the beam sweep, a checked trace) leave JAX, flax, PIL and the
+    JAX package out of sys.modules."""
     code = (
         "import sys\n"
         "import portrayer_tpu_torch as T\n"
@@ -188,7 +234,8 @@ def test_port_imports_no_jax():
         "    scene, cam, _ = INLINE[name](T)\n"
         "    T.render_u8(scene, cam, (12, 8), cfg=T.RenderConfig(device='cpu', samples=1))\n"
         "import torch\n"
-        "from portrayer_tpu_torch import rng\n"
+        "from portrayer_tpu_torch import rng, parallel, debug, reporter\n"
+        "from portrayer_tpu_torch.ops import beam\n"
         "from portrayer_tpu_torch.ops.trace import trace\n"
         "st = T.flatten_scene(scenes.load('simple').scene, 'cpu')\n"
         "x = st.mat_diffuse.clone().requires_grad_()\n"
@@ -198,6 +245,12 @@ def test_port_imports_no_jax():
         "            T.RenderConfig(device='cpu', soft_visibility=0.05))\n"
         "acc.sum().backward()\n"
         "assert x.grad.abs().sum() > 0\n"
+        "mesh = parallel.make_mesh(device='cpu')\n"
+        "cfg = T.RenderConfig(device='cpu', accel='beam', beam_min_prims=1)\n"
+        "loss, g = parallel.train_step(mesh, rng.PRNGKey(0), o, d, pix, torch.zeros(4, 3), 4, 1,\n"
+        "                              torch.zeros(4, 3), st, cfg)\n"
+        "err, _ = debug.checked_trace(rng.PRNGKey(0), o, d, pix, torch.zeros(4, 3), 4, st, cfg)\n"
+        "err.throw()\n"
         "bad = [m for m in ('jax', 'flax', 'PIL', 'portrayer_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

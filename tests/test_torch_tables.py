@@ -1,6 +1,7 @@
 """The port's scene lowering produces the JAX package's tables array for
-array, texture atlases included; tables_from_numpy carries the JAX tables
-across unchanged."""
+array, texture atlases included, in float32 and in the float64 check mode;
+tables_from_numpy carries the JAX tables across unchanged; the
+bounding-volume debug lowering makes the JAX package's scene."""
 
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ from portrayer_tpu.scene.flatten import node_record as jax_node_record
 import portrayer_tpu_torch as T
 from portrayer_tpu_torch import scenes as tscenes
 from portrayer_tpu_torch.scene.flatten import (
-    TABLE_FIELDS, PACKED_FIELDS, PACKED_KIND_NAMES, tables_from_numpy,
+    TABLE_FIELDS, PACKED_FIELDS, PACKED_KIND_NAMES, MESH, CUBE, tables_from_numpy,
 )
 
 from _torch_jax import INLINE, checker, jax_arrays
@@ -131,3 +132,79 @@ def test_tables_without_textures_carry_empty_atlases():
     assert ts.tex_data.tolist() == ts.nm_data.tolist() == [[0, 0, 0]]
     assert ts.tex_meta.tolist() == ts.nm_meta.tolist() == [[0, 0, 0]]
     assert not ts.any_image_tex and not ts.any_normal_map and ts.fn_textures == ()
+
+
+def test_float64_lowering_equals_jax_x64():
+    """RenderConfig(dtype=float64)'s tables: every float table in float64,
+    equal to the JAX package's under x64; the packed table, which only the
+    float32 sweep kernel reads, stays float32."""
+    import jax
+
+    with jax.enable_x64(True):
+        js = P.flatten_scene(scenes.load("four-shapes").scene, dtype=jnp.float64)
+        ts = T.flatten_scene(tscenes.load("four-shapes").scene, "cpu", dtype=torch.float64)
+        for f in TABLE_FIELDS:
+            a, b = np.asarray(getattr(js, f)), getattr(ts, f).numpy()
+            assert a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        np.testing.assert_array_equal(np.asarray(js.packed.f32, np.float32),
+                                      ts.packed.f32.numpy())
+    assert ts.inv.dtype == ts.rec.dtype == ts.trec.dtype == torch.float64
+    assert ts.packed.f32.dtype == ts.packed.chunk_min.dtype == torch.float32
+
+
+def _bv_scene(pkg):
+    """procedural-meshes at its test size (two nodes sharing an icosphere's
+    MeshData, a height field, a standalone triangle) and a flat quad mesh
+    instanced twice through one shared subtree."""
+    scene, cam, _ = INLINE["procedural-meshes"](pkg)
+    quad = pkg.MeshData([(0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (1.0, 0.0, 1.0), (0.0, 0.0, 1.0)],
+                        [(0, 1, 2), (0, 2, 3)])
+    shared = pkg.SceneNode(pkg.Geometry(pkg.Mesh(quad), pkg.Material(diffuse=(0.5, 0.5, 0.5))))
+    scene.root.children += [pkg.SceneNode(shared).translated((x, 1.0, -1.0))
+                            for x in (-2.0, 1.0)]
+    return scene, cam
+
+
+def test_bounding_volume_scene_lowers_as_jax():
+    """Each mesh becomes its local AABB as a cube of its material (the flat
+    quad's with the EPSILON floor), instancing stays shared, and the input
+    scene is unchanged: the same tables as the JAX package's lowering."""
+    from portrayer_tpu.scene.node import bounding_volume_scene as jax_bv
+    from portrayer_tpu_torch.scene.node import bounding_volume_scene
+
+    scene, _ = _bv_scene(T)
+    before = T.flatten_scene(scene, "cpu")
+    boxed = bounding_volume_scene(scene)
+    ts = T.flatten_scene(boxed, "cpu")
+    _assert_tables_equal(P.flatten_scene(jax_bv(_bv_scene(P)[0]), dtype=jnp.float32), ts)
+    # Left as a triangle: the standalone one, a pair of its own.
+    counts = dict((k, n) for k, _, n in ts.groups)
+    assert ts.n_pairs == 1 and counts[MESH] == 1 and counts[CUBE] == 5
+    a, b = boxed.root.children[-2:]
+    assert a.children[0] is b.children[0]
+    flat_box = a.children[0].children[0].trans
+    assert flat_box[1, 1] == T.EPSILON
+    _assert_tables_equal(P.flatten_scene(_bv_scene(P)[0], dtype=jnp.float32), before)
+    _assert_tables_equal(P.flatten_scene(_bv_scene(P)[0], dtype=jnp.float32),
+                         T.flatten_scene(scene, "cpu"))
+
+
+def test_render_bounding_volumes_flag():
+    """RenderConfig(render_bounding_volumes=True) renders the boxed scene
+    when given a Scene (the same image, bit for bit), and tables as they
+    are."""
+    from portrayer_tpu_torch.scene.node import bounding_volume_scene
+
+    scene, cam = _bv_scene(T)
+    cfg = dict(device="cpu", samples=1, tile=(32, 32))
+    flag = T.render_linear(scene, cam, (48, 32),
+                           cfg=T.RenderConfig(render_bounding_volumes=True, **cfg))
+    np.testing.assert_array_equal(
+        flag, T.render_linear(bounding_volume_scene(scene), cam, (48, 32),
+                              cfg=T.RenderConfig(**cfg)))
+    plain = T.render_linear(scene, cam, (48, 32), cfg=T.RenderConfig(**cfg))
+    assert np.abs(flag - plain).max() > 0.01
+    np.testing.assert_array_equal(
+        plain, T.render_linear(T.flatten_scene(scene, "cpu"), cam, (48, 32),
+                               cfg=T.RenderConfig(render_bounding_volumes=True, **cfg)))
