@@ -170,34 +170,34 @@ def render_tiles_sharded(mesh: DeviceMesh, st: SceneTables, camera, size, backgr
     parallelism.  The jitter is the grid's ``uniform(fold_in(key, 0),
     (R, 2))`` (in float32, then cast to cfg.dtype); the grid is padded to
     a multiple of the mesh size with rays of zero throughput and traced
-    keyed ``fold_in(key, 1)``.  Each rank builds only its own rows.
-    Returns the linear mean-radiance image [H,W,3] (numpy, float64), the
-    same on every rank."""
+    keyed ``fold_in(key, 1)``.  Each rank builds only its own rows
+    (``make_global_rays``).  Returns the linear mean-radiance image
+    [H,W,3] (numpy, float64), the same on every rank."""
+    from .distributed import make_global_rays
+
     width, height = size
-    n, r = mesh.size(), mesh.get_local_rank()
     dev, dt = cfg.device, cfg.dtype
     cam = Camera(camera, (width, height), dev, dt)
     spp = cfg.resolved_samples()
     P_ = width * height
     R = P_ * spp
-    per = -(-R // n)
     key = rng.PRNGKey(cfg.seed) if key is None else key
 
-    lo = r * per
-    real = max(0, min(lo + per, R) - lo)
-    ids = torch.arange(lo, lo + real, device=dev)
-    pixn = ids // spp
-    jitter = rng.uniform(rng.fold_in(key, 0), (real, 2), dev, start=2 * lo).to(dt)
-    o, d = cam.rays_at((pixn % width).to(dt) + jitter[:, 0],
-                       (pixn // width).to(dt) + jitter[:, 1])
-    pix = pixn.to(torch.int32)
-    w0 = torch.ones((real,), dtype=dt, device=dev)
-    if real < per:  # padding rays carry zero throughput
+    def make_shard(lo, hi):
+        real = max(0, min(hi, R) - lo)
+        pixn = torch.arange(lo, lo + real, device=dev) // spp
+        jitter = rng.uniform(rng.fold_in(key, 0), (real, 2), dev, start=2 * lo).to(dt)
+        o, d = cam.rays_at((pixn % width).to(dt) + jitter[:, 0],
+                           (pixn // width).to(dt) + jitter[:, 1])
+        # Padding rows carry zero throughput.
         fill = lambda x, v, shape: torch.cat(
             [x, torch.full(shape, v, dtype=x.dtype, device=dev)])
-        pad = per - real
-        o, d = fill(o, 0.0, (pad, 3)), fill(d, 1.0, (pad, 3))
-        pix, w0 = fill(pix, 0, (pad,)), fill(w0, 0.0, (pad,))
+        pad = hi - lo - real
+        return (fill(o, 0.0, (pad, 3)), fill(d, 1.0, (pad, 3)),
+                fill(pixn.to(torch.int32), 0, (pad,)),
+                fill(torch.ones((real,), dtype=dt, device=dev), 0.0, (pad,)))
+
+    o, d, pix, w0 = make_global_rays(mesh, make_shard, R + (-R) % mesh.size(), device=dev)
     bg = background(_pixel_uv(width, height, dt, dev)).to(dt)
     acc = trace_sharded(mesh, rng.fold_in(key, 1), o, d, pix, bg, P_, st, cfg, w0=w0,
                         local=True)

@@ -8,7 +8,7 @@ STORE is the path of a file:// rendezvous store shared by the ranks; with
 WORLD 1 the rank joins nothing and make_mesh forms its own one-rank group.
 IN_NPZ holds the JAX package's rays (o, d, pix, bg, n_pixels) for the
 "trace" task and the 8x8 rays for "train".  TASKS is a comma list of
-trace, train, tiles, frame, four; each writes <task>_r<RANK>.npz into
+trace, train, tiles, frame, pad, four; each writes <task>_r<RANK>.npz into
 OUT_DIR.  Imports torch and the port only.
 """
 
@@ -56,11 +56,8 @@ def main():
                     mesh, rng.PRNGKey(3), t("train_o"), t("train_d"), t("train_pix"),
                     torch.zeros((n, 3)), n, 2, torch.zeros((n, 3)), st, cfg)
                 save(task, loss=loss.numpy(), **{f: g.numpy() for f, g in grads.items()})
-            elif task == "tiles":
-                img = par.render_tiles_sharded(mesh, st, simple.camera, (24, 20),
-                                               simple.background, cfg)
-                save(task, img=img)
-            elif task == "frame":
+            elif task in ("tiles", "frame"):
+                # Record every block of rows built, and by whom.
                 rows = []
                 make = pdist.make_global_rays
 
@@ -72,11 +69,21 @@ def main():
                     return make(mesh, shard, R, device)
 
                 pdist.make_global_rays = recording
-                img = par.render_frame_distributed(par.global_mesh(device="cpu"), st,
-                                                   simple.camera, (32, 32),
+                if task == "tiles":
+                    img = par.render_tiles_sharded(mesh, st, simple.camera, (24, 20),
                                                    simple.background, cfg)
+                else:
+                    img = par.render_frame_distributed(par.global_mesh(device="cpu"), st,
+                                                       simple.camera, (32, 32),
+                                                       simple.background, cfg)
                 pdist.make_global_rays = make
                 save(task, img=img, rows=np.asarray(rows))
+            elif task == "pad":
+                # 5x3 x 1 spp = 15 rays over 4 ranks: one padding row.
+                one = T.RenderConfig(device="cpu", samples=1, accel="flat")
+                args = (st, simple.camera, (5, 3), simple.background, one)
+                save(task, tiles=par.render_tiles_sharded(mesh, *args),
+                     frame=par.render_frame_distributed(mesh, *args))
             elif task == "four":
                 spec = scenes.load("four-shapes")
                 fst = T.flatten_scene(spec.scene, "cpu")

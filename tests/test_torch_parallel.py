@@ -20,8 +20,9 @@ Tolerances, with their reasons:
   tests/test_torch_grad.py (FMA contraction under jit moves hit points
   and x^(4 shininess) highlights).  The port's world sizes 1, 2 and 4
   against each other: 1e-5 of the largest entry (the order of the sums).
-- render_tiles_sharded and render_frame_distributed against JAX's: the
-  image gate above.  Every rank returns the same image, exactly.
+- render_tiles_sharded and render_frame_distributed against JAX's, also
+  with a padded grid: the image gate above.  Every rank returns the same
+  image, exactly.
 - four-shapes sharded through the kernel's plain version against the flat
   sweep: the rtol 2e-4 / atol 2e-4 of tests/test_multichip.py.
 """
@@ -53,7 +54,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_parallel_worker.py")
 JCFG = P.RenderConfig(samples=2, tile=(16, 16), node_chunk=64, accel="flat")
 # Tasks per world size of the port's runs.
-RUNS = {1: "train", 2: "trace,train,tiles,frame,four", 4: "trace,train"}
+RUNS = {1: "train", 2: "trace,train,tiles,frame,four", 4: "trace,train,pad"}
 WORKER_TIMEOUT = 300
 _TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
 
@@ -182,9 +183,15 @@ def test_render_tiles_sharded_matches_jax(port_runs):
     cfg = P.RenderConfig(samples=2, accel="flat", node_chunk=16)
     st = P.flatten_scene(spec.scene, dtype=cfg.dtype)
     ref = render_tiles_sharded(make_mesh(2), st, spec.camera, (24, 20), spec.background, cfg)
-    img = _same_on_every_rank(port_runs[2]["tiles"], "img")
+    runs = port_runs[2]["tiles"]
+    img = _same_on_every_rank(runs, "img")
     assert img.shape == (20, 24, 3) and img.max() > 0
     assert_images_close(img, ref)
+    R = 24 * 20 * 2
+    for rank, run in enumerate(runs):
+        # One make_shard call per rank, for its own block only.
+        np.testing.assert_array_equal(run["rows"], [[rank * R // 2, (rank + 1) * R // 2, R,
+                                                     R // 2]])
 
 
 def test_render_frame_distributed_matches_jax(port_runs):
@@ -203,6 +210,19 @@ def test_render_frame_distributed_matches_jax(port_runs):
         # One make_shard call per rank, for its own block only.
         np.testing.assert_array_equal(run["rows"], [[rank * R // 2, (rank + 1) * R // 2, R,
                                                      R // 2]])
+
+
+def test_sharded_renders_pad_the_grid_as_jax(port_runs):
+    """15 rays over 4 ranks: the padding row carries zero throughput (and,
+    in render_frame_distributed, a pixel id past the frame, which the
+    port clamps where JAX's scatter drops it)."""
+    spec = scenes.load("simple")
+    cfg = P.RenderConfig(samples=1, accel="flat", node_chunk=16)
+    st = P.flatten_scene(spec.scene, dtype=cfg.dtype)
+    args = (make_mesh(4), st, spec.camera, (5, 3), spec.background, cfg)
+    runs = port_runs[4]["pad"]
+    assert_images_close(_same_on_every_rank(runs, "tiles"), render_tiles_sharded(*args))
+    assert_images_close(_same_on_every_rank(runs, "frame"), render_frame_distributed(*args))
 
 
 def test_four_shapes_sharded_plain_sweep_matches_flat(port_runs):
