@@ -54,10 +54,15 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    loss and gradients against the single-process oracle on the card (the
    shards traced one after the other, keys fold_in(key, r), summed) within
    1e-5; wall seconds, Mrays/s, peak memory, kernel launches and the
-   all-reduce's own time of each rank, and beside the one-shard render
-   Image.render's tiled path at the same size and spp.  Then the beam
-   sweep on big-scene's uniform camera rays and their shadow rays, against
-   the flat sweep and the kernel, with its time and loop steps;
+   all-reduce's own time of each rank; the kernel at the one-shard
+   frame's launch sizes (its 8,078,400 camera rays and their 24,235,200
+   shadow rays, one launch of each mode) against its plain version under
+   phase 2's gates; and beside the one-shard render Image.render's tiled
+   path at the same size and spp.  Then the beam sweep on big-scene's
+   uniform camera rays and their shadow rays, against the flat sweep
+   (tests/test_beam.py's gates) and the kernel (the kernel gates by
+   category, every ray apart printed with its branches and cleared by a
+   float64 witness), with its time and loop steps;
    checked_trace on simple's 16x16 tile, clean; the float64 check mode
    (accel="flat") against the float32 kernel render of simple at 48x36 x
    2 spp;
@@ -142,14 +147,15 @@ MD_START = 0.7
 MD_TOL = 1e-5
 MD_GLOO_RANKS = 2
 MD_ALLREDUCE_ITERS = 5
+# The plain version takes the one-shard frame's launches this many rays
+# at a time.
+PLAIN_ROWS = 1 << 20
 # The beam sweep on big-scene's uniform camera rays and their shadow rays;
 # the float64 check mode on simple (tests/test_render.py's size and spp).
 BEAM_RAYS = 131072
-# Rays (a share of those traced) on which the beam sweep and the kernel
-# may disagree (_apart), grazing rays that the kernel's own formulas
-# decide apart from the flat sweep's: the share of node mismatches that the JAX package's kernel
-# gates allow (tests/test_pallas.py).
-MAX_APART = 2e-3
+# Rays apart from the kernel printed per category (sweeps_apart counts and
+# clears them all).
+BEAM_RAYS_SHOWN = 4
 F64_SIZE = (48, 36)
 F64_SPP = 2
 
@@ -195,6 +201,42 @@ def _gate_nearest(k, p, label, torus=None):
     torch.testing.assert_close(kt[tor], pt[tor], rtol=TORUS_TOL, atol=TORUS_TOL)
     n_diff = int(mism.sum()) + int((kt[same] != pt[same]).sum())
     return ((kt[same] - pt[same]).abs().max().item() if same.any() else 0.0), n_diff
+
+
+def _plain(o, d, t_min, st, cfg, kw, any_hit=False, rows=None):
+    """The plain version on rays o, d; with `rows`, that many rays at a
+    time (each ray's answer is its own), the blocks joined."""
+    import torch
+    from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_sweep_ref
+
+    R = o.shape[0]
+    rows = rows or R
+    per_ray = lambda x, s: x[s] if isinstance(x, torch.Tensor) and x.dim() else x
+    parts = [intersect_scene_sweep_ref(o[s], d[s], per_ray(t_min, s), float("inf"), st, cfg,
+                                       any_hit=any_hit, **{k: v[s] for k, v in kw.items()})
+             for s in (slice(lo, lo + rows) for lo in range(0, R, rows))]
+    return parts[0] if len(parts) == 1 else type(parts[0])(*map(torch.cat, zip(*parts)))
+
+
+def _hold(label, o, d, t_min, st, cfg, kw, torus, err, diffs, rows=None):
+    """Nearest and any-hit, the kernel (one launch each) against the plain
+    version (`rows` rays at a time): _gate_nearest, and .hit equal in
+    any-hit mode.  Adds the error and difference counts to err and diffs;
+    returns the kernel's nearest hits."""
+    from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_cuda
+
+    inf = float("inf")
+    k = intersect_scene_cuda(o, d, t_min, inf, st, cfg, **kw)
+    e, n = _gate_nearest(k, _plain(o, d, t_min, st, cfg, kw, rows=rows), f"{label} nearest",
+                         torus)
+    err["nearest"] = max(err["nearest"], e)
+    diffs["nearest"] += n
+    ka = intersect_scene_cuda(o, d, t_min, inf, st, cfg, any_hit=True, **kw)
+    pa = _plain(o, d, t_min, st, cfg, kw, any_hit=True, rows=rows)
+    n_any = int((ka.hit != pa.hit).sum())
+    if n_any:
+        raise AssertionError(f"{label} any-hit: hit differs on {n_any} rays")
+    return k
 
 
 def _shadow_rays(o, d, hit, st, cfg, t_min=None, src_node=None, src_tri=None):
@@ -397,29 +439,15 @@ def phase_kernels(dev):
     from portrayer_tpu_torch import RenderConfig, flatten_scene, rng
     from portrayer_tpu_torch.camera import Camera
     from portrayer_tpu_torch.scene.flatten import PACKED_KIND_NAMES
-    from portrayer_tpu_torch.ops.cuda_intersect import (
-        intersect_scene_cuda, intersect_scene_sweep_ref)
 
     cfg = RenderConfig(device=dev)
-    inf = float("inf")
     err = {"nearest": 0.0, "any_hit": 0.0}
     diffs = {"nearest": 0, "any_hit": 0}
     branches = set()
     timing = {}
 
     def check(label, o, d, t_min, st, kw, torus):
-        """Nearest and any-hit, kernel against plain version."""
-        k = intersect_scene_cuda(o, d, t_min, inf, st, cfg, **kw)
-        p = intersect_scene_sweep_ref(o, d, t_min, inf, st, cfg, **kw)
-        e, n = _gate_nearest(k, p, f"{label} nearest", torus)
-        err["nearest"] = max(err["nearest"], e)
-        diffs["nearest"] += n
-        ka = intersect_scene_cuda(o, d, t_min, inf, st, cfg, any_hit=True, **kw)
-        pa = intersect_scene_sweep_ref(o, d, t_min, inf, st, cfg, any_hit=True, **kw)
-        n_any = int((ka.hit != pa.hit).sum())
-        if n_any:
-            raise AssertionError(f"{label} any-hit: hit differs on {n_any} rays")
-        return k
+        return _hold(label, o, d, t_min, st, cfg, kw, torus, err, diffs)
 
     for name, n_rays, scene, camset, size in _scene_cases():
         w, h = size
@@ -1114,11 +1142,44 @@ def _md_compare(label, got, oracle, spp):
           f"{loss:.8g}); " + "; ".join(notes), flush=True)
 
 
-def phase_multi_device(dev, path_counts, size=None, spp=MD_SPP, tiled=True):
+def _one_shard_launches(dev, spec, st, err, diffs):
+    """The sweep kernel at the one-shard frame's launch sizes: the rows
+    that render_frame_distributed traces at world size 1 (MD_SIZE x
+    MD_SPP camera rays, its jitter and key) and their shadow rays, one
+    launch for each mode, against the plain version (PLAIN_ROWS rays at a
+    time) under phase 2's gates and counts."""
+    import torch
+    from portrayer_tpu_torch import RenderConfig, rng
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.parallel import frame_rays
+
+    w, h = MD_SIZE
+    cfg = RenderConfig(device=dev, samples=MD_SPP)
+    R0 = w * h * MD_SPP
+    t0 = time.perf_counter()
+    o, d, _, _ = frame_rays(Camera(spec.camera, MD_SIZE, dev), MD_SPP, rng.PRNGKey(cfg.seed), 0,
+                            R0, torch.float32, dev)
+    torus = _torus_ids(st)
+    near = _hold("one-shard frame camera", o, d, cfg.epsilon, st, cfg, {}, torus, err, diffs,
+                 PLAIN_ROWS)
+    so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
+    del o, d
+    _hold("one-shard frame shadow", so, sd, st_min, st, cfg,
+          dict(active=sact, src_node=snode, src_tri=stri), torus, err, diffs, PLAIN_ROWS)
+    print(f"[6 multi-device] the sweep kernel at the one-shard frame's launch sizes, big-scene "
+          f"{w}x{h} x {MD_SPP} spp: {R0} camera rays ({near.hit.float().mean():.3f} hit) and "
+          f"{so.shape[0]} shadow rays, one launch of each mode, against the plain version in "
+          f"blocks of {PLAIN_ROWS} rays: phase 2's gates hold ({time.perf_counter() - t0:.3f} "
+          f"s)", flush=True)
+
+
+def phase_multi_device(dev, path_counts, err, diffs):
     """World size 1 (NCCL on the card) in this process, then MD_GLOO_RANKS
     gloo ranks sharing the card, each held against the single-process
-    oracle on the card; beside the one-shard render, the tiled path of
-    Image.render at the same size and spp."""
+    oracle on the card; the kernel at the one-shard frame's launch sizes
+    against its plain version (err, diffs as in phase 2); beside the
+    one-shard render, the tiled path of Image.render at the same size and
+    spp."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -1126,7 +1187,7 @@ def phase_multi_device(dev, path_counts, size=None, spp=MD_SPP, tiled=True):
     from portrayer_tpu_torch import Image, RenderConfig, parallel as par, rng
     from portrayer_tpu_torch.ops.trace import trace
 
-    size = size or MD_SIZE
+    size, spp = MD_SIZE, MD_SPP
     w, h = size
     spec, st, bg = _md_setup(dev, size)
     # The fit's target: the true image of the train step's rays.
@@ -1147,17 +1208,17 @@ def phase_multi_device(dev, path_counts, size=None, spp=MD_SPP, tiled=True):
     path_counts["train_step, world 1"] = got["train_counts"]
     _md_compare(f"world size 1 ({backend})", got, _md_oracles(dev, size, spp, spec, st, bg,
                                                               target, 1), spp)
-    if tiled:
-        cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=LAUNCH_RAYS)
-        img = Image(None, w, h)
-        _, secs, counts, peak = _timed(dev, lambda: img.render(spec.scene, spec.camera,
-                                                               spec.background, cfg))
-        _check_counts("tiled Image.render", counts, dev)
-        path_counts[f"big-scene tiled, {spp} spp"] = counts
-        print(f"[6 multi-device] beside it, Image.render's tiled path, big-scene {w}x{h} x "
-              f"{spp} spp, tile {cfg.tile}, {LAUNCH_RAYS} rays/launch: {secs:.3f} s, "
-              f"{w * h * spp / secs / 1e6:.3f} Mrays/s, peak memory {peak:.3f} GiB, launches "
-              f"nearest {counts['nearest']} any-hit {counts['any_hit']}", flush=True)
+    _one_shard_launches(dev, spec, st, err, diffs)
+    cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=LAUNCH_RAYS)
+    img = Image(None, w, h)
+    _, secs, counts, peak = _timed(dev, lambda: img.render(spec.scene, spec.camera,
+                                                           spec.background, cfg))
+    _check_counts("tiled Image.render", counts, dev)
+    path_counts[f"big-scene tiled, {spp} spp"] = counts
+    print(f"[6 multi-device] beside it, Image.render's tiled path, big-scene {w}x{h} x "
+          f"{spp} spp, tile {cfg.tile}, {LAUNCH_RAYS} rays/launch: {secs:.3f} s, "
+          f"{w * h * spp / secs / 1e6:.3f} Mrays/s, peak memory {peak:.3f} GiB, launches "
+          f"nearest {counts['nearest']} any-hit {counts['any_hit']}", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(target.cpu(), os.path.join(tmp, "target.pt"))
@@ -1192,26 +1253,12 @@ def _beam_gates(ref, got, label):
     return float((got.t[m] - ref.t[m]).abs().max()) if bool(m.any()) else 0.0
 
 
-def _apart(kern, got, src_node=None):
-    """Rays on which the kernel and a general-formula sweep (flat, beam)
-    disagree: .hit, the node hit, or t beyond rtol 1e-4 / atol 1e-5 on
-    the same node.  Grazing rays, which the kernel's formulas (world-space
-    spheres among them, its own op order) decide apart from the general
-    ones of the flat sweep; a shadow ray's re-hit of its own source (`src_node`),
-    ill-conditioned there, counts on hit and node only."""
+def phase_checks(dev):
+    """The beam sweep against the flat sweep and the kernel on big-scene,
+    checked_trace on simple, and the float64 check mode against the
+    float32 render."""
     import torch
-
-    both = kern.hit & got.hit
-    off = (got.t - kern.t).abs() > 1e-5 + 1e-4 * kern.t.abs()
-    if src_node is not None:
-        off &= kern.node != src_node
-    return int(((kern.hit != got.hit) | (both & ((kern.node != got.node) | off))).sum())
-
-
-def phase_checks(dev, beam_rays=BEAM_RAYS):
-    """The beam sweep against the kernel on big-scene, checked_trace on
-    simple, and the float64 check mode against the float32 render."""
-    import torch
+    from _torch_jax import float64_tables, kernel_apart_limits, sweeps_apart
     from portrayer_tpu_torch import RenderConfig, flatten_scene, render_linear, rng, scenes
     from portrayer_tpu_torch.camera import Camera
     from portrayer_tpu_torch.debug import checked_trace
@@ -1221,11 +1268,12 @@ def phase_checks(dev, beam_rays=BEAM_RAYS):
 
     spec = scenes.load("big-scene")
     st = flatten_scene(spec.scene, dev)
+    st64 = float64_tables(spec.scene, dev)
     w, h = spec.size
     cfg = RenderConfig(device=dev)
     bcfg = RenderConfig(device=dev, accel="beam")
     inf = float("inf")
-    u = rng.uniform(rng.PRNGKey(7), (beam_rays, 2), dev)
+    u = rng.uniform(rng.PRNGKey(7), (BEAM_RAYS, 2), dev)
     o, d = Camera(spec.camera, spec.size, dev).rays_at(u[:, 0] * w, u[:, 1] * h)
     near = intersect_scene_cuda(o, d, cfg.epsilon, inf, st, cfg)
     so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
@@ -1236,20 +1284,29 @@ def phase_checks(dev, beam_rays=BEAM_RAYS):
         stats = {}
         got = intersect_scene_beam(*args, st, bcfg, stats=stats, **kw)
         err = _beam_gates(intersect_scene(*args, st, fcfg, **kw), got, f"beam {label}")
-        # Against the kernel: its formulas may decide a grazing ray apart
-        # from the general ones that the flat and beam sweeps share (see
-        # _apart): at most MAX_APART.
+        # Against the kernel: the kernel gates of tests/test_pallas.py by
+        # category, each ray apart shown with its branches and cleared by
+        # the float64 witness of sweeps_apart.
         kern = intersect_scene_cuda(*args, st, cfg, **kw)
-        apart = _apart(kern, got, kw.get("src_node"))
-        if apart > MAX_APART * args[0].shape[0]:
-            raise AssertionError(f"beam {label}: {apart} rays apart from the kernel")
+        apart = sweeps_apart(kern, got, args[0], args[1], args[2], kw, st64, cfg)
+        for cat, lines in apart["rays"].items():
+            for line in lines[:BEAM_RAYS_SHOWN]:
+                print(f"[6 beam] {label} {line}", flush=True)
         ms = _time_ms(lambda: intersect_scene_beam(*args, st, bcfg, **kw), 3)
         kms = _time_ms(lambda: intersect_scene_cuda(*args, st, cfg, **kw), 20)
+        limits = kernel_apart_limits(args[0].shape[0])
+        counts = ", ".join(f"{c} {apart[c]} (at most {limits[c]}; by branch "
+                           f"{apart['branches'][c]})" for c in limits)
         print(f"[6 beam] big-scene {label} rays ({args[0].shape[0]}): beam sweep {ms:.3f} ms a "
               f"call, {stats['trips']} steps of its loop (one host sync each); the kernel "
               f"{kms:.3f} ms; the gates of tests/test_beam.py hold against the flat sweep (max "
-              f"|dt| {err:.3g}); {apart} rays apart from the kernel (hit, node, or t beyond "
-              f"rtol 1e-4)", flush=True)
+              f"|dt| {err:.3g}); against the kernel, rays apart by {counts}, node ties "
+              f"{apart['tie']} of {apart['hits']} hits, {apart['uncleared']} not cleared by the "
+              f"float64 witness", flush=True)
+        over = [c for c in limits if apart[c] > limits[c]]
+        if over or apart["uncleared"] or apart["tie"] > 0.002 * apart["hits"]:
+            raise AssertionError(f"beam {label} against the kernel: {over} over their limits, "
+                                 f"{apart['uncleared']} rays not cleared, {apart['tie']} ties")
 
     simple = scenes.load("simple")
     ys, xs = torch.meshgrid(torch.arange(16, device=dev), torch.arange(16, device=dev),
@@ -1315,7 +1372,7 @@ def main():
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
     _linear_vs_flat(dev, textured, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
     phase_gradients(dev)
-    phase_multi_device(dev, path_counts)
+    phase_multi_device(dev, path_counts, err, diffs)
     phase_checks(dev)
     phase_device_times(timing, RenderConfig(device=dev))
 

@@ -124,10 +124,8 @@ class RenderConfig:
 
     # Beam sweep: rays per warp, candidates per step of a warp's ordered
     # sweep, and the scene size (nodes + mesh pairs) from which
-    # accel="beam" uses it.  n_segments is kept for the JAX package's
-    # signature; its beam sweep does not read it either.
+    # accel="beam" uses it.
     warp_size: int = 256
-    n_segments: int = 16
     beam_chunk: int = 64
     beam_min_prims: int = 192
 

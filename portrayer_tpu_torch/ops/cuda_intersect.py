@@ -59,13 +59,13 @@ def _f32(x: float) -> float:
 def _rays(o, t_min, t_max, active):
     """t_min, t_max as [R] tensors (a number is filled in on the device:
     a tensor made from it would be copied from the host, which waits for
-    the device) and `active`, all true where None."""
+    the device) in the rays' dtype, and `active`, all true where None."""
     R = o.shape[0]
 
     def full(x):
         if isinstance(x, torch.Tensor) or np.ndim(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=o.device).expand(R)
-        return torch.full((R,), float(x), dtype=torch.float32, device=o.device)
+            return torch.as_tensor(x, dtype=o.dtype, device=o.device).expand(R)
+        return torch.full((R,), float(x), dtype=o.dtype, device=o.device)
 
     if active is None:
         active = torch.ones(R, dtype=torch.bool, device=o.device)
@@ -469,7 +469,10 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
       GROUP a step, and the chunk boxes of each group it crosses, else
       every chunk box; it sweeps the chunks it crosses.  Nearest mode
       skips a group or chunk whose entry lies beyond the ray's best t so
-      far, as the kernel does."""
+      far, as the kernel does.
+
+    It computes in the rays' dtype: float64 rays over a float64 packed
+    table evaluate the kernel's formulas in double precision."""
     if o.device.type == "cuda":
         COUNTS["plain_on_cuda"] += 1
     pk = st.packed
@@ -496,7 +499,7 @@ def intersect_scene_sweep_ref(o, d, t_min, t_max, st: SceneTables, cfg: RenderCo
             work.setdefault(k, 0)
         swept = work.setdefault("swept", {})
 
-    best_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
+    best_t = torch.full((R,), INF, dtype=o.dtype, device=dev)
     best_node = torch.full((R,), -1, dtype=torch.int32, device=dev)
     best_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
     found = torch.zeros(R, dtype=torch.bool, device=dev)

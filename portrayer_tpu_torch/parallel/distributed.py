@@ -10,8 +10,9 @@ default), ``global_mesh`` spans its ranks, ``make_global_rays`` builds
 only this rank's rows, and after the all-reduce every rank holds the
 finished framebuffer (``fetch_replicated`` reads it to the host).
 
-A plain single-process run needs nothing: ``initialize()`` without
-configuration is a no-op, and ``global_mesh()`` forms a one-rank group.
+``initialize()`` without configuration is a no-op;
+``initialize(num_processes=1)`` forms a one-rank group for a single
+process (it lasts until ``torch.distributed.destroy_process_group``).
 On one card, NCCL refuses two ranks; ranks that share a card join with
 ``backend="gloo"``, which all-reduces CUDA tensors.
 """
@@ -28,7 +29,12 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .. import rng
 from ..camera import Camera
-from .sharding import RAY_AXIS, _pixel_uv, _backend_for, make_mesh, trace_sharded
+from .sharding import RAY_AXIS, _pixel_uv, make_mesh, trace_sharded
+
+
+def _backend_for(device) -> str:
+    """NCCL for the card, gloo for the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -40,10 +46,12 @@ def initialize(coordinator_address: Optional[str] = None,
     The arguments default to torchrun's environment (MASTER_ADDR and
     MASTER_PORT, WORLD_SIZE, RANK); with none of it set and none given,
     the call is a no-op.  `coordinator_address` is "host:port" or an
-    init URL ("tcp://...", "file://...").  A CUDA `device` without an
-    index is the card of LOCAL_RANK (else process_id modulo the cards);
-    it becomes the current device.  `backend` defaults to NCCL for the
-    card and gloo for the CPU."""
+    init URL ("tcp://...", "file://..."); without one, num_processes=1
+    forms a one-rank group on an in-process store.  A CUDA `device`
+    without an index is the card of LOCAL_RANK (else process_id modulo
+    the cards); it becomes the current device.  `backend` defaults to
+    NCCL for the card and gloo for the CPU.  The group lasts until the
+    caller's ``torch.distributed.destroy_process_group()``."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     env = os.environ
@@ -55,7 +63,9 @@ def initialize(coordinator_address: Optional[str] = None,
         process_id = int(env["RANK"])
     if coordinator_address is None and num_processes is None:
         return False
-    if coordinator_address is None or num_processes is None or process_id is None:
+    if coordinator_address is None and num_processes == 1 and process_id in (None, 0):
+        process_id = 0
+    elif coordinator_address is None or num_processes is None or process_id is None:
         raise ValueError("initialize needs a coordinator address, the number of processes "
                          "and this process's id (or torchrun's environment)")
     device = torch.device(device)
@@ -64,10 +74,14 @@ def initialize(coordinator_address: Optional[str] = None,
             device = torch.device("cuda", int(env.get(
                 "LOCAL_RANK", process_id % torch.cuda.device_count())))
         torch.cuda.set_device(device)
-    url = coordinator_address if "://" in coordinator_address else (
-        f"tcp://{coordinator_address}")
-    dist.init_process_group(backend or _backend_for(device), init_method=url,
-                            world_size=num_processes, rank=process_id)
+    if coordinator_address is None:
+        where = {"store": dist.HashStore()}
+    elif "://" in coordinator_address:
+        where = {"init_method": coordinator_address}
+    else:
+        where = {"init_method": f"tcp://{coordinator_address}"}
+    dist.init_process_group(backend or _backend_for(device), world_size=num_processes,
+                            rank=process_id, **where)
     return dist.get_world_size() > 1
 
 

@@ -46,31 +46,19 @@ DIFF_FIELDS = (
 )
 
 
-def _backend_for(device) -> str:
-    """NCCL for the card, gloo for the CPU."""
-    return "nccl" if torch.device(device).type == "cuda" else "gloo"
-
-
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = RAY_AXIS,
               device="cuda") -> DeviceMesh:
-    """1-D mesh over the ranks of the job, one device per rank.
-
-    Without a process group a single process forms a one-rank group of
-    its own (in-process store; NCCL for a CUDA `device`, gloo for the
-    CPU).  Several devices need as many processes, joined by torchrun or
-    ``parallel.initialize``; `n_devices`, where given, must equal their
-    number."""
-    device = torch.device(device)
+    """1-D mesh over the ranks of the job's process group, one device per
+    rank.  The group comes first, from torchrun or
+    ``parallel.initialize`` (``initialize(num_processes=1)`` for a single
+    process); `n_devices`, where given, must equal its number of ranks."""
     if not dist.is_initialized():
-        if n_devices not in (None, 1):
-            raise ValueError(f"a mesh of {n_devices} devices needs {n_devices} processes: "
-                             "start them with torchrun or parallel.initialize()")
-        dist.init_process_group(_backend_for(device), store=dist.HashStore(), rank=0,
-                                world_size=1)
+        raise RuntimeError("make_mesh needs a process group: call parallel.initialize() "
+                           "first (initialize(num_processes=1) for a single process)")
     world = dist.get_world_size()
     if n_devices not in (None, world):
         raise ValueError(f"n_devices={n_devices}, but the job has {world} ranks")
-    return init_device_mesh(device.type, (world,), mesh_dim_names=(axis_name,))
+    return init_device_mesh(torch.device(device).type, (world,), mesh_dim_names=(axis_name,))
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -133,16 +121,15 @@ def split_params(st: SceneTables, fields=DIFF_FIELDS) -> Tuple[dict, SceneTables
 
 
 def train_step(mesh: DeviceMesh, key, o, d, pix, bg, n_pixels: int, spp: int, target,
-               st: SceneTables, cfg: RenderConfig, fields=DIFF_FIELDS, local: bool = False):
+               st: SceneTables, cfg: RenderConfig, fields=DIFF_FIELDS):
     """One differentiable render-and-fit step over the mesh:
     loss = MSE(acc / spp, target).  Returns (loss, {field: gradient}), the
     same on every rank and at every world size: backward through each
-    rank's own rays, then one all-reduce (SUM) of the gradients.  o, d,
-    pix and `local` as in trace_sharded."""
+    rank's own rays, then one all-reduce (SUM) of the gradients.  o, d and
+    pix as in trace_sharded."""
     params, _ = split_params(st, fields)
     leaves = {f: p.detach().clone().requires_grad_() for f, p in params.items()}
-    acc = trace_sharded(mesh, key, o, d, pix, bg, n_pixels, st.replace(**leaves), cfg,
-                        local=local)
+    acc = trace_sharded(mesh, key, o, d, pix, bg, n_pixels, st.replace(**leaves), cfg)
     loss = torch.mean((acc / spp - target) ** 2)
     loss.backward()
     grads = [x.grad if x.grad is not None else torch.zeros_like(x) for x in leaves.values()]

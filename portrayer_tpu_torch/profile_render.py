@@ -105,6 +105,7 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dic
     if one_shard_spp:
         y0, region, tiles, chunks = 0, ((0, 0), (w - 1, h - 1)), 1, 1
         st = flatten_scene(spec.scene, dev)
+        parallel.initialize(num_processes=1, device=dev)
         mesh = parallel.make_mesh(1, device="cuda")
         render = lambda stats=None: parallel.render_frame_distributed(
             mesh, st, spec.camera, (w, h), spec.background, cfg)
@@ -131,6 +132,8 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dic
         render()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
+    if one_shard_spp:
+        torch.distributed.destroy_process_group()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)

@@ -72,6 +72,124 @@ def assert_gates(ref, got, src_node=None, torus=()):
 
 
 # ---------------------------------------------------------------------------
+# The sweep kernel against a general-formula sweep (flat or beam) on the card
+# ---------------------------------------------------------------------------
+
+# The most rays of a query on which the kernel and the flat or beam sweep
+# may part, per category of sweeps_apart, as shares of the query's rays:
+# twice the largest share read on the H100 (PERF.md), every ray of which
+# the float64 witness cleared.  The readings on big-scene, chip_smoke.py's
+# 131,072 camera rays / their 393,216 shadow rays / the card test's 131,072
+# shadow rays: hit 2 / 0 / 0, node 1 / 1 / 0, t 7 / 4 / 1, self_t 0 / 160 /
+# 58.
+KERNEL_APART = {"hit": 3.1e-5, "node": 1.6e-5, "t": 1.1e-4, "self_t": 9e-4}
+
+
+def kernel_apart_limits(n_rays):
+    """{category: the most rays apart} for a query of n_rays rays."""
+    return {c: int(share * n_rays) for c, share in KERNEL_APART.items()}
+
+
+def float64_tables(scene, device):
+    """`scene`'s tables in float64, the packed table too (from the float64
+    arrays that the float32 one is rounded from): the float64 flat sweep
+    and the kernel's plain version in float64 read them."""
+    import dataclasses
+    import torch
+    from portrayer_tpu_torch.scene.flatten import _flatten_numpy, tables_from_numpy
+
+    arrays, meta = _flatten_numpy(scene)
+    st = tables_from_numpy(arrays, meta, device, torch.float64)
+    f64 = {k: torch.tensor(np.asarray(arrays[f"packed.{k}"]), dtype=torch.float64,
+                           device=device) for k in ("f32", "chunk_min", "chunk_max")}
+    return st.replace(packed=dataclasses.replace(st.packed, **f64))
+
+
+def _node_branches(st):
+    """{node id: packed kind name} of SceneTables `st`."""
+    from portrayer_tpu_torch.scene.flatten import PACK_CHUNK, PACKED_KIND_NAMES
+
+    ids = st.packed.ids[0].cpu().numpy()
+    kinds = np.repeat(st.packed.chunk_kind.cpu().numpy(), PACK_CHUNK)
+    return {int(n): PACKED_KIND_NAMES[int(k)] for n, k in zip(ids, kinds) if n >= 0}
+
+
+def sweeps_apart(kern, got, o, d, t_min, kw, st64, cfg):
+    """Where the sweep kernel's nearest hits `kern` and a general-formula
+    sweep's `got` (flat or beam) part on the float32 rays o, d (`t_min`,
+    and `kw`: active, src_node, src_tri), by assert_gates' gates, with a
+    second witness on every such ray.
+
+    Categories: "hit" (.hit differs); "node" (both hit, other nodes, t
+    outside the tie quantum 2*2^-16 relative + 1e-5); "t" (the same node,
+    t beyond rtol 1e-4 / atol 1e-5); "self_t" (the same, on a re-hit of
+    the ray's src_node, beyond SELF_HIT_RTOL); "tie" (other nodes inside
+    the tie quantum), which assert_gates allows on 0.2% of hits.  The witness runs the kernel's
+    formulas in float64 (its plain version over st64's float64 packed
+    table) and the general ones in float64 (the flat sweep on st64) on
+    the same rays, their directions normalized in float64 (the kernel's
+    world-space sphere assumes |d| = 1, as the JAX package's kernel does,
+    and so turns the float32 rounding of |d| into t).  Where they agree
+    (.hit, and t within rtol 1e-6 / atol 1e-9), the two sets of formulas
+    give one answer without float32 rounding; the kernel equals its plain
+    version and the beam sweep the flat one, each code alike in float32
+    and float64, so float32 rounding is what parted the sweeps.
+
+    Returns the category counts, "hits" (rays both hit), "uncleared"
+    (rays apart the witness does not clear), "branches" ({category:
+    {branch of the kernel's node, else the sweep's: rays}}) and "rays"
+    ({category: a line for each ray apart})."""
+    import torch
+    from portrayer_tpu_torch import RenderConfig
+    from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_sweep_ref
+    from portrayer_tpu_torch.ops.intersect import intersect_scene
+
+    both = kern.hit & got.hit
+    kt, gt = kern.t, got.t
+    other = both & (kern.node != got.node)
+    tie = other & ((kt - gt).abs() <= 2.0 * 2.0 ** -16 * torch.maximum(kt.abs(), gt.abs())
+                   + 1e-5)
+    same = both & ~other
+    self_hit = (torch.zeros_like(same) if kw.get("src_node") is None
+                else kern.node == kw["src_node"])
+    dt = (gt - kt).abs()
+    cats = {"hit": kern.hit != got.hit, "node": other & ~tie,
+            "t": same & ~self_hit & (dt > 1e-5 + 1e-4 * kt.abs()),
+            "self_t": same & self_hit & (dt > 1e-5 + SELF_HIT_RTOL * kt.abs())}
+    out = {k: int(v.sum()) for k, v in cats.items()}
+    out.update(tie=int(tie.sum()), hits=int(both.sum()), uncleared=0,
+               branches={c: {} for c in cats}, rays={c: [] for c in cats})
+    idx = torch.nonzero(sum(cats.values()).bool()).squeeze(1)
+    if idx.numel() == 0:
+        return out
+    o64, d64 = o[idx].double(), d[idx].double()
+    d64 = d64 / torch.linalg.vector_norm(d64, dim=1, keepdim=True)
+    tm = t_min[idx].double() if isinstance(t_min, torch.Tensor) and t_min.dim() else t_min
+    kw64 = {k: v[idx] for k, v in kw.items()}
+    inf = float("inf")
+    kp = intersect_scene_sweep_ref(o64, d64, tm, inf, st64, cfg, **kw64)
+    fl = intersect_scene(o64, d64, tm, inf, st64, RenderConfig(
+        device=o.device, accel="flat", dtype=torch.float64), **kw64)
+    close = lambda h: (h.t.double() - fl.t).abs() <= 1e-9 + 1e-6 * fl.t.abs()
+    cleared = (kp.hit == fl.hit) & (~fl.hit | close(kp))
+    out["uncleared"] = int((~cleared).sum())
+    branch = _node_branches(st64)
+    h = lambda x, i: (f"hit {x.node[i].item()} [{branch.get(x.node[i].item(), '-')}] "
+                      f"t={x.t[i].item():.9g}" if x.hit[i] else "miss")
+    ks, gs = (type(kern)(*(f[idx] for f in kern)), type(got)(*(f[idx] for f in got)))
+    for i, j in enumerate(idx.tolist()):
+        cat = next(c for c in cats if cats[c][j])
+        node = (ks if ks.hit[i] else gs).node[i].item()
+        where = out["branches"][cat]
+        where[branch[node]] = where.get(branch[node], 0) + 1
+        out["rays"][cat].append(
+            f"ray {j} ({cat}): kernel {h(ks, i)}, sweep {h(gs, i)}; in float64 the "
+            f"kernel's formulas {h(kp, i)}, the flat sweep's {h(fl, i)}: "
+            + ("cleared" if cleared[i] else "NOT cleared"))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Inline scenes, built with either package's classes (`pkg` is
 # portrayer_tpu or portrayer_tpu_torch): (scene, camera settings, size).
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ Launched by tests/test_torch_parallel.py, once per rank:
     python tests/_torch_parallel_worker.py STORE WORLD RANK IN_NPZ OUT_DIR TASKS
 
 STORE is the path of a file:// rendezvous store shared by the ranks; with
-WORLD 1 the rank joins nothing and make_mesh forms its own one-rank group.
+WORLD 1 the rank forms its own one-rank group (initialize(num_processes=1)).
 IN_NPZ holds the JAX package's rays (o, d, pix, bg, n_pixels) for the
 "trace" task and the 8x8 rays for "train".  TASKS is a comma list of
 trace, train, tiles, frame, pad, four; each writes <task>_r<RANK>.npz into
@@ -33,6 +33,7 @@ def main():
         assert par.initialize(f"file://{store}", world, rank, device="cpu")
     else:
         assert par.initialize() is False and not dist.is_initialized()
+        assert par.initialize(num_processes=1, device="cpu") is False
     try:
         mesh = par.make_mesh(world, device="cpu")
         assert mesh.size() == world and mesh.get_local_rank() == rank

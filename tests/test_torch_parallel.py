@@ -2,7 +2,7 @@
 JAX package's, mirroring tests/test_multichip.py.
 
 The port's ranks are gloo processes on the CPU (tests/_torch_parallel_worker.py,
-all world sizes started together, PYTHONPATH the repo root only); the JAX
+one world size after another, PYTHONPATH the repo root only); the JAX
 side runs here on its 8 virtual devices.  Both take the same numpy rays and
 keys.
 
@@ -75,7 +75,7 @@ def _rays(tile, spp=2):
 
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
-    """Every world size of RUNS, its ranks started together: {world:
+    """Every world size of RUNS in turn, its ranks started together: {world:
     {task: [npz of each rank]}}."""
     _, o, d, pix, n = _rays(16)
     _, to, td, tpix, tn = _rays(8)
@@ -85,22 +85,21 @@ def port_runs(tmp_path_factory):
              train_o=to, train_d=td, train_pix=tpix, train_n_pixels=tn)
     env = {k: v for k, v in os.environ.items() if k not in _TORCHRUN_ENV}
     env["PYTHONPATH"] = ROOT  # keeps the container's sitecustomize out
-    procs = []
     for world, tasks in RUNS.items():
         out = os.path.join(tmp, f"w{world}")
         os.makedirs(out)
         store = os.path.join(tmp, f"store{world}")
-        procs += [(world, subprocess.Popen(
+        procs = [subprocess.Popen(
             [sys.executable, WORKER, store, str(world), str(rank), inp, out, tasks],
-            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for rank in range(world)]
-    try:
-        logs = [(w, p.communicate(timeout=WORKER_TIMEOUT)[0], p.returncode) for w, p in procs]
-    finally:
-        for _, p in procs:
-            p.kill()
-    for world, log, rc in logs:
-        assert rc == 0, f"world {world}: a rank failed:\n{log[-3000:]}"
+        try:
+            logs = [(p.communicate(timeout=WORKER_TIMEOUT)[0], p.returncode) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for log, rc in logs:
+            assert rc == 0, f"world {world}: a rank failed:\n{log[-3000:]}"
     return {world: {task: [np.load(os.path.join(tmp, f"w{world}", f"{task}_r{r}.npz"))
                            for r in range(world)]
                     for task in tasks.split(",")}
@@ -245,5 +244,23 @@ def test_initialize_without_configuration_is_a_noop(monkeypatch):
     assert not dist.is_initialized()
     with pytest.raises(ValueError):
         initialize(num_processes=2)
-    with pytest.raises(ValueError, match="processes"):
+    with pytest.raises(RuntimeError, match="initialize"):
         tpar.make_mesh(2, device="cpu")
+
+
+def test_initialize_forms_a_one_rank_group(monkeypatch):
+    """initialize(num_processes=1) forms the group of a single process;
+    make_mesh takes it and refuses another size."""
+    import torch.distributed as dist
+
+    for k in _TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    assert initialize(num_processes=1, device="cpu") is False
+    try:
+        assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+        mesh = tpar.make_mesh(1, device="cpu")
+        assert mesh.size() == 1 and mesh.get_local_rank() == 0
+        with pytest.raises(ValueError, match="ranks"):
+            tpar.make_mesh(2, device="cpu")
+    finally:
+        dist.destroy_process_group()

@@ -245,6 +245,7 @@ def test_port_imports_no_jax():
         "            T.RenderConfig(device='cpu', soft_visibility=0.05))\n"
         "acc.sum().backward()\n"
         "assert x.grad.abs().sum() > 0\n"
+        "parallel.initialize(num_processes=1, device='cpu')\n"
         "mesh = parallel.make_mesh(device='cpu')\n"
         "cfg = T.RenderConfig(device='cpu', accel='beam', beam_min_prims=1)\n"
         "loss, g = parallel.train_step(mesh, rng.PRNGKey(0), o, d, pix, torch.zeros(4, 3), 4, 1,\n"
