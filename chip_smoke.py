@@ -27,17 +27,22 @@ phases, each printing its own lines; any failure raises and exits non-zero:
 3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64),
    single-triangle (160x120) and four-shapes (256x68) against the
    committed self-goldens (on torus-showcase, the pixels of
-   TORUS_JIT_PIXELS aside);
-4. the main paths through ``Image.render``, each with the kernel launch
-   counts of its run: big-scene's full 1980x1020 frame, torus-showcase at
-   256x256, glossy-reflection at 910x512, procedural-meshes at 960x540,
-   single-triangle at 640x480, normal-mapping-numpy and
-   soft-shadows-icosphere at 910x512 and four-shapes at 1920x512, all at
-   16 spp, with live rays per bounce round, host syncs and dropped
-   throughput (from the render's TraceStats, which cost one host sync per
-   chunk more); then simple at 256x256, glossy-reflection,
-   procedural-meshes and normal-mapping-numpy (240x136) at 4 spp through
-   ``render_linear``, held against the flat oracle's render on the card;
+   TORUS_JIT_PIXELS aside), through the captured render;
+4. the main paths through ``Image.render``, which captures each chunk
+   program as CUDA graphs and replays them, each with the kernel launch
+   counts of its run (counted per replay): big-scene's full 1980x1020
+   frame, torus-showcase at 256x256, glossy-reflection at 910x512,
+   procedural-meshes at 960x540, single-triangle at 640x480,
+   normal-mapping-numpy and soft-shadows-icosphere at 910x512 and
+   four-shapes at 1920x512, all at 16 spp, with live rays per bounce
+   round, host syncs and dropped throughput (from the render's
+   TraceStats, read once a frame); the capture's seconds, graphs and
+   replays; beside it in the same call the render again with the graphs
+   cached and the eager chunk loop (``cuda_graphs=False``), whose linear
+   image the captured one must equal within CAPTURED_TOL; then simple at
+   256x256, glossy-reflection, procedural-meshes and normal-mapping-numpy
+   (240x136) at 4 spp through ``render_linear``, held against the flat
+   oracle's render on the card;
 5. gradients through ``trace``: of sum(acc^2) on a 64x64 tile of big-scene
    and of torus-showcase with respect to mat_diffuse, light_pos and inv,
    through the kernel and through its plain version on the card, held
@@ -58,7 +63,7 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    frame's launch sizes (its 8,078,400 camera rays and their 24,235,200
    shadow rays, one launch of each mode) against its plain version under
    phase 2's gates; and beside the one-shard render Image.render's tiled
-   path at the same size and spp.  Then the beam sweep on big-scene's
+   path at the same size and spp (captured).  Then the beam sweep on big-scene's
    uniform camera rays and their shadow rays, against the flat sweep
    (tests/test_beam.py's gates) and the kernel (the kernel gates by
    category, every ray apart printed with its branches and cleared by a
@@ -115,6 +120,9 @@ LAUNCH_RAYS = 131072
 # Python: 577 of them on procedural-meshes).
 PLAIN_ITERS = 3
 TORUS_TOL = 1e-3  # the JAX package's torus gate (tests/test_torus.py)
+# A captured render against the eager chunk loop: the same ops on the same
+# inputs, but index_add's float atomics sum in another order.
+CAPTURED_TOL = 1e-6
 # Pixels (row-major) of the torus-showcase self-golden (64x64, 4 spp, seed
 # 0) that the JAX package's own render, run op by op without jit, has off
 # by more than 2/255: the golden was rendered jitted, and XLA's FMAs move
@@ -276,8 +284,9 @@ def _bounce_rays(o, d, st, cfg):
     bg = torch.zeros((R, 3), device=dev)
     hit = tr._nearest(q, st, cfg)
     acc, child, _ = tr._round_shade(q, hit, bg, bg, st, cfg, rng.PRNGKey(3), is_last=False)
-    q1 = tr._compact(child, 2 * R, acc, bg)[0]
-    return q1.o, q1.d, q1.t_min, q1.src_node, q1.src_tri
+    q1, _, _, n = tr._compact(child, 2 * R, acc, bg)
+    n = int(n)  # the live head of the fixed-capacity queue
+    return q1.o[:n], q1.d[:n], q1.t_min[:n], q1.src_node[:n], q1.src_tri[:n]
 
 
 def _time_ms(fn, iters):
@@ -652,13 +661,16 @@ def phase_goldens(dev):
 
 def _main_path(dev, spec, path_counts):
     """One main path: `spec` (a SceneSpec or a registry name) at its size
-    and FULL_FRAME_SPP through Image.render, with the counts of that run
-    alone."""
+    and FULL_FRAME_SPP through Image.render on its tables, which captures
+    the chunk program as CUDA graphs and replays them, with the counts of
+    that run alone; beside it, in this call, the same render again (the
+    graphs cached) and the eager chunk loop (cuda_graphs=False).  The
+    captured linear image is held against the eager one within
+    CAPTURED_TOL."""
+    import dataclasses
     import numpy as np
-    import torch
-    from portrayer_tpu_torch import Image, RenderConfig, scenes
+    from portrayer_tpu_torch import Image, RenderConfig, flatten_scene, render_linear, scenes
     from portrayer_tpu_torch.image_io import read_png
-    from portrayer_tpu_torch.ops import cuda_intersect
 
     if isinstance(spec, str):
         spec = scenes.load(spec)
@@ -666,18 +678,21 @@ def _main_path(dev, spec, path_counts):
     w, h = spec.size
     cfg = RenderConfig(device=dev, samples=FULL_FRAME_SPP, max_rays_per_launch=LAUNCH_RAYS,
                        queue_caps=spec.queue_caps)
+    eager = dataclasses.replace(cfg, cuda_graphs=False)
+    t0 = time.perf_counter()
+    st = flatten_scene(spec.scene, dev)
+    flatten_s = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"{name}.png")
     img = Image(None, w, h)
     stats = []
-    torch.cuda.synchronize()
-    cuda_intersect.reset_counts()
-    t0 = time.perf_counter()
-    img.render(spec.scene, spec.camera, spec.background, cfg, stats=stats)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = dict(cuda_intersect.COUNTS)
+    args = (st, spec.camera, spec.background)
+    _, secs, counts, peak = _timed(dev, lambda: img.render(*args, cfg, stats=stats))
     path_counts[name] = counts
+    (prog,) = st.chunk_programs.values()
+    graphs = prog.graphs
+    replays = sum(g.replays for g in graphs.values())
+    per_replay = {str(k): g.launches for k, g in graphs.items()}
     img.save_as(path)
     if not np.array_equal(read_png(path), img.buffer):
         raise AssertionError(f"{name}: saved PNG does not decode to the rendered bytes")
@@ -688,20 +703,46 @@ def _main_path(dev, spec, path_counts):
     if counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{name}: plain version ran on CUDA tensors: {counts}")
     chunks = len(stats)  # every chunk traces the same number of rays
-    live = sum(st.live for st in stats).tolist()
-    rounds = sum(n > 0 for st in stats for n in st.live.tolist())
-    syncs = sum(st.syncs for st in stats)
-    dropped_w = sum(st.dropped_w for st in stats) / chunks
+    if graphs["head"].replays != chunks:
+        raise AssertionError(f"{name}: {graphs['head'].replays} replays of the chunk's head "
+                             f"graph for {chunks} chunks")
+    live = sum(s.live for s in stats).tolist()
+    rounds = sum(n > 0 for s in stats for n in s.live.tolist())
+    syncs = sum(s.syncs for s in stats)
+    bounce_rounds = prog.pl.max_depth
+    if bounce_rounds == 0 and syncs != 0 or any(s.syncs > bounce_rounds for s in stats):
+        raise AssertionError(f"{name}: {syncs} host syncs over {chunks} chunks "
+                             f"({bounce_rounds} bounce rounds a chunk at most)")
+    dropped_w = sum(s.dropped_w for s in stats) / chunks
     if dropped_w > 1e-3:
         raise AssertionError(f"{name}: queue overflow dropped {dropped_w:.4%} of the throughput")
-    mrays = w * h * FULL_FRAME_SPP / secs / 1e6
+    again = Image(None, w, h)
+    _, again_secs, _, _ = _timed(dev, lambda: again.render(*args, cfg))
+    eager_img = Image(None, w, h)
+    _, eager_secs, eager_counts, eager_peak = _timed(
+        dev, lambda: eager_img.render(*args, eager))
+    lin = render_linear(st, spec.camera, (w, h), spec.background, cfg)
+    lin_eager = render_linear(st, spec.camera, (w, h), spec.background, eager)
+    diff = float(np.abs(lin - lin_eager).max())
+    u8_off = int((img.buffer != eager_img.buffer).any(axis=-1).sum())
+    if not diff <= CAPTURED_TOL:
+        raise AssertionError(f"{name}: captured render differs from the eager chunk loop by "
+                             f"{diff:.3g} (limit {CAPTURED_TOL})")
+    rays = w * h * FULL_FRAME_SPP
     print(f"[4 main path] {name} {w}x{h} x {FULL_FRAME_SPP} spp, tile {cfg.tile}, "
-          f"{LAUNCH_RAYS} rays/launch: {secs:.3f} s, {mrays:.3f} Mrays/s primary; {chunks} chunks, "
+          f"{LAUNCH_RAYS} rays/launch: captured {secs:.3f} s ({rays / secs / 1e6:.3f} Mrays/s "
+          f"primary; capture {prog.capture_s:.3f} s, flatten {flatten_s:.3f} s before it), "
+          f"again with the graphs cached {again_secs:.3f} s ({rays / again_secs / 1e6:.3f} "
+          f"Mrays/s), eager chunk loop {eager_secs:.3f} s ({rays / eager_secs / 1e6:.3f} "
+          f"Mrays/s); peak memory {peak:.3f} GiB captured, {eager_peak:.3f} eager; {chunks} "
+          f"chunks, {len(graphs)} graphs, {replays} replays, launches per replay {per_replay}; "
           f"launches nearest {counts['nearest']} any-hit {counts['any_hit']} "
-          f"({counts['nearest'] / chunks:.2f} and {counts['any_hit'] / chunks:.2f} per chunk), "
-          f"plain on CUDA {counts['plain_on_cuda']}; rounds {rounds}, host syncs of the "
-          f"live counts {syncs} ({syncs / chunks:.2f} per chunk); live rays per round "
-          f"{live}; dropped_w {dropped_w:.3g}; PNG {os.path.relpath(path, ROOT)} round-trips",
+          f"({counts['nearest'] / chunks:.2f} and {counts['any_hit'] / chunks:.2f} per chunk; "
+          f"eager {eager_counts['nearest']} and {eager_counts['any_hit']}), plain on CUDA "
+          f"{counts['plain_on_cuda']}; rounds {rounds}, host syncs of the live counts {syncs} "
+          f"({syncs / chunks:.2f} per chunk); live rays per round {live}; dropped_w "
+          f"{dropped_w:.3g}; linear image against the eager loop's: max |diff| {diff:.3g}, "
+          f"u8 pixels apart {u8_off}; PNG {os.path.relpath(path, ROOT)} round-trips",
           flush=True)
 
 

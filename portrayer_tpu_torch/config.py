@@ -1,10 +1,14 @@
 """Render configuration (counterpart of ``portrayer_tpu/config.py``).
 
-The reference constants and the ``SAMPLES`` env semantics are the JAX
-package's.  The TPU tuning knobs (Pallas block/slab sizes, queue slicing,
-remat, scan unrolling) have no meaning here and are gone; ``device`` and
-``accel`` choose where and through which sweep the port runs, ``dtype``
-in which precision.
+The reference constants, the ``SAMPLES`` env semantics and the bounce
+queues' head slices (``queue_slice_divs``) are the JAX package's.  Its
+Pallas block and slab sizes have no meaning here and are gone, as are
+``unroll_tail`` (bounce rounds of equal capacity share one captured CUDA
+graph by construction, as they share one ``lax.scan`` body there) and
+``remat_min_lanes`` (the fit's backward keeps every round).  ``device``
+and ``accel`` choose where and through which sweep the port runs,
+``dtype`` in which precision, ``cuda_graphs`` whether a render on the
+card replays its chunks as captured CUDA graphs.
 """
 
 from __future__ import annotations
@@ -84,6 +88,12 @@ class RenderConfig:
     # counted in TraceStats.dropped_w.  None = queue_factor every round.
     queue_caps: Optional[Tuple[float, ...]] = None
 
+    # Head slices of a bounce queue: a round runs on the smallest head of
+    # its queue, capacity // div rounded up to a multiple of 2048 lanes,
+    # that holds the live rays (they are compacted to the front).  (1,)
+    # runs every round at full capacity.
+    queue_slice_divs: Tuple[int, ...] = (16, 4, 1)
+
     # Pixels per render tile (height, width).
     tile: Tuple[int, int] = (128, 128)
 
@@ -129,6 +139,12 @@ class RenderConfig:
     beam_chunk: int = 64
     beam_min_prims: int = 192
 
+    # With accel="cuda" on the card, a render captures its chunk (and, in
+    # a scene with bounces, each bounce round's shape) once as a CUDA graph
+    # and replays it for every tile and sample chunk.  False runs the same
+    # chunk program op by op, as a check of the captured render.
+    cuda_graphs: bool = True
+
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
         if self.accel not in ACCELS:
@@ -141,6 +157,10 @@ class RenderConfig:
                 "float32 only; pass accel='flat' (or 'beam') for the float64 check mode")
         if self.queue_caps is not None and len(self.queue_caps) == 0:
             raise ValueError("queue_caps must be None or non-empty")
+        object.__setattr__(self, "queue_slice_divs", tuple(self.queue_slice_divs))
+        if not all(isinstance(d, int) and d >= 1 for d in self.queue_slice_divs):
+            raise ValueError(f"queue_slice_divs must be positive ints, got "
+                             f"{self.queue_slice_divs!r}")
 
     def resolved_samples(self) -> int:
         return self.samples if self.samples is not None else _env_samples()

@@ -51,6 +51,25 @@ def reset_counts():
         COUNTS[k] = 0
 
 
+# Launches recorded into the CUDA graph being captured: they run, and
+# count, at each replay of the graph (count_replay), not at its capture.
+_CAPTURED = {"nearest": 0, "any_hit": 0}
+
+
+def take_captured() -> dict:
+    """The launches recorded while a stream captured, since the last call."""
+    out = dict(_CAPTURED)
+    for k in _CAPTURED:
+        _CAPTURED[k] = 0
+    return out
+
+
+def count_replay(launches: dict):
+    """Count a replay of a graph that recorded `launches`."""
+    for k, v in launches.items():
+        COUNTS[k] += v
+
+
 def _f32(x: float) -> float:
     """x rounded to float32, so kernel and plain version see one value."""
     return float(np.float32(x))
@@ -638,7 +657,7 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
     if rc != 0:
         raise RuntimeError(f"sweep kernel ({mode}) launch failed: CUDA error {rc}")
     if R:
-        COUNTS[mode] += 1
+        (_CAPTURED if torch.cuda.is_current_stream_capturing() else COUNTS)[mode] += 1
     if any_hit:
         return _any_hit_result((found != 0) & active)
     hit = torch.isfinite(t) & active

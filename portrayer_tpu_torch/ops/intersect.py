@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import math3d as m3
@@ -254,8 +255,8 @@ def torus_candidate(o, d, t_min, t_max, eps, params=None):
     the JAX package does for its implicit-function gradient; the step
     moves the value by rounding only."""
     A, B, C, D, E = torus_coeffs(o, d, params[..., 0], params[..., 1])
-    full = lambda x: torch.broadcast_to(torch.as_tensor(x, dtype=A.dtype, device=A.device),
-                                        A.shape)
+    full = lambda x: (torch.broadcast_to(x.to(A.dtype), A.shape) if isinstance(x, torch.Tensor)
+                      else torch.full(A.shape, float(x), dtype=A.dtype, device=A.device))
     t, ok = m3.quartic_smallest_root_in_range(A, B, C, D, E, full(t_min), full(t_max))
     t0 = torch.where(ok, t, INF).detach()
     t0c = _finite(t0)
@@ -319,7 +320,10 @@ def _local_rays(inv34, o, d):
 
 
 def _as_rays(x, R, like):
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(R)
+    """x (a tensor or a number, filled on the device) as [R] rays."""
+    if isinstance(x, torch.Tensor) or np.ndim(x):
+        return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(R)
+    return torch.full((R,), float(x), dtype=like.dtype, device=like.device)
 
 
 @torch.no_grad()
@@ -427,7 +431,13 @@ def occluded(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
 # ---------------------------------------------------------------------------
 
 def _vec(v, like):
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """The constant vector v on like's device, filled there: a tensor made
+    from host data would be a copy from the host, which a captured CUDA
+    graph cannot hold."""
+    out = torch.empty((len(v),), dtype=like.dtype, device=like.device)
+    for i, x in enumerate(v):
+        out[i].fill_(x)
+    return out
 
 
 def _sphere_detail(p, eps):

@@ -30,7 +30,7 @@ def _uniform(key, site: int, sid, n: int):
     """[R, n] f32 uniforms keyed per (site, sample id): a lane's draws do
     not depend on the batch it is in, so slicing a queue to its live head
     or compacting it moves no pixel (shade.py ``_uniform``)."""
-    return rng.uniform_lanes(rng.fold_in_lanes(rng.fold_in(key, site), sid), n)
+    return rng.uniform_lanes(rng.fold_in(rng.fold_in(key, site), sid), n)
 
 
 def sample_atlas(data, meta, tex_ix, uv, srgb: bool = True):

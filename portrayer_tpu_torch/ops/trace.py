@@ -5,17 +5,21 @@ ray.rs) as rounds over ray queues.
 A round: nearest-hit launch, hit detail, deferred shading, one any-hit
 launch over every light's shadow rays, accumulation per pixel, and the
 reflect/refract children packed by ``_compact`` into the next round's
-queue.  Queues have the capacity schedule of ``RenderConfig.queue_caps``;
-on overflow the lowest-throughput children end in the background colour
-(exact for the reference's depth cut-off, which also returns the
-background, material.rs:102-104) and their throughput is counted.
+queue.  Queues have the JAX package's static shapes: a capacity per round
+from ``RenderConfig.queue_caps``, the live lanes compacted in order to the
+front and the dead slots filled with fixed values.  On overflow the
+lowest-throughput children end in the background colour (exact for the
+reference's depth cut-off, which also returns the background,
+material.rs:102-104) and their throughput is counted.
 
-Where the JAX package switches between statically sized head slices of a
-queue and scans the tail rounds, here each round runs on exactly its live
-lanes: ``_compact`` keeps only those, in order, and reads their count on
-the host (one host sync per round).  The loop ends at ``max_depth`` or
-when no ray is alive.  Draws are keyed by sample id, so the slicing moves
-no pixel.
+Round 0 runs on the primary lanes.  A later round runs on the smallest
+head slice of its queue that holds the live rays (``slice_sizes``, from
+``RenderConfig.queue_slice_divs``), or not at all when none is alive: the
+JAX package's ``lax.switch`` over the same slices.  ``first_round`` and
+``bounce_round`` read nothing on the host, so a render can capture each
+as a CUDA graph (render.py); ``trace`` runs them op by op and reads the
+live count once per bounce round to pick the slice.  Draws are keyed by
+sample id, so the slicing moves no pixel.
 """
 
 from __future__ import annotations
@@ -40,6 +44,11 @@ class _Queue(NamedTuple):
     src_tri: torch.Tensor   # [Q] int32 triangle the ray left
     sid: torch.Tensor       # [Q] int32 sample id of the counter-based draws
     #                         (primary: lane index; children 2*sid+{0,1})
+
+
+# _zero_queue's values of a dead slot (the JAX package's trace).
+_FILL = {"o": 0.0, "d": 1.0, "w": 0.0, "pix": 0, "t_min": 1.0, "src_node": -1,
+         "src_tri": -1, "sid": 0}
 
 
 class TraceStats(NamedTuple):
@@ -142,16 +151,17 @@ def _apply_shadows(shadow: _Shadow, acc, st, cfg, spp_c: int):
 
 
 def _compact(child: _Queue, capacity: int, acc, bg):
-    """Fit a child queue into `capacity` slots: (queue of its n_live live
-    lanes, acc, dropped, n_live).  The live lanes keep their queue order
-    (children are emitted pixel-major, so the next round's rays stay
-    coherent).  If more than `capacity` lanes are live, the threshold is
-    the capacity-th largest weight, ties fill first-come, and the lanes
-    left out add their throughput times the background to acc and to
-    `dropped` (a device scalar; 0.0 when the queue fits).  Dead lanes are
-    never kept.  n_live is read on the host."""
+    """Fit a child queue into `capacity` slots, as the JAX package's
+    _compact does: (queue [capacity], acc, dropped, n_live).  The live lanes
+    keep their queue order at the front (children are emitted pixel-major,
+    so the next round's rays stay coherent); the dead slots hold
+    _zero_queue's values.  If the queue has more lanes than `capacity`, the
+    threshold is the capacity-th largest weight, ties fill first-come, and
+    the live lanes left out add their throughput times the background to
+    acc and to `dropped`.  dropped and n_live (int64) are device scalars:
+    nothing is read on the host."""
     w = child.w
-    dropped = 0.0
+    dropped = torch.zeros((), dtype=w.dtype, device=w.device)
     if w.shape[0] <= capacity:
         take = w > 0.0
     else:
@@ -165,20 +175,81 @@ def _compact(child: _Queue, capacity: int, acc, bg):
         pix = child.pix.long()
         acc = acc.index_add(0, pix, dropped_w[:, None] * bg[pix])
         dropped = dropped_w.sum()
-    idx = torch.nonzero(take).squeeze(1)
-    return _Queue(*(x[idx] for x in child)), acc, dropped, idx.shape[0]
+    # Stable compaction: row i goes to slot (#takes before i); the rest to
+    # a trash slot past the end.
+    pos = torch.cumsum(take.to(torch.int64), dim=0)
+    tgt = torch.where(take, pos - 1, capacity)
+
+    def place(x, fill):
+        out = torch.full((capacity + 1,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)
+        return out.index_copy_(0, tgt, x)[:capacity]
+
+    q = _Queue(*(place(x, _FILL[f]) for f, x in zip(_Queue._fields, child)))
+    return q, acc, dropped, pos[-1]
 
 
-def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
-          w0=None, spp_contiguous: int = 0, with_stats: bool = False):
-    """Trace primary rays o0, d0 [R,3] with pixel ids pix0 [R], per-pixel
-    background bg [P,3] and throughput w0 [R] (0 = dead lane); `key` seeds
-    the per-round draws.  Returns acc [P,3], the per-pixel radiance sums
-    (the caller divides by spp), and with with_stats also TraceStats.
-    spp_contiguous > 0 asserts pix0 == repeat(arange(P), spp)."""
+def slice_sizes(capacity: int, divs) -> tuple:
+    """The head slices a round on a queue of `capacity` lanes can run on:
+    capacity // div rounded up to a multiple of 2048 (at most capacity),
+    div 1 always among them, sorted (the JAX package's round_r)."""
+    sizes = []
+    for div in tuple(divs) + (1,):
+        k = min(capacity, -(-capacity // div // 2048) * 2048)
+        if k not in sizes:
+            sizes.append(k)
+    return tuple(sorted(sizes))
+
+
+def pick_slice(sizes, n_live: int) -> int:
+    """The smallest of `sizes` that holds n_live lanes; 0 (the dead branch)
+    when none is alive."""
+    if n_live <= 0:
+        return 0
+    return next(k for k in sizes if k >= n_live)
+
+
+def bounce_rounds(pl: Plan, divs, read_live):
+    """The bounce rounds of a trace: for each round r = 1.. max_depth,
+    read_live() reads the live count entering it on the host (one read a
+    round) and, unless it is 0 (the dead branch: no later round runs),
+    (r, k, next_cap, is_last) is yielded, k the head slice it runs on and
+    next_cap the capacity of its children's queue (None after the last
+    round)."""
+    for ridx in range(1, pl.max_depth + 1):
+        n = read_live()
+        if n == 0:
+            return
+        last = ridx == pl.max_depth
+        yield (ridx, pick_slice(slice_sizes(pl.cap[ridx], divs), n),
+               None if last else pl.cap[ridx + 1], last)
+
+
+class Plan(NamedTuple):
+    """A trace's static shape: the last round and each round's capacity
+    (cap[r] lanes in round r's queue, r >= 1)."""
+    max_depth: int
+    cap: tuple
+
+
+def plan(R0: int, st: SceneTables, cfg: RenderConfig) -> Plan:
+    # Without a reflective material no ray has children: one round.
+    max_depth = cfg.max_depth if st.any_reflective else 0
+    caps = cfg.queue_caps
+    if not caps:
+        if cfg.queue_factor is not None:
+            caps = (cfg.queue_factor,)
+        else:
+            caps = (4.0,) if st.any_refractive else (1.0,)
+    caps = tuple(caps) + (caps[-1],) * max(0, max_depth - len(caps))
+    cap = (R0,) + tuple(max(int(round(R0 * caps[min(r, len(caps)) - 1])), 8)
+                        for r in range(1, max_depth + 1))
+    return Plan(max_depth, cap)
+
+
+def primary_queue(o0, d0, pix0, w0, cfg: RenderConfig) -> _Queue:
     R0 = o0.shape[0]
     dev = o0.device
-    q = _Queue(
+    return _Queue(
         o=o0, d=d0,
         w=torch.ones((R0,), dtype=o0.dtype, device=dev) if w0 is None else w0,
         pix=pix0,
@@ -187,39 +258,70 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
         src_tri=torch.full((R0,), -1, dtype=torch.int32, device=dev),
         sid=torch.arange(R0, dtype=torch.int32, device=dev),
     )
-    acc = torch.zeros((n_pixels, 3), dtype=o0.dtype, device=dev)
-    # Without a reflective material no ray has children: one round.
-    max_depth = cfg.max_depth if st.any_reflective else 0
 
-    caps = cfg.queue_caps
-    if not caps:
-        if cfg.queue_factor is not None:
-            caps = (cfg.queue_factor,)
-        else:
-            caps = (4.0,) if st.any_refractive else (1.0,)
-    caps = tuple(caps) + (caps[-1],) * max(0, max_depth - len(caps))
-    cap_of = lambda r: max(int(round(R0 * caps[min(r, len(caps)) - 1])), 8)
 
+def first_round(rkey, q: _Queue, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
+                pl: Plan, spp_c: int = 0):
+    """Round 0 on the primary queue, its draws keyed rkey (the trace key
+    folded with 0): (acc [P,3], the queue of round 1 or None without
+    bounces, dropped, n_live), the last two device scalars."""
+    acc = torch.zeros((n_pixels, 3), dtype=q.o.dtype, device=q.o.device)
+    is_last = pl.max_depth == 0
+    hit = _nearest(q, st, cfg)
+    acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rkey, is_last=is_last,
+                                  spp_c=spp_c)
+    acc = _apply_shadows(sh, acc, st, cfg, spp_c)
+    if is_last:
+        return acc, None, None, None
+    q, acc, dropped, n_live = _compact(child, pl.cap[1], acc, bg)
+    return acc, q, dropped, n_live
+
+
+def bounce_round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, k: int,
+                 next_cap: int, is_last: bool):
+    """A bounce round, its draws keyed rkey (the trace key folded with the
+    round's index), on the head slice of k lanes of its queue: (acc, the
+    queue of next_cap lanes of the next round or, after the last round,
+    None, dropped, n_live)."""
+    q = _Queue(*(x[:k] for x in q))
+    hit = _nearest(q, st, cfg)
+    acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rkey, is_last=is_last)
+    acc = _apply_shadows(sh, acc, st, cfg, 0)
+    if is_last:
+        return acc, None, None, None
+    q, acc, dropped, n_live = _compact(child, next_cap, acc, bg)
+    return acc, q, dropped, n_live
+
+
+def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
+          w0=None, spp_contiguous: int = 0, with_stats: bool = False):
+    """Trace primary rays o0, d0 [R,3] with pixel ids pix0 [R], per-pixel
+    background bg [P,3] and throughput w0 [R] (0 = dead lane); `key` seeds
+    the per-round draws.  Returns acc [P,3], the per-pixel radiance sums
+    (the caller divides by spp), and with with_stats also TraceStats.
+    spp_contiguous > 0 asserts pix0 == repeat(arange(P), spp).  The live
+    count is read on the host once per bounce round, to pick its slice."""
+    R0 = o0.shape[0]
+    pl = plan(R0, st, cfg)
+    q = primary_queue(o0, d0, pix0, w0, cfg)
+    acc, q, dropped, n_live = first_round(rng.fold_in(key, 0), q, bg, n_pixels, st, cfg, pl,
+                                          spp_contiguous)
     live = []  # live rays entering rounds 1.. (host ints)
-    dropped = 0.0
-    for ridx in range(max_depth + 1):
-        spp_c = spp_contiguous if ridx == 0 else 0
-        hit = _nearest(q, st, cfg)
-        acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rng.fold_in(key, ridx),
-                                      is_last=ridx == max_depth, spp_c=spp_c)
-        acc = _apply_shadows(sh, acc, st, cfg, spp_c)
-        if ridx == max_depth:
-            break
-        q, acc, dr, n_live = _compact(child, cap_of(ridx + 1), acc, bg)
-        dropped = dropped + dr
-        live.append(n_live)
-        if n_live == 0:
-            break
+
+    def read_live():
+        live.append(int(n_live))
+        return live[-1]
+
+    for ridx, k, next_cap, last in bounce_rounds(pl, cfg.queue_slice_divs, read_live):
+        acc, q, dr, n_live = bounce_round(rng.fold_in(key, ridx), q, acc, bg, st, cfg, k,
+                                          next_cap, last)
+        dropped = dropped if last else dropped + dr
 
     if not with_stats:
         return acc
     # Round 0's live count costs one more host sync, only here.
     lv = [int((w0 > 0.0).sum()) if w0 is not None else R0] + live
-    lv = (lv + [0] * max_depth)[:max_depth + 1]
+    lv = (lv + [0] * pl.max_depth)[:pl.max_depth + 1]
     return acc, TraceStats(live=torch.tensor(lv, dtype=torch.int32),
-                           dropped_w=float(dropped) / R0, syncs=len(live))
+                           dropped_w=float(dropped) / R0 if dropped is not None else 0.0,
+                           syncs=len(live))

@@ -14,8 +14,11 @@ background=scenes.sky_background, name='procedural-meshes'), 'out/profile')"
 Renders the middle tile row of a scene at its published size (a region
 re-render, so its samples are the full frame's: for big-scene at
 1980x1020, row 3, y = 384..511) at 16 spp, the smoke run's main-path
-settings, with 131,072 rays per launch: first untraced, three times, for
-the wall time; then once under ``torch.profiler``.  From the trace's
+settings, with 131,072 rays per launch, on tables flattened once: the
+first render captures the chunk program's CUDA graphs, the later ones
+replay them.  Untraced, three times, for the wall time; then once under
+``torch.profiler``.  ``--eager`` profiles the same chunk program run op
+by op instead (``cuda_graphs=False``).  From the trace's
 device events it
 prints the traced wall time, the device time (the union of kernel, memcpy
 and memset intervals), the device's busy share of the traced wall, the
@@ -87,7 +90,8 @@ def summarize_trace(trace: dict, wall_ms: float, n_chunks: int, top: int = 12) -
     }
 
 
-def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dict:
+def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
+            eager=False) -> dict:
     """Profile the render of SceneSpec `spec` on CUDA device 0 (see the
     module docstring); writes the summary and trace under `out`."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -99,7 +103,8 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dic
     dev = torch.device("cuda", 0)
     w, h = spec.size
     spp = one_shard_spp or SPP
-    cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=131072)
+    cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=131072,
+                       queue_caps=spec.queue_caps, cuda_graphs=not eager)
     th, tw = cfg.tile
     stats = []
     if one_shard_spp:
@@ -114,10 +119,14 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dic
         region = ((0, y0), (w - 1, min(y0 + th, h) - 1))
         tiles = -(-w // tw)
         chunks = tiles * -(-spp // max(1, cfg.max_rays_per_launch // (th * tw)))
-        render = lambda stats=None: render_u8(spec.scene, spec.camera, (w, h),
-                                              spec.background, cfg, region=region, stats=stats)
+        st = flatten_scene(spec.scene, dev)
+        render = lambda stats=None: render_u8(st, spec.camera, (w, h), spec.background, cfg,
+                                              region=region, stats=stats)
 
-    render(stats)  # builds the kernel, warms the allocator, counts the rounds
+    t0 = time.perf_counter()
+    render(stats)  # builds the kernel, captures the graphs, counts the rounds
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     walls = []
     for _ in range(REPEATS):
@@ -145,7 +154,12 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dic
         one_shard=bool(one_shard_spp), rows=(y0, region[1][1]),
         untraced_wall_ms=walls, untraced_wall_ms_median=statistics.median(walls),
         untraced_ms_per_chunk=statistics.median(walls) / chunks,
-        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, first_wall_ms=first_ms,
+        captured=not one_shard_spp and not eager)
+    if summary["captured"]:
+        (prog,) = st.chunk_programs.values()
+        summary.update(graphs=len(prog.graphs), capture_s=prog.capture_s,
+                       replays={str(k): g.replays for k, g in prog.graphs.items()})
     if stats:
         summary.update(
             rounds_per_chunk=sum(int((s.live > 0).sum()) for s in stats) / chunks,
@@ -166,6 +180,12 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None) -> dic
         print(f"[profile] {spec.name} rows {y0}..{region[1][1]}, {tiles} tiles x {spp} spp = "
               f"{chunks} chunks of {th * tw * min(spp, cfg.max_rays_per_launch // (th * tw))} "
               f"rays on {s['card']}")
+    if s["captured"]:
+        print(f"[profile] captured chunk program: first render {first_ms:.3f} ms, "
+              f"{s['graphs']} graphs captured in {s['capture_s']:.3f} s, replays "
+              f"{s['replays']}")
+    elif not one_shard_spp:
+        print(f"[profile] the chunk program op by op (eager); first render {first_ms:.3f} ms")
     print(f"[profile] untraced wall {', '.join(f'{x:.3f}' for x in walls)} ms "
           f"(median {s['untraced_wall_ms_median']:.3f} ms, {s['untraced_ms_per_chunk']:.3f} "
           f"ms per chunk)")
@@ -191,8 +211,10 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.join("out", "profile"))
     ap.add_argument("--one-shard", type=int, default=None, metavar="SPP",
                     help="the whole frame at SPP in one trace (see the module docstring)")
+    ap.add_argument("--eager", action="store_true",
+                    help="the chunk program op by op, without CUDA graphs")
     args = ap.parse_args(argv)
-    return profile(scenes.load(args.scene), args.out, args.one_shard)
+    return profile(scenes.load(args.scene), args.out, args.one_shard, args.eager)
 
 
 if __name__ == "__main__":

@@ -5,17 +5,30 @@ Per pixel the reference computes: the background gradient at integer pixel
 uv (render.rs:31-34), SAMPLES jittered camera rays traced recursively
 (render.rs:36-43), their mean, gamma c^(1/2.2), clamp to [0, 1] and u8
 truncation (render.rs:45-50,143-147).  Here the image is processed in
-pixel tiles x sample chunks; each launch traces tile_px * spp_chunk rays.
+pixel tiles x sample chunks; each chunk traces tile_px * spp_chunk rays.
 Tiles are keyed by their origin, so re-rendering a region reproduces the
 full render's samples there (the reference's Image::slice_mut,
-render.rs:211-213).  Tiles are traced one after the other on the host: a
-`reporter` ticks once per tile, when the host has issued its work (the
-device runs behind by the work still queued; the host sets the pace).
+render.rs:211-213).
+
+A chunk is a fixed-shape program on the device (``_ChunkProgram``), as
+the JAX package's ``_render_image`` is one jitted program: its tile
+origin, sample offset and chunk index come from a frame-wide table on the
+device, read through a counter that the program advances, and its keys,
+rays, background and trace stay on the device.  On the card with
+accel="cuda" the render captures the program once as CUDA graphs (the
+whole chunk in a scene without bounces; round 0, then each bounce round's
+shape, otherwise) and replays them for every chunk; the host reads only
+the live count of each bounce round, to pick the round's slice.  Anywhere
+else the same program runs op by op.  A `reporter` ticks once per tile,
+when the host has issued its work (the device runs behind by the work
+still queued).
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -25,7 +38,9 @@ from . import rng
 from .camera import Camera, CameraSettings
 from .config import RenderConfig, GAMMA
 from .image_io import read_png, write_png
-from .ops.trace import trace
+from .ops import cuda_intersect
+from .ops.trace import (TraceStats, _Queue, bounce_round, bounce_rounds, first_round, plan,
+                        primary_queue)
 from .reporter import Reporter, NullProgress
 from .scene.flatten import SceneTables, flatten_scene
 from .scene.node import Scene, bounding_volume_scene
@@ -38,9 +53,11 @@ def default_background(uv):
 
 def _tile_rays(key, cam: Camera, x0: int, y0: int, sample_offset: int, *,
                cfg: RenderConfig, background, tile_h: int, tile_w: int, spp: int,
-               samples: int):
+               samples: int, jitter_key=None):
     """One (tile x sample-chunk) wavefront's primary rays: (o [R,3], d [R,3],
-    pixel ids [R], background [P,3], throughput [R]), pixel-major."""
+    pixel ids [R], background [P,3], throughput [R]), pixel-major.  x0, y0
+    and sample_offset are ints or 0-d int tensors; the jitter is keyed
+    fold_in(key, 0), or jitter_key where the caller has it."""
     dev, dt = cfg.device, cfg.dtype
     P = tile_h * tile_w
     R = P * spp
@@ -58,7 +75,9 @@ def _tile_rays(key, cam: Camera, x0: int, y0: int, sample_offset: int, *,
     # Jittered sample positions x + U[0,1) (render.rs:38-39), pixel-major.
     # Drawn in float32 whatever cfg.dtype, so that the float64 check mode
     # samples the same positions as the float32 render.
-    jitter = rng.uniform(rng.fold_in(key, 0), (R, 2), dev).to(dt)
+    if jitter_key is None:
+        jitter_key = rng.fold_in(key, 0)
+    jitter = rng.uniform(jitter_key, (R, 2), dev).to(dt)
     xs = px.to(dt).repeat_interleave(spp) + jitter[:, 0]
     ys = py.to(dt).repeat_interleave(spp) + jitter[:, 1]
     pix_id = torch.arange(P, **i32).repeat_interleave(spp)
@@ -70,46 +89,233 @@ def _tile_rays(key, cam: Camera, x0: int, y0: int, sample_offset: int, *,
     return o, d, pix_id, bg, live.to(dt)
 
 
-def _tile_chunk(key, st: SceneTables, cam: Camera, x0: int, y0: int,
-                sample_offset: int, *, cfg: RenderConfig, background,
-                tile_h: int, tile_w: int, spp: int, samples: int, stats=None):
-    """Trace one (tile x sample-chunk) wavefront; returns acc [P,3].  A list
-    `stats` receives the trace's TraceStats."""
-    o, d, pix_id, bg, w0 = _tile_rays(
-        key, cam, x0, y0, sample_offset, cfg=cfg, background=background,
-        tile_h=tile_h, tile_w=tile_w, spp=spp, samples=samples)
-    out = trace(rng.fold_in(key, 1), o, d, pix_id, bg, tile_h * tile_w, st, cfg, w0=w0,
-                spp_contiguous=spp, with_stats=stats is not None)
-    if stats is None:
-        return out
-    stats.append(out[1])
-    return out[0]
+class _Graph:
+    """A step of a chunk program captured as a CUDA graph.  Its sweep
+    launches count once per replay (cuda_intersect.count_replay)."""
+
+    def __init__(self, fn, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        cuda_intersect.take_captured()
+        with torch.cuda.graph(self.graph, pool=pool):
+            fn()
+        self.launches = cuda_intersect.take_captured()
+        self.replays = 0
+
+    def replay(self):
+        self.graph.replay()
+        self.replays += 1
+        cuda_intersect.count_replay(self.launches)
 
 
-def _render_tiles(key, st, cam, grid, *, cfg, background, tile_h, tile_w, spp,
-                  n_chunks, samples, as_u8, stats=None, reporter=None):
-    """Render every tile of `grid` ((x0, y0) origins): [T, th, tw, 3] mean
-    radiance, or with as_u8 the gamma-encoded u8 tiles, on the device.
-    `reporter` ticks once per tile."""
+class _ChunkProgram:
+    """One (tile x sample-chunk) of a render as a program that reads
+    nothing on the host: its inputs are the next row of `rows` (x0, y0,
+    sample offset, chunk index), picked by the device counter `cursor`,
+    and that row's keys (`keys`, folded for the whole frame at once).
+    ``head`` traces round 0 and, with bounces, leaves the round-1 queue,
+    acc and the live count in static buffers; ``bounce`` runs one bounce
+    round on them; the chunk's radiance ends in `tile_acc`.  Live rays per
+    round and dropped throughput go to the per-row tables `live` and
+    `dropped`.  With `capture`, each step runs
+    as a CUDA graph, captured at its first use (all in one memory pool:
+    steps meet only in the static buffers, allocated outside every
+    graph)."""
+
+    def __init__(self, st: SceneTables, cam: Camera, cfg: RenderConfig, background, *,
+                 tile_h: int, tile_w: int, spp: int, samples: int, n_rows: int,
+                 capture: bool):
+        dev, dt = cfg.device, cfg.dtype
+        self.st, self.cam, self.cfg, self.background = st, cam, cfg, background
+        self.tile_h, self.tile_w, self.spp, self.samples = tile_h, tile_w, spp, samples
+        self.P = tile_h * tile_w
+        self.pl = plan(self.P * spp, st, cfg)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.rows = torch.zeros((n_rows, 4), **i64)
+        self.cursor = torch.zeros((), **i64)
+        self.row = torch.zeros((), **i64)     # the row in flight
+        self.ridx = torch.zeros((), **i64)    # its next bounce round
+        self.n_live = torch.zeros((), **i64)  # live rays entering it
+        self.key = rng.PRNGKey(cfg.seed).to(dev)
+        # Per row: the jitter key, then the key of each round.
+        self.keys = torch.zeros((n_rows, self.pl.max_depth + 2, 2), **i64)
+        self.tile_acc = torch.zeros((self.P, 3), dtype=dt, device=dev)
+        self.acc = torch.zeros_like(self.tile_acc)
+        self.bg = torch.zeros_like(self.tile_acc)
+        self.live = torch.zeros((n_rows, self.pl.max_depth + 1), dtype=torch.int32, device=dev)
+        self.dropped = torch.zeros((n_rows,), dtype=dt, device=dev)
+        f32 = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+        i32 = lambda c: torch.zeros((c,), dtype=torch.int32, device=dev)
+        self.queues = {c: _Queue(o=f32(c, 3), d=f32(c, 3), w=f32(c), pix=i32(c), t_min=f32(c),
+                                 src_node=i32(c), src_tri=i32(c), sid=i32(c))
+                       for c in set(self.pl.cap[1:])}
+        self.capture = capture
+        self.graphs = {}
+        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.warm = False
+        self.capture_s = 0.0
+
+    def _fold_keys(self, n: int):
+        """The keys of rows [0, n), all at once: the chunk key
+        fold_in(fold_in(fold_in(key, x0), y0), ci) (keyed by tile origin, a
+        region re-render repeats the full render's samples), its jitter key
+        fold_in(ckey, 0) and the trace key fold_in(ckey, 1) folded with each
+        round's index."""
+        rows = self.rows[:n]
+        ckey = rng.fold_in(rng.fold_in(rng.fold_in(self.key, rows[:, 0]), rows[:, 1]),
+                           rows[:, 3])
+        rounds = torch.arange(self.pl.max_depth + 1, device=rows.device)
+        self.keys[:n, 0] = rng.fold_in(ckey, 0)
+        self.keys[:n, 1:] = rng.fold_in(rng.fold_in(ckey, 1)[:, None, :], rounds[None, :])
+
+    def _row_key(self, col):
+        """keys[row, col], col a 0-d tensor or an int."""
+        keys = self.keys.index_select(0, self.row.reshape(1))[0]
+        if isinstance(col, int):
+            return keys[col]
+        return keys.index_select(0, col.reshape(1))[0]
+
+    def head(self):
+        row = self.rows.index_select(0, self.cursor.reshape(1))[0]
+        self.row.copy_(self.cursor)
+        self.cursor.add_(1)
+        o, d, pix, bg, w0 = _tile_rays(
+            None, self.cam, row[0], row[1], row[2], cfg=self.cfg, background=self.background,
+            tile_h=self.tile_h, tile_w=self.tile_w, spp=self.spp, samples=self.samples,
+            jitter_key=self._row_key(0))
+        self.live[:, 0].index_put_((self.row.reshape(1),), (w0 > 0.0).sum().reshape(1).to(
+            torch.int32))
+        acc, q, dropped, n_live = first_round(
+            self._row_key(1), primary_queue(o, d, pix, w0, self.cfg), bg, self.P, self.st,
+            self.cfg, self.pl, self.spp)
+        if q is None:
+            self.tile_acc.add_(acc)
+            return
+        self.acc.copy_(acc)
+        self.bg.copy_(bg)
+        self.ridx.fill_(1)
+        self._queue_out(q, self.pl.cap[1], dropped, n_live)
+
+    def _queue_out(self, q, cap, dropped, n_live):
+        for buf, x in zip(self.queues[cap], q):
+            buf.copy_(x)
+        self.n_live.copy_(n_live)
+        self.live.index_put_((self.row.reshape(1), self.ridx.reshape(1)),
+                             n_live.reshape(1).to(torch.int32))
+        self.dropped.index_add_(0, self.row.reshape(1), dropped.reshape(1))
+
+    def bounce(self, cap: int, k: int, next_cap, is_last: bool):
+        acc, q, dropped, n_live = bounce_round(
+            self._row_key(self.ridx + 1), self.queues[cap], self.acc, self.bg, self.st,
+            self.cfg, k, next_cap, is_last)
+        self.acc.copy_(acc)
+        self.ridx.add_(1)
+        if not is_last:
+            self._queue_out(q, next_cap, dropped, n_live)
+
+    def _run(self, name, fn):
+        if not (self.capture and self.warm):
+            fn()
+            return
+        g = self.graphs.get(name)
+        if g is None:
+            t0 = time.perf_counter()
+            g = self.graphs[name] = _Graph(fn, self.pool)
+            self.capture_s += time.perf_counter() - t0
+        g.replay()
+
+    def chunk(self) -> int:
+        """Trace the next row's chunk into tile_acc; returns the host reads
+        of live counts it took."""
+        self._run("head", self.head)
+        if self.pl.max_depth == 0:
+            return 0
+        reads = []
+
+        def read_live():
+            reads.append(int(self.n_live))
+            return reads[-1]
+
+        for ridx, k, nxt, last in bounce_rounds(self.pl, self.cfg.queue_slice_divs, read_live):
+            cap = self.pl.cap[ridx]
+            self._run(("bounce", cap, k, nxt, last),
+                      functools.partial(self.bounce, cap, k, nxt, last))
+        self.tile_acc.add_(self.acc)
+        return len(reads)
+
+    def start(self, rows: np.ndarray):
+        """Load a frame's rows; a capturing program first runs one chunk op
+        by op (building the kernel, the sweep's chunk groups and the
+        allocator's blocks) and forgets it."""
+        self.rows[:rows.shape[0]].copy_(torch.from_numpy(rows))
+        self._fold_keys(rows.shape[0])
+        if self.capture and not self.warm:
+            self.cursor.zero_()
+            self.chunk()
+            self.warm = True
+        self.cursor.zero_()
+        self.tile_acc.zero_()
+        self.live.zero_()
+        self.dropped.zero_()
+
+
+# Chunk programs kept per tables (SceneTables.chunk_programs).
+_MAX_PROGRAMS = 2
+
+
+def _captures(cfg: RenderConfig) -> bool:
+    return cfg.cuda_graphs and cfg.accel == "cuda" and cfg.device.type == "cuda"
+
+
+def _program(st, cam, cfg, background, settings, size, **shape):
+    """The chunk program of this render: on the card with accel="cuda"
+    (and cuda_graphs) a capturing one, cached on the tables by
+    configuration, camera, frame size, background and chunk shape;
+    otherwise a fresh one that runs op by op."""
+    if not _captures(cfg):
+        return _ChunkProgram(st, cam, cfg, background, capture=False, **shape)
+    key = (cfg, background, tuple(size), tuple(sorted(shape.items())),
+           tuple(tuple(np.asarray(v, dtype=np.float64).reshape(-1).tolist())
+                 for v in (settings.eye, settings.center, settings.up, settings.fovy)))
+    cache = st.chunk_programs
+    prog = cache.pop(key, None)
+    if prog is None:
+        prog = _ChunkProgram(st, cam, cfg, background, capture=True, **shape)
+        while len(cache) >= _MAX_PROGRAMS:
+            cache.pop(next(iter(cache)))
+    cache[key] = prog
+    return prog
+
+
+def _render_tiles(prog: _ChunkProgram, grid, *, n_chunks, as_u8, stats=None, reporter=None):
+    """Render every tile of `grid` ((x0, y0) origins) through `prog`:
+    [T, th, tw, 3] mean radiance, or with as_u8 the gamma-encoded u8
+    tiles, on the device.  `reporter` ticks once per tile; a list `stats`
+    receives each chunk's TraceStats, read once for the frame."""
+    cfg = prog.cfg
+    spp = prog.spp
+    rows = np.array([(x0, y0, ci * spp, ci) for x0, y0 in grid for ci in range(n_chunks)],
+                    dtype=np.int64).reshape(-1, 4)
+    prog.start(rows)
+    syncs = []
     out = []
-    n = torch.full((), float(samples), dtype=cfg.dtype, device=cfg.device)
-    for x0, y0 in grid:
-        # Keyed by tile origin: a region re-render repeats the full render's
-        # samples.
-        tkey = rng.fold_in(rng.fold_in(key, x0), y0)
-        acc = torch.zeros((tile_h * tile_w, 3), dtype=cfg.dtype, device=cfg.device)
-        for ci in range(n_chunks):
-            acc = acc + _tile_chunk(
-                rng.fold_in(tkey, ci), st, cam, x0, y0, ci * spp, cfg=cfg,
-                background=background, tile_h=tile_h, tile_w=tile_w, spp=spp,
-                samples=samples, stats=stats)
-        mean = (acc / n).reshape(tile_h, tile_w, 3)
+    n = torch.full((), float(prog.samples), dtype=cfg.dtype, device=cfg.device)
+    for _ in grid:
+        for _ in range(n_chunks):
+            syncs.append(prog.chunk())
+        mean = (prog.tile_acc / n).reshape(prog.tile_h, prog.tile_w, 3)
+        prog.tile_acc.zero_()
         if as_u8:
             enc = torch.clamp(torch.clamp(mean, min=0.0) ** (1.0 / GAMMA), 0.0, 1.0)
             mean = (enc * 255.0).to(torch.uint8)
         out.append(mean)
         if reporter is not None:
             reporter.tick()
+    if stats is not None:
+        live = prog.live[:len(rows)].cpu()
+        dropped = prog.dropped[:len(rows)].cpu().tolist()
+        R0 = prog.P * spp
+        stats.extend(TraceStats(live=live[i], dropped_w=dropped[i] / R0, syncs=syncs[i])
+                     for i in range(len(rows)))
     return torch.stack(out)
 
 
@@ -148,12 +354,13 @@ def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8
                 continue
             grid.append((tx0, ty0))
 
+    n_tiles = -(-height // tile_h) * -(-width // tile_w)
+    prog = _program(st, cam, cfg, background, camera, size, tile_h=tile_h, tile_w=tile_w,
+                    spp=spp_chunk, samples=samples, n_rows=n_tiles * n_chunks)
     reporter = reporter or NullProgress(0)
     reporter.start(total=len(grid))
-    tiles = _render_tiles(
-        rng.PRNGKey(cfg.seed), st, cam, grid, cfg=cfg, background=background,
-        tile_h=tile_h, tile_w=tile_w, spp=spp_chunk, n_chunks=n_chunks,
-        samples=samples, as_u8=as_u8, stats=stats, reporter=reporter).cpu().numpy()
+    tiles = _render_tiles(prog, grid, n_chunks=n_chunks, as_u8=as_u8, stats=stats,
+                          reporter=reporter).cpu().numpy()
     out_dtype = np.uint8 if as_u8 else np.float64
     out = np.zeros((height, width, 3), dtype=out_dtype)
     for (tx0, ty0), tile in zip(grid, tiles):
@@ -173,8 +380,8 @@ def render_linear(scene_or_tables, camera: CameraSettings, size: Tuple[int, int]
     """The linear mean-radiance image [H,W,3] (float64 on the host).
 
     `region` = ((x1,y1),(x2,y2)) inclusive slice to render (others zero).
-    A list `stats` receives the TraceStats of every (tile x sample-chunk)
-    trace, at one more host sync per trace.  `reporter` (reporter.py)
+    A list `stats` receives the TraceStats of every (tile x sample-chunk),
+    read from the device once for the frame.  `reporter` (reporter.py)
     ticks once per tile."""
     return _render_common(scene_or_tables, camera, size, background, cfg, region,
                           as_u8=False, stats=stats, reporter=reporter)

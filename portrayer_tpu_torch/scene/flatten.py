@@ -168,6 +168,10 @@ class SceneTables:
     any_normal_map: bool
     rec: torch.Tensor = dataclasses.field(init=False, repr=False)   # [N,34] node_record
     trec: torch.Tensor = dataclasses.field(init=False, repr=False)  # [T,26] tri_record
+    # Chunk programs of renders of these tables (render.py), with their
+    # captured CUDA graphs: they live and go with the tables.
+    chunk_programs: dict = dataclasses.field(init=False, repr=False, compare=False,
+                                             default_factory=dict)
 
     def __post_init__(self):
         self.rec = node_record(self)

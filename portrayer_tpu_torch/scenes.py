@@ -14,6 +14,7 @@ import torch
 
 from .camera import CameraSettings
 from .math3d import radians
+from .ops.intersect import _vec
 from .scene import (
     Scene, SceneNode, Geometry, Sphere, Cube, Cone, Cylinder, Plane, Torus, Triangle, Material,
     Light,
@@ -35,8 +36,9 @@ class SceneSpec:
 def sky_background(uv):
     """The gradient used by most examples: (0.2,0.4,0.6)*(1-v) + blue*v."""
     v = uv[..., 1:2]
-    top = torch.tensor([0.2, 0.4, 0.6], dtype=uv.dtype, device=uv.device)
-    blue = torch.tensor([0.0, 0.0, 1.0], dtype=uv.dtype, device=uv.device)
+    # Constants filled on the device: a render captures this in a CUDA
+    # graph, which cannot hold a copy from the host.
+    top, blue = _vec((0.2, 0.4, 0.6), uv), _vec((0.0, 0.0, 1.0), uv)
     return top * (1.0 - v) + blue * v
 
 

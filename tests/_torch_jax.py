@@ -441,3 +441,54 @@ INLINE.update({
     "normal-mapping-numpy": lambda pkg: normal_mapping_numpy(pkg, tex=64),
     "soft-shadows-icosphere": lambda pkg: soft_shadows_icosphere(pkg, subdiv=3),
 })
+
+
+# ---------------------------------------------------------------------------
+# Host reads: what a captured CUDA graph cannot hold.
+# ---------------------------------------------------------------------------
+
+class HostReads:
+    """A dispatch mode that records the ops which, on CUDA tensors, read a
+    value on the host or copy host data to the card: a captured CUDA graph
+    refuses both.  On the CPU they are plain ops, so this is how a CPU test
+    sees them.  Ops inside `excused()` (the sweep's plain version, which
+    stands in for the kernel) are not recorded."""
+
+    OPS = ("_local_scalar_dense", "nonzero", "lift_fresh", "lift_fresh_copy",
+           "masked_select", "unique", "_unique2", "item")
+
+    def __init__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+        self.seen = []
+        self.depth = 0
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.overloadpacket.__name__
+                # Indexing by a bool mask runs nonzero.
+                bool_index = name == "index" and any(
+                    getattr(i, "dtype", None) == torch.bool for i in args[1])
+                if outer.depth == 0 and (name in HostReads.OPS or bool_index):
+                    outer.seen.append(str(func))
+                return func(*args, **(kwargs or {}))
+
+        self.mode = _Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def excused(self, fn):
+        def run(*args, **kwargs):
+            self.depth += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+        return run

@@ -17,7 +17,9 @@ framebuffer equals the shard sum traced in this process within 1e-5.  The
 beam sweep on big-scene's camera rays and their shadow rays: the gates of
 tests/test_beam.py against the flat sweep, and against the kernel the
 kernel gates by category with a float64 witness (tests/_torch_jax.py's
-sweeps_apart).
+sweeps_apart).  The render replaying its captured CUDA graphs equals the
+same chunk program run op by op within 1e-6, and a capture that meets a
+host read raises.
 
 Gates: the JAX package's kernel gates (tests/test_pallas.py) for the
 nearest mode, with its torus gate (tests/test_torus.py) on torus hits,
@@ -121,7 +123,9 @@ def test_sweep_kernel_matches_plain_version(dev, name):
     _, child, _ = tr._round_shade(q, tr._nearest(q, st, cfg), acc, acc, st, cfg,
                                   rng.PRNGKey(3), is_last=False)
     q1, _, _, n = tr._compact(child, 2 * R, acc, acc)
+    n = int(n)
     assert n > 0
+    q1 = tr._Queue(*(x[:n] for x in q1))  # the live head
     kb = _check(q1.o, q1.d, q1.t_min, st, cfg, torus, src_node=q1.src_node,
                 src_tri=q1.src_tri)
     pts, sd, t_min, kw = _shadow(q1.o, q1.d, kb, st)
@@ -381,3 +385,69 @@ def test_beam_sweep_matches_the_flat_sweep_and_the_kernel(dev):
         assert apart["uncleared"] == 0, apart["rays"]
         assert apart["tie"] <= 0.002 * apart["hits"], apart["tie"]
     assert stats["trips"] > 0
+
+
+# The middle tile of big-scene's 1980x1020 frame (region, inclusive).
+BIG_TILE = ((896, 384), (1023, 511))
+
+
+@pytest.mark.parametrize("name, size, region", [
+    ("big-scene", (1980, 1020), BIG_TILE), ("torus-showcase", (256, 256), None)])
+def test_captured_render_matches_the_eager_chunk_loop(dev, name, size, region):
+    """The render replaying its captured chunk graphs against the same
+    chunk program run op by op (cuda_graphs=False), at the main paths' 16
+    spp and 131,072 rays a chunk: within 1e-6 (index_add's float atomics
+    sum in another order), the same live rays per round, each chunk's head
+    graph replayed once, the sweep launches counted per replay (the
+    captured render's are the eager loop's plus its warm-up chunk's)."""
+    import dataclasses
+
+    spec = scenes.load(name)
+    st = flatten_scene(spec.scene, dev)
+    cfg = RenderConfig(device=dev, samples=16, max_rays_per_launch=131072,
+                       queue_caps=spec.queue_caps)
+    args = (st, spec.camera, size, spec.background)
+    runs = {}
+    for graphs in (True, False):
+        stats = []
+        cuda_intersect.reset_counts()
+        img = T.render_linear(*args, dataclasses.replace(cfg, cuda_graphs=graphs),
+                              region=region, stats=stats)
+        runs[graphs] = img, stats, dict(cuda_intersect.COUNTS)
+    (img, stats, counts), (ref, ref_stats, ref_counts) = runs[True], runs[False]
+    np.testing.assert_allclose(img, ref, rtol=0, atol=1e-6)
+    assert [s.live.tolist() for s in stats] == [s.live.tolist() for s in ref_stats]
+    (prog,) = st.chunk_programs.values()
+    assert prog.graphs["head"].replays == len(stats)
+    first = stats[0].live
+    for mode in ("nearest", "any_hit"):
+        assert counts[mode] == ref_counts[mode] + int((first > 0).sum()), (counts, ref_counts)
+    assert counts["plain_on_cuda"] == ref_counts["plain_on_cuda"] == 0
+    if not st.any_reflective:
+        assert list(prog.graphs) == ["head"] and all(s.syncs == 0 for s in stats)
+
+
+def test_a_capture_that_meets_a_host_read_raises(dev, tmp_path):
+    """A background that reads a value on the host runs in the warm-up
+    chunk, then fails the capture: the render raises and returns no image
+    (no eager path takes over).  In a process of its own, since a failed
+    capture may leave the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import portrayer_tpu_torch as T\n"
+        "from portrayer_tpu_torch import scenes\n"
+        "s = scenes.load('simple')\n"
+        "bg = lambda uv: scenes.sky_background(uv) * float(uv.max() >= 0.0)\n"
+        "try:\n"
+        "    T.render_linear(s.scene, s.camera, (64, 64), bg, T.RenderConfig(samples=4))\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+        "    raise SystemExit(3)\n"
+        "print('rendered')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=root), timeout=600)
+    assert out.returncode == 3 and "raised:" in out.stdout, (out.stdout, out.stderr[-2000:])

@@ -1,7 +1,8 @@
 """The port's threefry draws are bit-equal to jax.random (partitionable
 threefry) for the renderer's call shapes: PRNGKey(seed), the tile/chunk
 key chain fold_in(fold_in(fold_in(key, x0), y0), ci), and the jitter
-uniform(fold_in(ckey, 0), (R, 2))."""
+uniform(fold_in(ckey, 0), (R, 2)); the chain also from int tensors (the
+render's row table), for all rows at once, without a host read."""
 
 import numpy as np
 import pytest
@@ -52,3 +53,41 @@ def test_per_lane_draws_bit_equal_to_shade_uniform(site, n):
     ut = _uniform(kt, site, torch.from_numpy(sid), n)
     assert ut.dtype == torch.float32 and tuple(ut.shape) == (777, n)
     np.testing.assert_array_equal(uj.view(np.uint32), ut.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", [0, 1234])
+def test_device_key_chain_from_tensor_inputs_bit_equal(seed):
+    """The render's key chain from its row table (x0, y0, sample offset,
+    chunk index) as int tensors, folded for all rows at once and for one
+    row from 0-d tensors: chunk keys, jitter draws, round keys and the
+    per-lane keys of shading, bit-equal to jax.random, and no op reads a
+    key on the host (tests/_torch_jax.py's HostReads)."""
+    from _torch_jax import HostReads
+
+    rows = torch.tensor([(0, 0, 0, 0), (128, 896, 8, 1), (1920, 64, 56, 7),
+                         (2**31 + 5, 3, 0, 2**32 - 1)], dtype=torch.int64)
+    sid = torch.from_numpy(np.random.default_rng(seed).integers(0, 2**27, 64).astype(np.int32))
+    key = rng.PRNGKey(seed)
+    rounds = torch.arange(11)
+    with HostReads() as reads:
+        ck = rng.fold_in(rng.fold_in(rng.fold_in(key, rows[:, 0]), rows[:, 1]), rows[:, 3])
+        jk = rng.fold_in(ck, 0)
+        rk = rng.fold_in(rng.fold_in(ck, 1)[:, None, :], rounds[None, :])
+        one = rng.fold_in(rng.fold_in(rng.fold_in(key, rows[2, 0]), rows[2, 1]), rows[2, 3])
+        draws = [rng.uniform(jk[i], (33, 2), "cpu") for i in range(len(rows))]
+        lanes = rng.fold_in(rk[1, 3], sid)
+    assert reads.seen == []
+    np.testing.assert_array_equal(one.numpy(), ck[2].numpy())
+    kj = jax.random.PRNGKey(seed)
+    for i, (x0, y0, _, ci) in enumerate(rows.tolist()):
+        cj = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(kj, x0), y0), ci)
+        np.testing.assert_array_equal(_bits(cj), ck[i].numpy())
+        uj = np.asarray(jax.random.uniform(jax.random.fold_in(cj, 0), (33, 2), jnp.float32))
+        np.testing.assert_array_equal(uj.view(np.uint32), draws[i].numpy().view(np.uint32))
+        tj = jax.random.fold_in(cj, 1)
+        for r in rounds.tolist():
+            np.testing.assert_array_equal(_bits(jax.random.fold_in(tj, r)), rk[i, r].numpy())
+    rj = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(
+        jax.random.fold_in(kj, 128), 896), 1), 1), 3)
+    lj = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(rj, jnp.asarray(sid.numpy()))
+    np.testing.assert_array_equal(_bits(lj), lanes.numpy())

@@ -4,15 +4,15 @@ refractive scenes and an icosphere mirror among meshes, independence of
 the live-count slicing, and the torus-showcase self-golden.
 
 Tolerances, with their reasons:
-- _compact: the port's queue equals the live head of the JAX package's
-  padded queue; equal accumulators and dropped throughput (the same
-  selection rule on the same weights).
+- _compact: the port's fixed-capacity queue equals the JAX package's on
+  every field, the padding of the dead slots included; equal accumulators
+  and dropped throughput (the same selection rule on the same weights).
 - A traced tile's per-pixel means: atol 1e-4, the JAX side run without jit
   as in test_torch_shade.py.  The exception is a pixel whose samples hit a
   torus: the f32 quartic's roots move with rounding (the JAX package's own
   torus gate is rtol 1e-3 on t), and shading follows the hit point, so
-  such pixels may differ by up to 1e-3.  TraceStats.live is equal and
-  dropped_w within 1e-6.
+  such pixels may differ by up to 1e-3.  TraceStats.live is equal,
+  dropped_w within 1e-6, and every round runs on the same head slice.
 - torus-showcase's u8 render: the rule of tests/test_golden.py (fewer
   than 0.1% of pixels off by more than 2/255) against the JAX package's
   render without jit, and against the self-golden on every pixel but
@@ -20,6 +20,7 @@ Tolerances, with their reasons:
   test).
 """
 
+import dataclasses
 import importlib
 import os
 
@@ -93,18 +94,21 @@ def test_compact_matches_jax(case):
     jout, jacc, jdrop = jtrace._compact(jq, cap, jnp.asarray(acc), jnp.asarray(bg))
     tout, tacc, tdrop, n_live = ttrace._compact(tq, cap, torch.from_numpy(acc),
                                                 torch.from_numpy(bg))
-    assert n_live == int((np.asarray(jout.w) > 0).sum()) == min((w > 0).sum(), cap)
+    assert n_live.dtype == torch.int64 and n_live.dim() == 0
+    assert int(n_live) == int((np.asarray(jout.w) > 0).sum()) == min((w > 0).sum(), cap)
     for f in jtrace._Queue._fields:
-        np.testing.assert_array_equal(getattr(tout, f).numpy(),
-                                      np.asarray(getattr(jout, f))[:n_live], err_msg=f)
+        got, ref = getattr(tout, f).numpy(), np.asarray(getattr(jout, f))
+        assert got.shape == ref.shape and got.shape[0] == cap, f
+        np.testing.assert_array_equal(got, ref, err_msg=f)
     np.testing.assert_allclose(tacc.numpy(), np.asarray(jacc), rtol=1e-6, atol=1e-6)
     assert float(tdrop) == pytest.approx(float(jdrop), rel=1e-6, abs=1e-7)
     assert (float(tdrop) > 0) == (case != "fits")
 
 
-def _tile(name):
+def _tile(name, **kw):
     """(JAX tables, port tables, the tile's rays as the port's render loop
-    builds them, chunk key) for the 16x16 tile of TILES[name], 4 spp."""
+    builds them, chunk key, config with `kw`) for the 16x16 tile of
+    TILES[name], 4 spp."""
     if name in INLINE:
         jscene = INLINE[name](P)[0]
         tscene, camera, _ = INLINE[name](T)
@@ -116,23 +120,48 @@ def _tile(name):
     size, (x0, y0) = TILES[name]
     js = P.flatten_scene(jscene, dtype=jnp.float32)
     ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
-    cfg = T.RenderConfig(device="cpu", samples=SPP, tile=(TILE, TILE), seed=0)
+    cfg = T.RenderConfig(device="cpu", samples=SPP, tile=(TILE, TILE), seed=0, **kw)
     ckey = rng.fold_in(rng.fold_in(rng.fold_in(rng.PRNGKey(0), x0), y0), 0)
     rays = _tile_rays(ckey, Camera(camera, size, "cpu"), x0, y0, 0, cfg=cfg,
                       background=background, tile_h=TILE, tile_w=TILE, spp=SPP, samples=SPP)
     return js, ts, rays, ckey, cfg
 
 
-@pytest.mark.parametrize("name", list(TILES))
-def test_trace_bounces_match_jax(name):
+def _slices(monkeypatch, module):
+    """Record the lanes of every nearest-hit query of `module`'s trace: a
+    bounce round's is the head slice it runs on."""
+    seen = []
+    nearest = module._nearest
+
+    def spy(q, st, cfg):
+        seen.append(int(q.o.shape[0]))
+        return nearest(q, st, cfg)
+
+    monkeypatch.setattr(module, "_nearest", spy)
+    return seen
+
+
+# On glass-sphere's tile, a round-1 queue of 4x the 1,024 primary rays
+# holds its 2,008 live rays in a head slice of 2,048 lanes; the later
+# queues of 1x overflow and drop children (3.3% of the throughput).
+SLICED = {"queue_caps": (4.0, 1.0)}
+
+
+@pytest.mark.parametrize("name, kw", [(n, {}) for n in TILES]
+                         + [("glass-sphere", SLICED)],
+                         ids=list(TILES) + ["glass-sphere-sliced"])
+def test_trace_bounces_match_jax(name, kw, monkeypatch):
     """One 16x16 tile at 4 spp and max_depth 10, its rays built by the
-    port's render loop, traced by both packages with the same trace key."""
-    js, ts, rays, ckey, cfg = _tile(name)
+    port's render loop, traced by both packages with the same trace key:
+    the same live rays and head slice in every round, with small queues
+    (kw) the same dropped throughput."""
+    js, ts, rays, ckey, cfg = _tile(name, **kw)
     n = TILE * TILE
     x0, y0 = TILES[name][1]
     jkey = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(
         jax.random.PRNGKey(0), x0), y0), 0), 1)
-    jcfg = P.RenderConfig(accel="flat", node_chunk=128)
+    jcfg = P.RenderConfig(accel="flat", node_chunk=128, **kw)
+    jslices, tslices = _slices(monkeypatch, jtrace), _slices(monkeypatch, ttrace)
     with jax.disable_jit():
         ref, jst = jtrace.trace(jkey, *(jnp.asarray(x.numpy()) for x in rays[:4]), n, js, jcfg,
                                 w0=jnp.asarray(rays[4].numpy()), spp_contiguous=SPP,
@@ -141,8 +170,11 @@ def test_trace_bounces_match_jax(name):
     got, st = ttrace.trace(rng.fold_in(ckey, 1), o, d, pix, bg, n, ts, cfg, w0=w0,
                            spp_contiguous=SPP, with_stats=True)
     np.testing.assert_array_equal(st.live.numpy(), np.asarray(jst.live))
+    assert tslices == jslices
     assert st.live[1] > n  # bounce rounds ran
     assert abs(float(st.dropped_w) - float(jst.dropped_w)) <= 1e-6
+    if kw:
+        assert 2048 in tslices[1:] and st.dropped_w > 0  # head slices and overflow ran
     got, ref = got.numpy() / SPP, np.asarray(ref) / SPP
     diff = np.abs(got - ref).max(axis=-1)
     # Pixels with a torus among their samples' primary hits.
@@ -154,28 +186,22 @@ def test_trace_bounces_match_jax(name):
 
 
 def test_live_slicing_moves_no_pixel(monkeypatch):
-    """Bounce rounds on the live lanes of each queue, or on its full
-    capacity (dead lanes padded after them, as the JAX package's queues
-    are): the glossy draws are keyed by sample id, so the pixels are the
-    same."""
-    _, ts, rays, ckey, cfg = _tile("glossy-reflection")
+    """Bounce rounds on the smallest head slice of each queue that holds
+    its live rays (the default queue_slice_divs), or every round on the
+    full capacity (queue_slice_divs=(1,)): the glossy draws are keyed by
+    sample id, so the pixels and the live counts are the same."""
+    _, ts, rays, ckey, cfg = _tile("glossy-reflection", queue_caps=(4.0,))
     o, d, pix, bg, w0 = rays
-    args = (rng.fold_in(ckey, 1), o, d, pix, bg, TILE * TILE, ts, cfg)
-    sliced, st = ttrace.trace(*args, w0=w0, spp_contiguous=SPP, with_stats=True)
-    assert st.live[1] > 0
-    compact = ttrace._compact
-    fill = {"o": 0.0, "d": 1.0, "w": 0.0, "pix": 0, "t_min": 1.0, "src_node": -1,
-            "src_tri": -1, "sid": 0}
-
-    def padded(child, capacity, acc, bg):
-        q, acc, dropped, n_live = compact(child, capacity, acc, bg)
-        pad = lambda f, x: torch.cat([x, torch.full((capacity - n_live,) + x.shape[1:],
-                                                    fill[f], dtype=x.dtype)])
-        return ttrace._Queue(*(pad(f, x) for f, x in zip(q._fields, q))), acc, dropped, n_live
-
-    monkeypatch.setattr(ttrace, "_compact", padded)
-    full, fst = ttrace.trace(*args, w0=w0, spp_contiguous=SPP, with_stats=True)
-    assert fst.live.tolist() == st.live.tolist()
+    args = (rng.fold_in(ckey, 1), o, d, pix, bg, TILE * TILE, ts)
+    seen = _slices(monkeypatch, ttrace)
+    sliced, st = ttrace.trace(*args, cfg, w0=w0, spp_contiguous=SPP, with_stats=True)
+    assert st.live[1] > 0 and seen[1:] == [2048] * (len(seen) - 1)
+    seen.clear()
+    full, fst = ttrace.trace(*args, dataclasses.replace(cfg, queue_slice_divs=(1,)), w0=w0,
+                             spp_contiguous=SPP, with_stats=True)
+    assert seen[1:] == [4096] * (len(seen) - 1)
+    assert fst.live.tolist() == st.live.tolist() and fst.syncs == st.syncs
+    assert fst.dropped_w == st.dropped_w == 0.0
     np.testing.assert_allclose(full.numpy(), sliced.numpy(), rtol=0, atol=1e-6)
 
 
@@ -209,3 +235,33 @@ def test_render_u8_torus_showcase_matches_self_golden():
     rest = off(ours, gold)
     rest[jit_pixels] = False
     assert rest.mean() < 1e-3, f"{rest.mean():.2%} pixels differ from the golden"
+
+
+@pytest.mark.parametrize("caps, divs", [((4.0,), (16, 4, 1)), ((4.0, 1.0, 0.5), (16, 4, 1)),
+                                        ((3.0, 0.75), (8, 2)), ((1.0,), (1,))])
+def test_slice_sizes_match_jax(monkeypatch, caps, divs):
+    """The head slices a round may run on, for several capacity schedules
+    and queue_slice_divs at 8,192 primary rays: the JAX package's trace,
+    traced (not run) by make_jaxpr, builds one lax.switch branch per slice
+    in each head round and one in the scan body of the rounds of equal
+    capacity; each branch's nearest-hit query has the port's slice size."""
+    R0, depth = 8192, 4
+    js = P.flatten_scene(scenes.load("glossy-reflection").scene, dtype=jnp.float32)
+    ts = T.tables_from_numpy(*jax_arrays(js), "cpu")
+    jcfg = P.RenderConfig(accel="flat", max_depth=depth, queue_caps=caps,
+                          queue_slice_divs=divs)
+    seen = _slices(monkeypatch, jtrace)
+    z = jnp.zeros((R0, 3), jnp.float32)
+    jax.make_jaxpr(lambda o, d: jtrace.trace(jax.random.PRNGKey(0), o, d,
+                                             jnp.zeros((R0,), jnp.int32), z, R0, js, jcfg))(z, z)
+    pl = ttrace.plan(R0, ts, T.RenderConfig(device="cpu", max_depth=depth, queue_caps=caps))
+    tail = depth
+    while tail > 1 and pl.cap[tail - 1] == pl.cap[depth]:
+        tail -= 1
+    want = [R0] + [k for r in list(range(1, tail)) + [depth]
+                   for k in ttrace.slice_sizes(pl.cap[r], divs)]
+    assert seen == want
+    assert ttrace.pick_slice(ttrace.slice_sizes(pl.cap[1], divs), 0) == 0
+    for n in (1, 2048, 2049, pl.cap[1]):
+        k = ttrace.pick_slice(ttrace.slice_sizes(pl.cap[1], divs), n)
+        assert k >= n and all(s < n for s in ttrace.slice_sizes(pl.cap[1], divs) if s < k)
