@@ -19,8 +19,8 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    their source surfaces) and those rays' shadow rays.  Gates: the JAX package's kernel gates, and on torus chunks its
    torus gate; every difference is counted.  Then both versions' times at
    the render's launch shapes of big-scene, torus-showcase,
-   glossy-reflection, procedural-meshes and single-triangle (a call by
-   CUDA events), beside the bound of each launch, on the uniform camera
+   glossy-reflection, procedural-meshes, single-triangle and ellipsoids
+   (a call by CUDA events), beside the bound of each launch, on the uniform camera
    rays; the kernel's times on a second set in the render's ray order (the
    middle tile of the middle tile row, as ``render._tile_rays`` builds it)
    and its shadow rays, held against the plain version too;
@@ -45,11 +45,22 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    oracle's render on the card;
 5. gradients through ``trace``: of sum(acc^2) on a 64x64 tile of big-scene
    and of torus-showcase with respect to mat_diffuse, light_pos and inv,
-   through the kernel and through its plain version on the card, held
-   together; then a fit at full width, big-scene at 1980x1020 and 1 spp:
-   three gradient steps on mat_diffuse (started at 0.7 of the true one)
-   against the true render, backward per chunk of 131,072 rays, with the
-   loss falling at every step, each step's seconds and the peak memory;
+   through the kernel and through its plain version on the card (op by
+   op), held together; then fits at full width, each three gradient
+   steps (started at 0.7 of the truth) against the true render with the
+   loss falling at every step, through the captured fit program
+   (``portrayer_tpu_torch/fit.py``) and op by op (``cuda_graphs=False``):
+   glossy-reflection at its published 910x512 x 1 spp (465,920 rays in
+   one trace; mat_diffuse and mat_reflectivity) and the glass sphere of
+   ``tests/_torch_jax.py`` at 256x256 x 4 spp (262,144 rays, 4x queues of
+   1,048,576 lanes; mat_diffuse and light_color), each with its seconds a
+   step (the first with its capture), peak memory with every round
+   checkpointed and with bounce-round checkpointing off, sweep launches in
+   forward and backward (none in backward), host reads a step, and the
+   captured gradients of every DIFF_FIELDS table held against the op-by-op
+   ones within GRAD_RTOL; then big-scene at 1980x1020 and 1 spp,
+   mat_diffuse, backward per chunk of 131,072 rays, captured, beside one
+   pass op by op;
 6. multi-device (``portrayer_tpu_torch.parallel``): world size 1 under
    NCCL in this process, then two gloo ranks sharing the card (started by
    torch.multiprocessing), each through render_frame_distributed on
@@ -59,7 +70,8 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    loss and gradients against the single-process oracle on the card (the
    shards traced one after the other, keys fold_in(key, r), summed) within
    1e-5; wall seconds, Mrays/s, peak memory, kernel launches and the
-   all-reduce's own time of each rank; the kernel at the one-shard
+   all-reduce's own time of each rank (train_step captured, beside one
+   step op by op; the oracle runs op by op); the kernel at the one-shard
    frame's launch sizes (its 8,078,400 camera rays and their 24,235,200
    shadow rays, one launch of each mode) against its plain version under
    phase 2's gates; and beside the one-shard render Image.render's tiled
@@ -115,6 +127,13 @@ FIT_START = 0.7
 # along the gradient of the quadratic loss lowers it).
 FIT_STEP = 0.05
 FIT_TILE = (256, 512)  # 131,072 rays a chunk at 1 spp
+# Fits through bounce rounds: (scene, frame size (None: its own), spp,
+# the fields stepped); every DIFF_FIELDS table takes a gradient.
+BOUNCE_FITS = (("glossy-reflection", None, 1, ("mat_diffuse", "mat_reflectivity")),
+               ("glass-sphere", (256, 256), 4, ("mat_diffuse", "light_color")))
+BOUNCE_FIT_KEY = 23
+# remat_min_lanes above every round's lanes: bounce-round checkpointing off.
+REMAT_OFF = 1 << 40
 LAUNCH_RAYS = 131072
 # Timed launches of the plain version per turn (it loops over the chunks in
 # Python: 577 of them on procedural-meshes).
@@ -401,23 +420,25 @@ def _inline(name):
     """An inline scene of ``tests/_torch_jax.py`` at full size as a
     SceneSpec: procedural-meshes (73,729 triangle pairs in 577 tri_w
     chunks), normal-mapping-numpy (1024x1024 and 1024x768 textures and
-    normal maps) or soft-shadows-icosphere (two 5,120-triangle icospheres,
-    an area light)."""
+    normal maps), soft-shadows-icosphere (two 5,120-triangle icospheres,
+    an area light) or glass-sphere (a refractive sphere, 64x64)."""
     import portrayer_tpu_torch as T
     from portrayer_tpu_torch import scenes
     import _torch_jax  # tests/ is on sys.path (main)
 
     build = {"procedural-meshes": _torch_jax.procedural_meshes,
              "normal-mapping-numpy": _torch_jax.normal_mapping_numpy,
-             "soft-shadows-icosphere": _torch_jax.soft_shadows_icosphere}[name]
+             "soft-shadows-icosphere": _torch_jax.soft_shadows_icosphere,
+             "glass-sphere": _torch_jax.glass_sphere}[name]
     scene, cam, size = build(T)
     return scenes.SceneSpec(scene=scene, camera=cam, size=size,
                             background=scenes.sky_background, name=name)
 
 
-# Scenes whose launches phase 2 times.
+# Scenes whose launches phase 2 times (ellipsoids: the sphere_g branch,
+# which no main path has).
 TIMED = ("big-scene", "torus-showcase", "glossy-reflection", "procedural-meshes",
-         "single-triangle")
+         "single-triangle", "ellipsoids")
 
 
 def _scene_cases():
@@ -434,7 +455,7 @@ def _scene_cases():
                          ("single-triangle", 131072), ("four-shapes", 131072)):
         spec = scenes.load(name)
         cases.append((name, n_rays, spec.scene, spec.camera, spec.size))
-    cases.append(("ellipsoids", 65536) + ellipsoids(T))
+    cases.append(("ellipsoids", 131072) + ellipsoids(T))
     for name in ("procedural-meshes", "normal-mapping-numpy", "soft-shadows-icosphere"):
         spec = _inline(name)
         cases.append((name, 131072, spec.scene, spec.camera, spec.size))
@@ -818,7 +839,8 @@ def _tile_grads(dev, name, plain):
 
     spec = scenes.load(name)
     w, h = spec.size
-    cfg = RenderConfig(device=dev)
+    # Op by op: the plain version cannot be captured.
+    cfg = RenderConfig(device=dev, cuda_graphs=False)
     st = flatten_scene(spec.scene, dev)
     x0 = (w // 2) // GRAD_TILE * GRAD_TILE
     y0 = (h // 2) // GRAD_TILE * GRAD_TILE
@@ -876,9 +898,136 @@ def _frame_pass(dev, st, spec, cfg, diffuse=None, target=None):
     return out if diffuse is None else loss
 
 
-def phase_gradients(dev):
+def _bounce_fit(dev, name, size, spp, fields, path_counts):
+    """A fit through the bounce rounds (BOUNCE_FITS): `name`'s frame at
+    `size` x spp in one trace; FIT_STEPS gradient steps on `fields`,
+    started at FIT_START of the truth, against the true render, through
+    the captured fit program and op by op, each pass's loss, seconds,
+    sweep launches (forward, backward) and host reads; an op-by-op pass
+    with bounce-round checkpointing off; a step's peak memory in each of
+    the three; the captured gradients of every DIFF_FIELDS table at the
+    first step, and those with checkpointing off, against the op-by-op ones
+    (GRAD_RTOL of the largest entry)."""
+    import dataclasses
+    import gc
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, render, rng, scenes
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops import cuda_intersect
+    from portrayer_tpu_torch.ops.trace import slice_sizes, trace
+    from portrayer_tpu_torch.parallel import DIFF_FIELDS
+
+    spec = _inline(name) if name == "glass-sphere" else scenes.load(name)
+    w, h = size or spec.size
+    st = flatten_scene(spec.scene, dev)
+    cfg = RenderConfig(device=dev, queue_caps=spec.queue_caps)
+    o, d, pix, bg, w0 = render._tile_rays(
+        rng.PRNGKey(BOUNCE_FIT_KEY), Camera(spec.camera, (w, h), dev), 0, 0, 0, cfg=cfg,
+        background=spec.background, tile_h=h, tile_w=w, spp=spp, samples=spp)
+    P, R = w * h, w * h * spp
+    key = rng.PRNGKey(BOUNCE_FIT_KEY + 1)
+    with torch.no_grad():
+        target = trace(key, o, d, pix, bg, P, st, cfg, w0=w0, spp_contiguous=spp) / spp
+
+    def step(c, params, memory=False):
+        """A forward and backward; with `memory`, after emptying the
+        allocator's cache, so that the reserved peak is this step's (a
+        captured step's graph pool included: replays allocate nothing, so
+        the allocated peak leaves the pool out)."""
+        leaves = {f: params.get(f, getattr(st, f)).detach().clone().requires_grad_()
+                  for f in DIFF_FIELDS}
+        if memory:
+            gc.collect()
+            torch.cuda.empty_cache()
+        _sync(dev)
+        _reset_peak(dev)
+        cuda_intersect.reset_counts()
+        t0 = time.perf_counter()
+        acc, stats = trace(key, o, d, pix, bg, P, st.replace(**leaves), c, w0=w0,
+                           spp_contiguous=spp, with_stats=True)
+        loss = torch.mean((acc / spp - target) ** 2)
+        _sync(dev)
+        fwd = dict(cuda_intersect.COUNTS)
+        cuda_intersect.reset_counts()
+        loss.backward()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        bwd = dict(cuda_intersect.COUNTS)
+        if bwd["nearest"] or bwd["any_hit"] or bwd["plain_on_cuda"] or fwd["plain_on_cuda"]:
+            raise AssertionError(f"fit {name}: forward {fwd}, backward {bwd} (the backward "
+                                 f"launched a sweep, or the plain version ran on the card)")
+        if stats.dropped_w != 0.0:
+            raise AssertionError(f"fit {name}: queue overflow dropped {stats.dropped_w:.3g}")
+        return dict(loss=float(loss.detach()), grads={f: x.grad for f, x in leaves.items()},
+                    stats=stats, secs=secs, fwd=fwd, bwd=bwd, peak=_peak_gib(dev),
+                    reserved=torch.cuda.max_memory_reserved(dev) / 2**30)
+
+    # Op by op first: no graph pool of this scene is alive then.
+    runs, peaks = {}, {}
+    start = {f: getattr(st, f) * FIT_START for f in fields}
+    eager = dataclasses.replace(cfg, cuda_graphs=False)
+    off_cfg = dataclasses.replace(eager, remat_min_lanes=REMAT_OFF)
+    off = step(off_cfg, start)
+    peaks["off"] = step(off_cfg, start, memory=True)
+    for label, c in (("op by op", eager), ("captured", cfg)):
+        params = dict(start)
+        steps = []
+        for _ in range(FIT_STEPS + 1):
+            steps.append(step(c, params))
+            for f in fields:
+                g = steps[-1]["grads"][f]
+                if not torch.isfinite(g).all() or g.abs().max() == 0.0:
+                    raise AssertionError(f"fit {name} ({label}): {f} gradient not finite or 0")
+                params[f] = params[f] - FIT_STEP * g / g.abs().max()
+        losses = [s["loss"] for s in steps]
+        if any(b >= a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"fit {name} ({label}): the loss did not fall at every step: "
+                                 f"{losses}")
+        runs[label] = steps
+        peaks[label] = step(c, start, memory=True)
+    notes = []
+    for f in DIFF_FIELDS:
+        got, ref = runs["captured"][0]["grads"][f], runs["op by op"][0]["grads"][f]
+        scale = ref.abs().max().item()
+        diff = (got - ref).abs().max().item()
+        off_diff = (off["grads"][f] - ref).abs().max().item()
+        if not torch.isfinite(got).all() or max(diff, off_diff) > GRAD_RTOL * scale:
+            raise AssertionError(f"fit {name}: {f} gradients captured / checkpointing off "
+                                 f"against op by op differ by {diff:.3g} / {off_diff:.3g} "
+                                 f"(largest entry {scale:.3g})")
+        notes.append(f"{f} {diff:.3g} of {scale:.3g}")
+    cap, ref = runs["captured"], runs["op by op"]
+    (prog,) = st.packed.fit_programs.values()
+    path_counts[f"fit {name}, captured step"] = {
+        k: cap[-1]["fwd"][k] + cap[-1]["bwd"][k] for k in cap[-1]["fwd"]}
+    live = cap[0]["stats"].live.tolist()
+    f3 = lambda key, steps: [f"{s[key]:.3f}" for s in steps]
+    gib = lambda p: f"{p['peak']:.3f} / {p['reserved']:.3f}"
+    mse = lambda steps: [f"{s['loss']:.6g}" for s in steps]
+    caps = sorted(set(prog.pl.cap[1:]))
+    sizes = slice_sizes(caps[-1], cfg.queue_slice_divs)
+    fwd, bwd, rfwd, rbwd = cap[-1]["fwd"], cap[-1]["bwd"], ref[-1]["fwd"], ref[-1]["bwd"]
+    print(f"[5 fit] {name} {w}x{h} x {spp} spp ({R} rays in one trace; queue capacities "
+          f"{caps}, slices {sizes}), {list(fields)} from {FIT_START} of the truth: MSE per "
+          f"step captured {mse(cap)}, op by op {mse(ref)}; seconds per step (forward + "
+          f"backward) captured {f3('secs', cap)} (the first with a warm-up pass op by op and "
+          f"the captures: {prog.capture_s:.3f} s, {len(prog.graphs)} graphs), op by op "
+          f"{f3('secs', ref)}, op by op with bounce-round checkpointing off {off['secs']:.3f}; "
+          f"peak memory of a step, GiB allocated / reserved: captured {gib(peaks['captured'])}, "
+          f"op by op {gib(peaks['op by op'])} (every round checkpointed), "
+          f"{gib(peaks['off'])} with bounce-round checkpointing off; sweep "
+          f"launches a captured step nearest {fwd['nearest']} any-hit {fwd['any_hit']} in "
+          f"forward, {bwd['nearest']} and {bwd['any_hit']} in backward (op by op "
+          f"{rfwd['nearest']} / {rfwd['any_hit']} and {rbwd['nearest']} / {rbwd['any_hit']}); "
+          f"host reads a step {cap[-1]['stats'].syncs} (live counts); live rays per round "
+          f"{live}; dropped_w 0; captured against op-by-op gradients, max |diff| of max |g|: "
+          + "; ".join(notes), flush=True)
+
+
+def phase_gradients(dev, path_counts):
     """Kernel against plain version under autograd on two tiles, then the
-    full-width fit (see the module docstring)."""
+    full-width fits (see the module docstring)."""
+    import dataclasses
     import torch
     from portrayer_tpu_torch import RenderConfig, flatten_scene, scenes
     from portrayer_tpu_torch.ops import cuda_intersect
@@ -907,6 +1056,9 @@ def phase_gradients(dev):
               f"{counts['nearest']} any-hit {counts['any_hit']}; kernel against plain version: "
               + "; ".join(notes), flush=True)
 
+    for name, size, spp, fields in BOUNCE_FITS:
+        _bounce_fit(dev, name, size, spp, fields, path_counts)
+
     spec = scenes.load("big-scene")
     cfg = RenderConfig(device=dev, samples=1, tile=FIT_TILE, max_rays_per_launch=LAUNCH_RAYS)
     st = flatten_scene(spec.scene, dev)
@@ -930,18 +1082,27 @@ def phase_gradients(dev):
                 x -= FIT_STEP * g / g.abs().max()
     counts = dict(cuda_intersect.COUNTS)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    path_counts["fit big-scene, captured"] = counts
     if any(b >= a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"fit: the loss did not fall at every step: {losses}")
     if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"]:
         raise AssertionError(f"fit did not run through the kernels alone: {counts}")
+    (prog,) = st.packed.fit_programs.values()
+    # Beside it, one pass op by op at the fitted values.
+    x.grad = None
+    eager_loss, eager_secs, _, eager_peak = _timed(dev, lambda: _frame_pass(
+        dev, st, spec, dataclasses.replace(cfg, cuda_graphs=False), diffuse=x, target=target))
     err = ((x.detach() - st.mat_diffuse).abs().max() / st.mat_diffuse.abs().max()).item()
     w, h = spec.size
     print(f"[5 fit] big-scene {w}x{h} x 1 spp, {-(-w // FIT_TILE[1]) * -(-h // FIT_TILE[0])} "
           f"chunks of {FIT_TILE[0] * FIT_TILE[1]} rays, mat_diffuse from {FIT_START} of the "
-          f"truth: MSE per step {[f'{v:.6g}' for v in losses]}; seconds per step "
-          f"(forward + backward) {[f'{v:.3f}' for v in secs]}; peak memory {peak:.3f} GiB; "
-          f"kernel launches nearest {counts['nearest']} any-hit {counts['any_hit']}; "
-          f"largest relative error of mat_diffuse after {FIT_STEPS} steps {err:.3g}", flush=True)
+          f"truth, captured: MSE per step {[f'{v:.6g}' for v in losses]}; seconds per step "
+          f"(forward + backward) {[f'{v:.3f}' for v in secs]} (capture {prog.capture_s:.3f} s, "
+          f"{len(prog.graphs)} graphs, replays {[g.replays for g in prog.graphs.values()]}); "
+          f"peak memory {peak:.3f} GiB; kernel launches nearest {counts['nearest']} any-hit "
+          f"{counts['any_hit']}; largest relative error of mat_diffuse after {FIT_STEPS} steps "
+          f"{err:.3g}; one pass op by op {eager_secs:.3f} s (MSE {eager_loss:.6g}, peak "
+          f"{eager_peak:.3f} GiB)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1044,6 +1205,7 @@ def _md_run(dev, mesh, size, spp, spec, st, bg, target, label):
     spp, the per-rank partials of trace_sharded (reduce=False) over this
     rank's rows of that frame, and train_step with respect to MD_FIELDS.
     Returns a dict of results (tensors on the host) and prints them."""
+    import dataclasses
     import torch
     from portrayer_tpu_torch import RenderConfig, parallel as par, rng
     from portrayer_tpu_torch.camera import Camera
@@ -1078,14 +1240,18 @@ def _md_run(dev, mesh, size, spp, spec, st, bg, target, label):
     tcold = _timed(dev, step)[1]
     (loss, grads), tsecs, tcounts, tpeak = _timed(dev, step)
     _check_counts(f"{label} train_step", tcounts, dev)
+    _, esecs, _, epeak = _timed(dev, lambda: par.train_step(
+        mesh, rng.PRNGKey(MD_TRAIN_KEY), to, td, tpix, bg, w * h, MD_TRAIN_SPP, target, st0,
+        dataclasses.replace(tcfg, cuda_graphs=False), fields=MD_FIELDS))
     print(f"[6 multi-device] {label}: render_frame_distributed big-scene {w}x{h} x {spp} spp "
           f"({R0} rays, {per} on this rank in one trace): {secs:.3f} s (the first call "
           f"{cold:.3f} s), {R0 / secs / 1e6:.3f} Mrays/s, peak memory {peak:.3f} GiB, launches "
           f"nearest "
           f"{counts['nearest']} any-hit {counts['any_hit']}; all-reduce of the "
           f"{w * h}x3 framebuffer {ar_ms:.3f} ms; train_step ({w}x{h} x {MD_TRAIN_SPP} spp, "
-          f"{MD_FIELDS}) {tsecs:.3f} s a step (the first {tcold:.3f} s), peak memory "
-          f"{tpeak:.3f} GiB, loss "
+          f"{MD_FIELDS}) captured {tsecs:.3f} s a step (the first, with its capture, "
+          f"{tcold:.3f} s), peak memory {tpeak:.3f} GiB, op by op {esecs:.3f} s (peak "
+          f"{epeak:.3f} GiB), loss "
           f"{float(loss):.8g}, launches nearest {tcounts['nearest']} any-hit "
           f"{tcounts['any_hit']}", flush=True)
     return {"img": torch.from_numpy(img), "parts": parts.cpu(), "loss": float(loss),
@@ -1119,7 +1285,7 @@ def _md_oracles(dev, size, spp, spec, st, bg, target, world):
     frame's shards traced one after the other, keys fold_in(fold_in(key,
     1), r), summed ([P,3] and the per-shard partials); and the train
     step's shards traced one after the other, keys fold_in(key, r),
-    summed, the MSE and one backward: (loss, {field: gradient})."""
+    summed, the MSE and one backward op by op: (loss, {field: gradient})."""
     import torch
     from portrayer_tpu_torch import RenderConfig, rng
     from portrayer_tpu_torch.camera import Camera
@@ -1145,7 +1311,8 @@ def _md_oracles(dev, size, spp, spec, st, bg, target, world):
     tables = st.replace(**leaves)
     tkey = rng.PRNGKey(MD_TRAIN_KEY)
     tper = to.shape[0] // world
-    tcfg = RenderConfig(device=dev, samples=MD_TRAIN_SPP)
+    # Op by op: the ranks' train_step replays the captured fit.
+    tcfg = RenderConfig(device=dev, samples=MD_TRAIN_SPP, cuda_graphs=False)
     acc = sum(trace(rng.fold_in(tkey, r), to[r * tper:(r + 1) * tper],
                     td[r * tper:(r + 1) * tper], tpix[r * tper:(r + 1) * tper], bg, w * h,
                     tables, tcfg) for r in range(world))
@@ -1412,7 +1579,7 @@ def main():
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
     _linear_vs_flat(dev, textured, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
-    phase_gradients(dev)
+    phase_gradients(dev, path_counts)
     phase_multi_device(dev, path_counts, err, diffs)
     phase_checks(dev)
     phase_device_times(timing, RenderConfig(device=dev))

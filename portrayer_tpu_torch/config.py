@@ -2,13 +2,14 @@
 
 The reference constants, the ``SAMPLES`` env semantics and the bounce
 queues' head slices (``queue_slice_divs``) are the JAX package's.  Its
-Pallas block and slab sizes have no meaning here and are gone, as are
+Pallas block and slab sizes have no meaning here and are gone, as is
 ``unroll_tail`` (bounce rounds of equal capacity share one captured CUDA
-graph by construction, as they share one ``lax.scan`` body there) and
-``remat_min_lanes`` (the fit's backward keeps every round).  ``device``
-and ``accel`` choose where and through which sweep the port runs,
-``dtype`` in which precision, ``cuda_graphs`` whether a render on the
-card replays its chunks as captured CUDA graphs.
+graph by construction, as they share one ``lax.scan`` body there).
+``remat_min_lanes`` has the JAX package's meaning: which rounds of a
+differentiable trace run checkpointed.  ``device`` and ``accel`` choose
+where and through which sweep the port runs, ``dtype`` in which
+precision, ``cuda_graphs`` whether a render or a fit on the card replays
+captured CUDA graphs.
 """
 
 from __future__ import annotations
@@ -94,6 +95,15 @@ class RenderConfig:
     # runs every round at full capacity.
     queue_slice_divs: Tuple[int, ...] = (16, 4, 1)
 
+    # Under autograd, round 0 and every bounce round of at least this many
+    # lanes (its head slice) run checkpointed: the round's sweep results
+    # are kept and its shading is replayed in backward instead of keeping
+    # its temporaries (the JAX package's jax.checkpoint saving only the
+    # sweep outputs).  0 (default) = every round.  The captured fit
+    # (cuda_graphs on the card) checkpoints every round and refuses
+    # anything else.
+    remat_min_lanes: int = 0
+
     # Pixels per render tile (height, width).
     tile: Tuple[int, int] = (128, 128)
 
@@ -141,8 +151,9 @@ class RenderConfig:
 
     # With accel="cuda" on the card, a render captures its chunk (and, in
     # a scene with bounces, each bounce round's shape) once as a CUDA graph
-    # and replays it for every tile and sample chunk.  False runs the same
-    # chunk program op by op, as a check of the captured render.
+    # and replays it for every tile and sample chunk; a differentiable
+    # trace captures each round's forward and backward (fit.py).  False
+    # runs the same rounds op by op, as a check of the captured ones.
     cuda_graphs: bool = True
 
     def __post_init__(self):

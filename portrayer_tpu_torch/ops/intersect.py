@@ -605,13 +605,18 @@ def _winner_candidate_t(lo, ld, ray_kind, params, trec, t_min, t_max, eps, prese
 
 def _winner_trec(st, tri, present):
     """[R,26] triangle records of the winners (None without meshes)."""
-    return st.trec[torch.clamp(tri, min=0).long()] if MESH in present else None
+    if MESH not in present:
+        return None
+    return st.trec.index_select(0, torch.clamp(tri, min=0).long())
 
 
 def _winner_frame(o, d, node, st, cfg, t_min, src_node, src_tri, tri):
     """(rec, inv, lo, ld, t_min_e) for per-ray winners."""
     R = o.shape[0]
-    rec = st.rec[torch.clamp(node, min=0).long()]
+    # index_select, not indexing: its backward adds rows with index_add_,
+    # where indexing's sorts the rows and sums each node's run serially
+    # (most of a fit step's device time on an H100, PERF.md section 6).
+    rec = st.rec.index_select(0, torch.clamp(node, min=0).long())
     inv = rec[:, 0:12].reshape(R, 3, 4)
     lo = m3.transform_point(inv, o)
     ld = m3.transform_dir(inv, d)

@@ -20,13 +20,25 @@ JAX package's ``lax.switch`` over the same slices.  ``first_round`` and
 as a CUDA graph (render.py); ``trace`` runs them op by op and reads the
 live count once per bounce round to pick the slice.  Draws are keyed by
 sample id, so the slicing moves no pixel.
+
+Under autograd each round runs under a checkpoint, as the JAX package
+runs it under ``jax.checkpoint`` saving only the sweep outputs: round 0
+always, a bounce round on k lanes when k >= ``cfg.remat_min_lanes``.  The
+round's sweep results are kept (``_Sweeps``); its hit detail, shading,
+light sum and compaction are replayed in backward from its queue and
+those results, and no sweep is launched again.  On the card with
+accel="cuda" and ``cfg.cuda_graphs`` a differentiable trace replays the
+fit program of ``portrayer_tpu_torch/fit.py`` instead: the same rounds,
+forward and backward, as captured CUDA graphs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from .. import rng
 from ..config import RenderConfig
@@ -71,6 +83,68 @@ class _Shadow(NamedTuple):
     src_node: torch.Tensor  # [R]
     src_tri: torch.Tensor   # [R]
     pix: torch.Tensor       # [R]
+
+
+class _Sweeps:
+    """A round's sweep results in launch order (its nearest hits, then its
+    occlusion bits): launched and kept on the round's first run, read back
+    on its replays, so that a checkpoint's recompute in backward launches
+    no sweep.  The counterpart of the JAX package's "sweep_oracle"
+    residuals (its trace.py ``_REMAT_POLICY``)."""
+
+    def __init__(self):
+        self.kept, self.at = [], 0
+
+    def run(self, body):
+        """body(self): the round, launching its sweeps through self."""
+        self.at = 0
+        return body(self)
+
+    def __call__(self, launch):
+        if self.at < len(self.kept):
+            out = self.kept[self.at]
+        else:
+            out = launch()
+            self.kept.append(out)
+        self.at += 1
+        return out
+
+
+def _records(st: SceneTables, *tensors) -> bool:
+    """Whether autograd records a round over tables `st` and `tensors`."""
+    if not torch.is_grad_enabled():
+        return False
+    return (any(t is not None and t.requires_grad for t in tensors)
+            or bool(grad_fields(st)))
+
+
+# Derived or static fields of SceneTables: never a fit's parameters.
+_NOT_PARAMS = ("rec", "trec", "packed", "chunk_programs")
+
+
+def grad_fields(st: SceneTables) -> tuple:
+    """The tensor fields of `st` that require grad (rec and trec, derived
+    from them, aside)."""
+    return tuple(f.name for f in dataclasses.fields(st)
+                 if f.name not in _NOT_PARAMS
+                 and isinstance(getattr(st, f.name), torch.Tensor)
+                 and getattr(st, f.name).requires_grad)
+
+
+def _remat(st, k, cfg: RenderConfig, *tensors) -> bool:
+    """Whether a round of k lanes (None: round 0) runs checkpointed: when
+    autograd records it and k >= cfg.remat_min_lanes (round 0 always)."""
+    return _records(st, *tensors) and (k is None or k >= cfg.remat_min_lanes)
+
+
+def _checkpointed(body, remat: bool):
+    """Run a round, body(sweeps), with a fresh _Sweeps: under a
+    non-reentrant checkpoint with `remat`, else directly."""
+    sweeps = _Sweeps()
+    if remat:
+        return torch.utils.checkpoint.checkpoint(sweeps.run, body, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return sweeps.run(body)
 
 
 def _acc_add(acc, pix, x, spp_c: int):
@@ -133,7 +207,7 @@ def _round_shade(q: _Queue, hit, acc, bg, st: SceneTables, cfg: RenderConfig, rk
     return acc, child, shadow
 
 
-def _apply_shadows(shadow: _Shadow, acc, st, cfg, spp_c: int):
+def _apply_shadows(shadow: _Shadow, acc, st, cfg, spp_c: int, sweeps):
     """One any-hit launch over the L x R shadow rays, then accumulate the
     unoccluded light contributions."""
     L = shadow.dirs.shape[0]
@@ -141,11 +215,11 @@ def _apply_shadows(shadow: _Shadow, acc, st, cfg, spp_c: int):
     if L == 0:
         return acc
     tile = lambda x: x.repeat((L,) + (1,) * (x.dim() - 1))
-    occ = occluded(
+    occ = sweeps(lambda: occluded(
         tile(shadow.o), shadow.dirs.reshape(L * R, 3), tile(shadow.t_eps),
         float("inf"), st, cfg, active=shadow.need.reshape(L * R),
         src_node=tile(shadow.src_node), src_tri=tile(shadow.src_tri),
-    ).reshape(L, R)
+    )).reshape(L, R)
     light = torch.where(occ[..., None], 0.0, shadow.lc).sum(dim=0)
     return _acc_add(acc, shadow.pix, light, spp_c)
 
@@ -260,37 +334,61 @@ def primary_queue(o0, d0, pix0, w0, cfg: RenderConfig) -> _Queue:
     )
 
 
-def first_round(rkey, q: _Queue, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
-                pl: Plan, spp_c: int = 0):
-    """Round 0 on the primary queue, its draws keyed rkey (the trace key
-    folded with 0): (acc [P,3], the queue of round 1 or None without
-    bounces, dropped, n_live), the last two device scalars."""
-    acc = torch.zeros((n_pixels, 3), dtype=q.o.dtype, device=q.o.device)
-    is_last = pl.max_depth == 0
-    hit = _nearest(q, st, cfg)
-    acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rkey, is_last=is_last,
-                                  spp_c=spp_c)
-    acc = _apply_shadows(sh, acc, st, cfg, spp_c)
-    if is_last:
-        return acc, None, None, None
-    q, acc, dropped, n_live = _compact(child, pl.cap[1], acc, bg)
-    return acc, q, dropped, n_live
-
-
-def bounce_round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, k: int,
-                 next_cap: int, is_last: bool):
-    """A bounce round, its draws keyed rkey (the trace key folded with the
-    round's index), on the head slice of k lanes of its queue: (acc, the
-    queue of next_cap lanes of the next round or, after the last round,
-    None, dropped, n_live)."""
-    q = _Queue(*(x[:k] for x in q))
-    hit = _nearest(q, st, cfg)
-    acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rkey, is_last=is_last)
-    acc = _apply_shadows(sh, acc, st, cfg, 0)
+def _round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, is_last: bool,
+           next_cap, spp_c: int, sweeps):
+    """A round on queue q (as it runs, sliced): the nearest-hit sweep,
+    shading, the any-hit sweep, the accumulation and, unless it is the
+    last, the compaction of its children into next_cap lanes: (acc, queue
+    or None, dropped or None, n_live or None).  Its sweeps go through
+    `sweeps` (a _Sweeps, or the fit program's record of them)."""
+    hit = sweeps(lambda: _nearest(q, st, cfg))
+    acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rkey, is_last=is_last, spp_c=spp_c)
+    acc = _apply_shadows(sh, acc, st, cfg, spp_c, sweeps)
     if is_last:
         return acc, None, None, None
     q, acc, dropped, n_live = _compact(child, next_cap, acc, bg)
     return acc, q, dropped, n_live
+
+
+def first_round(rkey, q: _Queue, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
+                pl: Plan, spp_c: int = 0, sweeps=None):
+    """Round 0 on the primary queue, its draws keyed rkey (the trace key
+    folded with 0): (acc [P,3], the queue of round 1 or None without
+    bounces, dropped, n_live), the last two device scalars.  Under
+    autograd it runs checkpointed (the module docstring); `sweeps` runs it
+    directly on the fit program's record."""
+    is_last = pl.max_depth == 0
+    next_cap = None if is_last else pl.cap[1]
+
+    def body(sw):
+        acc = torch.zeros((n_pixels, 3), dtype=q.o.dtype, device=q.o.device)
+        return _round(rkey, q, acc, bg, st, cfg, is_last, next_cap, spp_c, sw)
+
+    if sweeps is not None:
+        return body(sweeps)
+    return _checkpointed(body, _remat(st, None, cfg, q.o, q.d, q.w, bg))
+
+
+def bounce_round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, k: int,
+                 next_cap: int, is_last: bool, sweeps=None):
+    """A bounce round, its draws keyed rkey (the trace key folded with the
+    round's index), on the head slice of k lanes of its queue: (acc, the
+    queue of next_cap lanes of the next round or, after the last round,
+    None, dropped, n_live).  Under autograd it runs checkpointed when k >=
+    cfg.remat_min_lanes; `sweeps` runs it directly on the fit program's
+    record."""
+    q = _Queue(*(x[:k] for x in q))
+    remat = sweeps is None and _remat(st, k, cfg, q.o, q.d, q.w, q.t_min, acc, bg)
+    if remat:
+        # The checkpoint keeps its inputs: the k lanes, not the queue.
+        q = _Queue(*(x.clone() for x in q))
+
+    def body(sw):
+        return _round(rkey, q, acc, bg, st, cfg, is_last, next_cap, 0, sw)
+
+    if sweeps is not None:
+        return body(sweeps)
+    return _checkpointed(body, remat)
 
 
 def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
@@ -300,7 +398,16 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
     the per-round draws.  Returns acc [P,3], the per-pixel radiance sums
     (the caller divides by spp), and with with_stats also TraceStats.
     spp_contiguous > 0 asserts pix0 == repeat(arange(P), spp).  The live
-    count is read on the host once per bounce round, to pick its slice."""
+    count is read on the host once per bounce round, to pick its slice.
+    Under autograd the rounds run checkpointed; on the card with
+    accel="cuda" and cfg.cuda_graphs, the captured fit program
+    (``portrayer_tpu_torch/fit.py``) runs them."""
+    if _records(st, o0, d0, w0, bg):
+        from .. import fit, render
+
+        if render._captures(cfg):
+            return fit.trace_captured(key, o0, d0, pix0, bg, n_pixels, st, cfg, w0=w0,
+                                      spp_contiguous=spp_contiguous, with_stats=with_stats)
     R0 = o0.shape[0]
     pl = plan(R0, st, cfg)
     q = primary_queue(o0, d0, pix0, w0, cfg)
@@ -323,5 +430,5 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
     lv = [int((w0 > 0.0).sum()) if w0 is not None else R0] + live
     lv = (lv + [0] * pl.max_depth)[:pl.max_depth + 1]
     return acc, TraceStats(live=torch.tensor(lv, dtype=torch.int32),
-                           dropped_w=float(dropped) / R0 if dropped is not None else 0.0,
+                           dropped_w=float(dropped.detach()) / R0 if dropped is not None else 0.0,
                            syncs=len(live))

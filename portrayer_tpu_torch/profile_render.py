@@ -29,6 +29,19 @@ take the most time.  ``--out`` receives the summary as JSON and the trace
 ``--one-shard SPP`` profiles the whole frame at SPP instead, traced in
 one ``trace`` call through ``parallel.render_frame_distributed`` at world
 size 1 (one chunk), to set against the tiled render's chunks.
+
+``--fit SPP`` profiles a fit step instead (``profile_fit``): the MSE of
+the whole frame at SPP (``--size WxH``: another size) traced in one
+``trace`` call, forward and backward, with respect to every table of
+``parallel.DIFF_FIELDS``, through the captured fit program
+(``portrayer_tpu_torch/fit.py``; ``--eager``: op by op), with the device
+time of the backward apart.  The glass sphere of ``tests/_torch_jax.py``
+(not registered) at 256x256 x 4 spp:
+
+    python3 -c "import sys; sys.path.insert(0, 'tests'); import _torch_jax as J, \
+portrayer_tpu_torch as T; from portrayer_tpu_torch import scenes, profile_render as P; \
+s, c, z = J.glass_sphere(T); P.profile_fit(scenes.SceneSpec(scene=s, camera=c, size=z, \
+background=scenes.sky_background, name='glass-sphere'), 'out/profile', (256, 256), 4)"
 """
 
 from __future__ import annotations
@@ -90,12 +103,116 @@ def summarize_trace(trace: dict, wall_ms: float, n_chunks: int, top: int = 12) -
     }
 
 
+def after(trace: dict, name: str) -> dict:
+    """The events of `trace` from the start of the first host event named
+    `name` on (the device work issued after it, when the host synchronised
+    first)."""
+    events = trace.get("traceEvents", [])
+    t0 = min(e["ts"] for e in events if e.get("ph") == "X" and e.get("name") == name)
+    return {"traceEvents": [e for e in events if e.get("ph") == "X" and e["ts"] >= t0]}
+
+
+def _write(out, raw, summary):
+    os.makedirs(out, exist_ok=True)
+    with gzip.open(os.path.join(out, "trace.json.gz"), "wb") as f:
+        f.write(raw)
+    with open(os.path.join(out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+
+
+def _traced(fn):
+    """(traced wall ms, raw Chrome trace) of fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, "rb") as f:
+            return traced_ms, f.read()
+
+
+def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
+                eager=False) -> dict:
+    """Profile a fit step of SceneSpec `spec` on CUDA device 0 (see the
+    module docstring); writes the summary and trace under `out`."""
+    from . import RenderConfig, flatten_scene, render, rng
+    from .camera import Camera
+    from .ops.trace import trace
+    from .parallel import DIFF_FIELDS
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render: no CUDA device")
+    dev = torch.device("cuda", 0)
+    w, h = size or spec.size
+    cfg = RenderConfig(device=dev, queue_caps=spec.queue_caps, cuda_graphs=not eager)
+    st = flatten_scene(spec.scene, dev)
+    o, d, pix, bg, w0 = render._tile_rays(
+        rng.PRNGKey(23), Camera(spec.camera, (w, h), dev), 0, 0, 0, cfg=cfg,
+        background=spec.background, tile_h=h, tile_w=w, spp=spp, samples=spp)
+    live = []
+
+    def step():
+        leaves = {f: getattr(st, f).detach().clone().requires_grad_() for f in DIFF_FIELDS}
+        acc, stats = trace(rng.PRNGKey(24), o, d, pix, bg, w * h, st.replace(**leaves), cfg,
+                           w0=w0, spp_contiguous=spp, with_stats=True)
+        live[:] = stats.live.tolist()
+        loss = acc.square().mean()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("fit_backward"):
+            loss.backward()
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    step()  # builds the kernel, runs the warm-up and captures the graphs
+    first_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    traced_ms, raw = _traced(step)
+    events = json.loads(raw)
+    summary = summarize_trace(events, traced_ms, 1)
+    summary["backward"] = summarize_trace(after(events, "fit_backward"), traced_ms, 1)
+    summary.update(
+        scene=spec.name, card=torch.cuda.get_device_name(dev), size=(w, h), spp=spp,
+        captured=not eager, first_wall_ms=first_ms, untraced_wall_ms=walls,
+        untraced_wall_ms_median=statistics.median(walls), live_per_round=live,
+        peak_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        peak_reserved_gib=torch.cuda.max_memory_reserved(dev) / 2**30)
+    if not eager:
+        (prog,) = st.packed.fit_programs.values()
+        summary.update(graphs=len(prog.graphs), capture_s=prog.capture_s)
+    _write(out, raw, summary)
+    s, b = summary, summary["backward"]
+    print(f"[profile fit] {spec.name} {w}x{h} x {spp} spp ({w * h * spp} rays in one trace), "
+          f"{'captured' if not eager else 'op by op'}, on {s['card']}: first step "
+          f"{first_ms:.3f} ms, untraced {', '.join(f'{x:.3f}' for x in walls)} ms; live rays "
+          f"per round {live}; peak allocated {s['peak_allocated_gib']:.3f} GiB, reserved "
+          f"{s['peak_reserved_gib']:.3f} GiB")
+    print(f"[profile fit] traced wall {traced_ms:.3f} ms; device busy {s['device_ms']:.3f} ms "
+          f"({s['device_busy_share']:.1%}), {s['kernel_launches']} kernels; of it the backward "
+          f"{b['device_ms']:.3f} ms, {b['kernel_launches']} kernels, sweep launches "
+          f"{b['sweep_launches']}")
+    for label, part in (("step", s), ("backward", b)):
+        for k in part["top_kernels"]:
+            print(f"[profile fit] {label} {k['ms']:9.3f} ms {k['launches']:7d} x  "
+                  f"{k['name'][:100]}")
+    return summary
+
+
 def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
             eager=False) -> dict:
     """Profile the render of SceneSpec `spec` on CUDA device 0 (see the
     module docstring); writes the summary and trace under `out`."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     from . import RenderConfig, flatten_scene, parallel, render_u8
 
     if not torch.cuda.is_available():
@@ -135,19 +252,9 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
+    traced_ms, raw = _traced(render)
     if one_shard_spp:
         torch.distributed.destroy_process_group()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path, "rb") as f:
-            raw = f.read()
     summary = summarize_trace(json.loads(raw), traced_ms, chunks)
     summary.update(
         scene=spec.name, card=torch.cuda.get_device_name(dev), spp=spp,
@@ -166,11 +273,7 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
             host_syncs_per_chunk=sum(s.syncs for s in stats) / chunks,
             live_per_round=[int(n) for n in sum(s.live for s in stats)])
 
-    os.makedirs(out, exist_ok=True)
-    with gzip.open(os.path.join(out, "trace.json.gz"), "wb") as f:
-        f.write(raw)
-    with open(os.path.join(out, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    _write(out, raw, summary)
     s = summary
     if one_shard_spp:
         print(f"[profile] {spec.name} {w}x{h} x {spp} spp in one trace ({w * h * spp} rays, "
@@ -212,8 +315,14 @@ def main(argv=None):
     ap.add_argument("--one-shard", type=int, default=None, metavar="SPP",
                     help="the whole frame at SPP in one trace (see the module docstring)")
     ap.add_argument("--eager", action="store_true",
-                    help="the chunk program op by op, without CUDA graphs")
+                    help="op by op, without CUDA graphs")
+    ap.add_argument("--fit", type=int, default=None, metavar="SPP",
+                    help="a fit step of the whole frame at SPP (see the module docstring)")
+    ap.add_argument("--size", default=None, metavar="WxH", help="the fit's frame size")
     args = ap.parse_args(argv)
+    if args.fit:
+        size = tuple(int(x) for x in args.size.split("x")) if args.size else None
+        return profile_fit(scenes.load(args.scene), args.out, size, args.fit, args.eager)
     return profile(scenes.load(args.scene), args.out, args.one_shard, args.eager)
 
 

@@ -86,6 +86,10 @@ class PackedPrims:
     chunk_max: torch.Tensor   # [Nc, 3]
     n_chunks: int
     kind_ranges: tuple        # ((kind, chunk_start, chunk_count), ...)
+    # Fit programs (fit.py) of traces over tables with this packed table:
+    # SceneTables.replace keeps it, so a fit's steps find their graphs.
+    fit_programs: dict = dataclasses.field(init=False, repr=False, compare=False,
+                                           default_factory=dict)
 
     @functools.cached_property
     def groups(self):
@@ -757,7 +761,7 @@ def node_record(st: SceneTables) -> torch.Tensor:
     mid = st.material_id.long()
     kinds = torch.zeros(N, dtype=dt, device=st.inv.device)
     for kind, start, count in st.groups:
-        kinds[start:start + count] = kind
+        kinds[start:start + count].fill_(kind)  # on the device: a fit's graphs rebuild it
     col = lambda x: x[:, None].to(dt)
     return torch.cat(
         [

@@ -19,7 +19,10 @@ tests/test_beam.py against the flat sweep, and against the kernel the
 kernel gates by category with a float64 witness (tests/_torch_jax.py's
 sweeps_apart).  The render replaying its captured CUDA graphs equals the
 same chunk program run op by op within 1e-6, and a capture that meets a
-host read raises.
+host read raises.  The captured fit (fit.py) gives the op-by-op trace's
+gradients within 1e-4 of their largest entry (index_add's atomics),
+launches no sweep in its backward, and a second step on replaced tables
+replays its graphs without a new capture.
 
 Gates: the JAX package's kernel gates (tests/test_pallas.py) for the
 nearest mode, with its torus gate (tests/test_torus.py) on torus hits,
@@ -242,7 +245,8 @@ def test_gradients_through_kernel_match_plain_version(dev, monkeypatch, name, so
     """Gradients of sum(acc^2) over a 32x32 tile at 2 spp (the frame's
     middle unless `origin` is given) with respect to
     the DIFF_FIELDS tables, through the kernel and through its plain version
-    (run on the card's tensors): the sweeps select the same winners, so the
+    (run on the card's tensors), both op by op (cuda_graphs=False; the
+    captured fit has its own test): the sweeps select the same winners, so the
     gradients agree; all finite; the kernel's inputs carried a graph from
     round 1 on (child rays depend on the tables)."""
     from portrayer_tpu_torch import render
@@ -250,7 +254,8 @@ def test_gradients_through_kernel_match_plain_version(dev, monkeypatch, name, so
 
     scene, camera, (w, h) = _scene(name)
     st = flatten_scene(scene, dev)
-    cfg = RenderConfig(device=dev, soft_visibility=soft)
+    # Op by op: the plain version cannot be captured.
+    cfg = RenderConfig(device=dev, soft_visibility=soft, cuda_graphs=False)
     x0, y0 = origin or (w // 2 - 16, h // 2 - 16)
     o, d, pix, bg, w0 = render._tile_rays(
         rng.PRNGKey(4), Camera(camera, (w, h), dev), x0, y0, 0, cfg=cfg,
@@ -451,3 +456,67 @@ def test_a_capture_that_meets_a_host_read_raises(dev, tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                          env=dict(os.environ, PYTHONPATH=root), timeout=600)
     assert out.returncode == 3 and "raised:" in out.stdout, (out.stdout, out.stderr[-2000:])
+
+
+# Fields of parallel.DIFF_FIELDS; their gradients through the captured fit
+# and the op-by-op trace differ by the order of the float atomics.
+FIT_FIELDS = ("mat_diffuse", "mat_specular", "mat_reflectivity", "mat_shininess",
+              "light_color", "light_pos", "ambient", "inv")
+FIT_RTOL = 1e-4
+COLOURS = ("mat_diffuse", "mat_specular", "light_color", "ambient")
+
+
+@pytest.mark.parametrize("name", ["glossy-reflection", "glass-sphere"])
+def test_captured_fit_matches_the_op_by_op_trace(dev, name):
+    """A 64x64 tile at 4 spp of glossy-reflection (mirror and glossy
+    bounces) and of the glass sphere (4x queues, refraction, total
+    internal reflection): gradients of sum(acc^2) with respect to every
+    DIFF_FIELDS table through the captured fit program against the trace
+    run op by op (cuda_graphs=False) within FIT_RTOL of the largest entry,
+    the colours within 1e-6 and the same live rays per round; no sweep
+    launched in either backward (each backward graph recorded none); a
+    second step on tables replaced with other values replays every graph
+    it needs without a new capture, and matches the op-by-op trace too."""
+    import dataclasses
+    from portrayer_tpu_torch import render
+    from portrayer_tpu_torch.ops.trace import trace
+
+    scene, camera, (w, h) = _scene(name)
+    st = flatten_scene(scene, dev)
+    cfg = RenderConfig(device=dev)
+    o, d, pix, bg, w0 = render._tile_rays(
+        rng.PRNGKey(4), Camera(camera, (w, h), dev), w // 2 - 32, h // 2 - 32, 0, cfg=cfg,
+        background=render.default_background, tile_h=64, tile_w=64, spp=4, samples=4)
+
+    def step(cfg, scale):
+        # New colours, the same geometry: the second step's rounds keep
+        # their live counts, so their slices and graphs.
+        leaves = {f: (getattr(st, f) * (scale if f in COLOURS else 1.0)).detach()
+                  .requires_grad_() for f in FIT_FIELDS}
+        acc, stats = trace(rng.PRNGKey(5), o, d, pix, bg, 64 * 64, st.replace(**leaves), cfg,
+                           w0=w0, spp_contiguous=4, with_stats=True)
+        torch.cuda.synchronize()
+        cuda_intersect.reset_counts()
+        torch.sum(acc ** 2).backward()
+        torch.cuda.synchronize()
+        assert cuda_intersect.COUNTS == {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0}
+        return acc.detach(), {f: x.grad for f, x in leaves.items()}, stats
+
+    eager = dataclasses.replace(cfg, cuda_graphs=False)
+    for scale in (1.0, 0.9):
+        acc, g, stats = step(cfg, scale)
+        racc, rg, rstats = step(eager, scale)
+        assert stats.live.tolist() == rstats.live.tolist() and int(stats.live[1]) > 0
+        torch.testing.assert_close(acc, racc, rtol=0, atol=1e-6)
+        for f in FIT_FIELDS:
+            assert torch.isfinite(g[f]).all(), f
+            scale_f = float(rg[f].abs().max())
+            torch.testing.assert_close(g[f], rg[f], rtol=0, atol=FIT_RTOL * scale_f, msg=f)
+        (prog,) = st.packed.fit_programs.values()
+        if scale == 1.0:
+            graphs, capture_s = dict(prog.graphs), prog.capture_s
+            replays = {k: v.replays for k, v in graphs.items()}
+    assert all(v.launches == {"nearest": 0, "any_hit": 0}
+               for k, v in prog.graphs.items() if k[0] == "grad")
+    assert prog.graphs == graphs and prog.capture_s == capture_s
+    assert prog.graphs["head"].replays == replays["head"] + 1

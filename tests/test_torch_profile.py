@@ -4,7 +4,7 @@ host events are ignored, sweep launches are counted apart."""
 
 import pytest
 
-from portrayer_tpu_torch.profile_render import summarize_trace
+from portrayer_tpu_torch.profile_render import after, summarize_trace
 
 
 def _ev(cat, name, ts, dur):
@@ -29,3 +29,18 @@ def test_summary_counts_device_intervals_once():
     assert s["sweep_launches"] == 1 and s["sweep_ms"] == pytest.approx(0.1)
     assert s["top_kernels"][0]["name"].startswith("void (anonymous namespace)::sweep")
     assert s["top_kernels"][1]["launches"] == 2
+
+
+def test_the_backward_of_a_fit_trace_is_summarized_apart():
+    """profile_fit's backward: the device events from the start of the
+    host range "fit_backward" on."""
+    trace = {"traceEvents": [
+        _ev("kernel", "void (anonymous namespace)::sweep_kernel<false>(float const*)", 10, 100),
+        _ev("user_annotation", "fit_backward", 300, 400),
+        _ev("kernel", "void at::native::indexing_backward_kernel()", 320, 60),
+        _ev("kernel", "void at::native::elementwise_kernel<128, 2>()", 390, 10),
+    ]}
+    b = summarize_trace(after(trace, "fit_backward"), wall_ms=1.0, n_chunks=1)
+    assert b["kernel_launches"] == 2 and b["sweep_launches"] == 0
+    assert b["device_ms"] == pytest.approx(0.07)
+    assert summarize_trace(trace, wall_ms=1.0, n_chunks=1)["kernel_launches"] == 3
