@@ -11,13 +11,16 @@ phases, each printing its own lines; any failure raises and exits non-zero:
 2. each sweep kernel (nearest, any-hit) against its plain PyTorch version
    on the card: camera rays of big-scene, simple, torus-showcase,
    glossy-reflection, primitives-simple, single-triangle, four-shapes and
-   the inline scenes of ``tests/_torch_jax.py``: ellipsoids, procedural
-   meshes (73,729 triangles), normal-mapping-numpy (image and procedural
-   textures, normal maps) and soft-shadows-icosphere (an area light); their
-   shadow rays (towards a point of each area light drawn per ray, as the
-   shading draws it), and the child rays of a real bounce round 0 (with
-   their source surfaces) and those rays' shadow rays.  Gates: the JAX package's kernel gates, and on torus chunks its
-   torus gate; every difference is counted.  Then both versions' times at
+   the inline scenes of ``tests/_torch_jax.py``: ellipsoids, the glass
+   sphere, procedural meshes (73,729 triangles), normal-mapping-numpy
+   (image and procedural textures, normal maps) and soft-shadows-icosphere
+   (an area light); their shadow rays (towards a point of each area light
+   drawn per ray, as the shading draws it), and the child rays of a real
+   bounce round 0 (with their source surfaces) and those rays' shadow rays
+   (in a refractive scene also the children of round 1: rays that leave
+   the glass, or reflect inside it totally, from the node they start on).
+   Gates: the JAX package's kernel gates, and on torus chunks its torus
+   gate; every difference is counted.  Then both versions' times at
    the render's launch shapes of big-scene, torus-showcase,
    glossy-reflection, procedural-meshes, single-triangle and ellipsoids
    (a call by CUDA events), beside the bound of each launch, on the uniform camera
@@ -58,7 +61,9 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    checkpointed and with bounce-round checkpointing off, sweep launches in
    forward and backward (none in backward), host reads a step, and the
    captured gradients of every DIFF_FIELDS table held against the op-by-op
-   ones within GRAD_RTOL; then big-scene at 1980x1020 and 1 spp,
+   ones within GRAD_RTOL; one more op-by-op step of each with every sweep
+   launch held against the plain version under phase 2's gates (the fit's
+   own launch sizes); then big-scene at 1980x1020 and 1 spp,
    mat_diffuse, backward per chunk of 131,072 rays, captured, beside one
    pass op by op;
 6. multi-device (``portrayer_tpu_torch.parallel``): world size 1 under
@@ -285,9 +290,10 @@ def _shadow_rays(o, d, hit, st, cfg, t_min=None, src_node=None, src_tri=None):
             hit.hit.repeat(L), hit.node.repeat(L), hit.tri.repeat(L))
 
 
-def _bounce_rays(o, d, st, cfg):
-    """The live child rays of a real round 0 of the trace loop on camera
-    rays o, d: (o, d, t_min, src_node, src_tri)."""
+def _bounce_rays(o, d, st, cfg, rounds=1):
+    """The live child rays of real rounds 0 .. rounds-1 of the trace loop
+    on camera rays o, d: for each round, its children (o, d, t_min,
+    src_node, src_tri), the next round's queue."""
     import torch
     from portrayer_tpu_torch import rng
     from portrayer_tpu_torch.ops import trace as tr
@@ -301,11 +307,15 @@ def _bounce_rays(o, d, st, cfg):
                   src_tri=torch.full((R,), -1, dtype=torch.int32, device=dev),
                   sid=torch.arange(R, dtype=torch.int32, device=dev))
     bg = torch.zeros((R, 3), device=dev)
-    hit = tr._nearest(q, st, cfg)
-    acc, child, _ = tr._round_shade(q, hit, bg, bg, st, cfg, rng.PRNGKey(3), is_last=False)
-    q1, _, _, n = tr._compact(child, 2 * R, acc, bg)
-    n = int(n)  # the live head of the fixed-capacity queue
-    return q1.o[:n], q1.d[:n], q1.t_min[:n], q1.src_node[:n], q1.src_tri[:n]
+    out = []
+    for _ in range(rounds):
+        hit = tr._nearest(q, st, cfg)
+        acc, child, _ = tr._round_shade(q, hit, bg, bg, st, cfg, rng.PRNGKey(3), is_last=False)
+        q, _, _, n = tr._compact(child, child.w.shape[0], acc, bg)
+        n = int(n)  # the live head of the fixed-capacity queue
+        q = tr._Queue(*(x[:n] for x in q))
+        out.append((q.o, q.d, q.t_min, q.src_node, q.src_tri))
+    return out
 
 
 def _time_ms(fn, iters):
@@ -436,7 +446,7 @@ def _inline(name):
 
 
 # Scenes whose launches phase 2 times (ellipsoids: the sphere_g branch,
-# which no main path has).
+# which no main path has).  The glass sphere is held, not timed.
 TIMED = ("big-scene", "torus-showcase", "glossy-reflection", "procedural-meshes",
          "single-triangle", "ellipsoids")
 
@@ -446,7 +456,7 @@ def _scene_cases():
     come from ``tests/_torch_jax.py``."""
     import portrayer_tpu_torch as T
     from portrayer_tpu_torch import scenes
-    from _torch_jax import ellipsoids
+    from _torch_jax import ellipsoids, glass_sphere
 
     cases = []
     # The timed scenes draw at least LAUNCH_RAYS camera rays.
@@ -456,6 +466,7 @@ def _scene_cases():
         spec = scenes.load(name)
         cases.append((name, n_rays, spec.scene, spec.camera, spec.size))
     cases.append(("ellipsoids", 131072) + ellipsoids(T))
+    cases.append(("glass-sphere", 131072) + glass_sphere(T))
     for name in ("procedural-meshes", "normal-mapping-numpy", "soft-shadows-icosphere"):
         spec = _inline(name)
         cases.append((name, 131072, spec.scene, spec.camera, spec.size))
@@ -497,14 +508,16 @@ def phase_kernels(dev):
         line = (f"[2 kernels] {name} {st.packed.kind_ranges}: {n_rays} camera rays, "
                 f"{near.hit.float().mean():.3f} hit; {int(sact.sum())} shadow rays")
         if st.any_reflective:
-            bo, bd, bt, bn, btri = _bounce_rays(o, d, st, cfg)
-            bhit = check(f"{name} bounce", bo, bd, bt, st,
-                         {"src_node": bn, "src_tri": btri}, torus)
-            so, sd, st_min, sact, snode, stri = _shadow_rays(bo, bd, bhit, st, cfg, bt, bn, btri)
-            check(f"{name} bounce shadow", so, sd, st_min, st,
-                  dict(active=sact, src_node=snode, src_tri=stri), torus)
-            line += (f"; {bo.shape[0]} round-0 child rays, {bhit.hit.float().mean():.3f} hit, "
-                     f"{int(sact.sum())} of their shadow rays")
+            for r, (bo, bd, bt, bn, btri) in enumerate(
+                    _bounce_rays(o, d, st, cfg, rounds=2 if st.any_refractive else 1)):
+                bhit = check(f"{name} round-{r} children", bo, bd, bt, st,
+                             {"src_node": bn, "src_tri": btri}, torus)
+                so, sd, st_min, sact, snode, stri = _shadow_rays(bo, bd, bhit, st, cfg, bt, bn,
+                                                                 btri)
+                check(f"{name} round-{r} children's shadow", so, sd, st_min, st,
+                      dict(active=sact, src_node=snode, src_tri=stri), torus)
+                line += (f"; {bo.shape[0]} round-{r} child rays, {bhit.hit.float().mean():.3f} "
+                         f"hit, {int(sact.sum())} of their shadow rays")
         print(line + "; kernel and plain version agree", flush=True)
 
         if name in TIMED:
@@ -827,6 +840,46 @@ class _PlainSweep:
         ci.intersect_scene_cuda = self.kernel
 
 
+class _HeldSweep:
+    """Within the block, each sweep launch is also run through the plain
+    version on the same inputs (PLAIN_ROWS rays at a time) and held
+    against it under phase 2's gates (_gate_nearest; .hit equal in any-hit
+    mode), its error and difference counts added to err and diffs; the
+    kernel's answer goes on.  `launches` lists (mode, rays) of each."""
+
+    def __init__(self, label, err, diffs):
+        self.label, self.err, self.diffs, self.launches = label, err, diffs, []
+
+    def __enter__(self):
+        from portrayer_tpu_torch.ops import cuda_intersect as ci
+
+        self.kernel = ci.intersect_scene_cuda
+        ci.intersect_scene_cuda = self._held
+        return self
+
+    def __exit__(self, *exc):
+        from portrayer_tpu_torch.ops import cuda_intersect as ci
+
+        ci.intersect_scene_cuda = self.kernel
+
+    def _held(self, o, d, t_min, t_max, st, cfg, any_hit=False, **kw):
+        k = self.kernel(o, d, t_min, t_max, st, cfg, any_hit=any_hit, **kw)
+        kw = {n: v for n, v in kw.items() if v is not None}
+        p = _plain(o, d, t_min, st, cfg, kw, any_hit=any_hit, rows=PLAIN_ROWS)
+        mode = "any_hit" if any_hit else "nearest"
+        label = f"{self.label} {mode} launch {len(self.launches)} ({o.shape[0]} rays)"
+        if any_hit:
+            n_any = int((k.hit != p.hit).sum())
+            if n_any:
+                raise AssertionError(f"{label}: hit differs on {n_any} rays")
+        else:
+            e, n = _gate_nearest(k, p, label)
+            self.err[mode] = max(self.err[mode], e)
+            self.diffs[mode] += n
+        self.launches.append((mode, o.shape[0]))
+        return k
+
+
 def _tile_grads(dev, name, plain):
     """Gradients of sum(acc^2) over the middle 64x64 tile of `name` at
     GRAD_TILE_SPP with respect to GRAD_FIELDS, through the kernel or (with
@@ -898,7 +951,7 @@ def _frame_pass(dev, st, spec, cfg, diffuse=None, target=None):
     return out if diffuse is None else loss
 
 
-def _bounce_fit(dev, name, size, spp, fields, path_counts):
+def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
     """A fit through the bounce rounds (BOUNCE_FITS): `name`'s frame at
     `size` x spp in one trace; FIT_STEPS gradient steps on `fields`,
     started at FIT_START of the truth, against the true render, through
@@ -907,7 +960,9 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts):
     with bounce-round checkpointing off; a step's peak memory in each of
     the three; the captured gradients of every DIFF_FIELDS table at the
     first step, and those with checkpointing off, against the op-by-op ones
-    (GRAD_RTOL of the largest entry)."""
+    (GRAD_RTOL of the largest entry); last, an op-by-op step whose every
+    sweep launch is held against the plain version (_HeldSweep; err and
+    diffs as in phase 2)."""
     import dataclasses
     import gc
     import torch
@@ -929,11 +984,13 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts):
     with torch.no_grad():
         target = trace(key, o, d, pix, bg, P, st, cfg, w0=w0, spp_contiguous=spp) / spp
 
-    def step(c, params, memory=False):
+    def step(c, params, memory=False, held=False):
         """A forward and backward; with `memory`, after emptying the
         allocator's cache, so that the reserved peak is this step's (a
         captured step's graph pool included: replays allocate nothing, so
-        the allocated peak leaves the pool out)."""
+        the allocated peak leaves the pool out).  `held`: the step runs
+        the plain version beside the kernel, so its counts are not
+        checked."""
         leaves = {f: params.get(f, getattr(st, f)).detach().clone().requires_grad_()
                   for f in DIFF_FIELDS}
         if memory:
@@ -953,7 +1010,8 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts):
         _sync(dev)
         secs = time.perf_counter() - t0
         bwd = dict(cuda_intersect.COUNTS)
-        if bwd["nearest"] or bwd["any_hit"] or bwd["plain_on_cuda"] or fwd["plain_on_cuda"]:
+        if not held and (bwd["nearest"] or bwd["any_hit"] or bwd["plain_on_cuda"]
+                         or fwd["plain_on_cuda"]):
             raise AssertionError(f"fit {name}: forward {fwd}, backward {bwd} (the backward "
                                  f"launched a sweep, or the plain version ran on the card)")
         if stats.dropped_w != 0.0:
@@ -998,6 +1056,10 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts):
         notes.append(f"{f} {diff:.3g} of {scale:.3g}")
     cap, ref = runs["captured"], runs["op by op"]
     (prog,) = st.packed.fit_programs.values()
+    with _HeldSweep(f"fit {name}", err, diffs) as held:
+        step(eager, start, held=True)
+    sizes_held = {m: sorted({n for mode, n in held.launches if mode == m}, reverse=True)
+                  for m in ("nearest", "any_hit")}
     path_counts[f"fit {name}, captured step"] = {
         k: cap[-1]["fwd"][k] + cap[-1]["bwd"][k] for k in cap[-1]["fwd"]}
     live = cap[0]["stats"].live.tolist()
@@ -1021,12 +1083,16 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts):
           f"{rfwd['nearest']} / {rfwd['any_hit']} and {rbwd['nearest']} / {rbwd['any_hit']}); "
           f"host reads a step {cap[-1]['stats'].syncs} (live counts); live rays per round "
           f"{live}; dropped_w 0; captured against op-by-op gradients, max |diff| of max |g|: "
-          + "; ".join(notes), flush=True)
+          + "; ".join(notes) + f"; one op-by-op step with each of its {len(held.launches)} "
+          f"sweep launches held against the plain version under phase 2's gates, rays a "
+          f"launch: nearest {sizes_held['nearest']}, any-hit {sizes_held['any_hit']}",
+          flush=True)
 
 
-def phase_gradients(dev, path_counts):
+def phase_gradients(dev, path_counts, err, diffs):
     """Kernel against plain version under autograd on two tiles, then the
-    full-width fits (see the module docstring)."""
+    full-width fits (see the module docstring); err and diffs as in phase
+    2."""
     import dataclasses
     import torch
     from portrayer_tpu_torch import RenderConfig, flatten_scene, scenes
@@ -1057,7 +1123,7 @@ def phase_gradients(dev, path_counts):
               + "; ".join(notes), flush=True)
 
     for name, size, spp, fields in BOUNCE_FITS:
-        _bounce_fit(dev, name, size, spp, fields, path_counts)
+        _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs)
 
     spec = scenes.load("big-scene")
     cfg = RenderConfig(device=dev, samples=1, tile=FIT_TILE, max_rays_per_launch=LAUNCH_RAYS)
@@ -1579,7 +1645,7 @@ def main():
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
     _linear_vs_flat(dev, textured, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
-    phase_gradients(dev, path_counts)
+    phase_gradients(dev, path_counts, err, diffs)
     phase_multi_device(dev, path_counts, err, diffs)
     phase_checks(dev)
     phase_device_times(timing, RenderConfig(device=dev))

@@ -173,5 +173,11 @@ class RenderConfig:
             raise ValueError(f"queue_slice_divs must be positive ints, got "
                              f"{self.queue_slice_divs!r}")
 
+    @property
+    def captures(self) -> bool:
+        """Whether a render or a differentiable trace replays captured CUDA
+        graphs: on the card with accel="cuda" and cuda_graphs."""
+        return self.cuda_graphs and self.accel == "cuda" and self.device.type == "cuda"
+
     def resolved_samples(self) -> int:
         return self.samples if self.samples is not None else _env_samples()

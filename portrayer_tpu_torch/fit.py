@@ -20,10 +20,10 @@ round adds to it), so no round keeps its framebuffer.
 
 The host reads each bounce round's live count once in the forward, to
 pick the round's slice, as ``trace`` does; the backward reuses those
-choices and reads nothing.  With capture, each step is captured as a CUDA
-graph at its first use (a capturing program first runs one forward and
-backward op by op) and replayed after; every step reads its inputs from
-buffers allocated outside the graphs, so one memory pool serves them all.
+choices and reads nothing.  Each step is captured as a CUDA graph at its
+first use (a program first runs one forward and backward op by op) and
+replayed after; every step reads its inputs from buffers allocated outside
+the graphs, so one memory pool serves them all.
 Parameters change every step (``SceneTables.replace`` makes new tables),
 so the program reads them from static buffers that each call fills, and
 it is cached on the tables' packed table, which ``replace`` keeps.  The
@@ -47,7 +47,7 @@ import torch
 from . import rng
 from .config import RenderConfig
 from .ops.intersect import Hit
-from .ops.trace import (TraceStats, _Queue, bounce_round, bounce_rounds, first_round,
+from .ops.trace import (TraceStats, _Queue, _Sweeps, bounce_round, bounce_rounds, first_round,
                         grad_fields, plan, primary_queue)
 from .scene.flatten import SceneTables, node_record, tri_record
 
@@ -75,29 +75,19 @@ class _Slab:
                       for name, dtype, shape, a, n in spans}
 
 
-class _Record:
-    """A round's sweeps in the fit program: on its forward they launch and
-    their results (the nearest hits, then the occlusion bits) are written
-    into the round's slab; on its backward they are read from it."""
+def _keep(views, sweeps: _Sweeps):
+    """Write a round's kept sweep results (its nearest hits, then, with
+    lights, its occlusion bits) into its slab's views."""
+    hit, *occ = sweeps.kept
+    for f in _HIT:
+        views[f].copy_(getattr(hit, f))
+    for x in occ:
+        views["occ"].copy_(x)
 
-    def __init__(self, views, replay: bool):
-        self.views, self.replay, self.calls = views, replay, 0
 
-    def __call__(self, launch):
-        self.calls += 1
-        v = self.views
-        if self.calls == 1:
-            if self.replay:
-                return Hit(*(v[f] for f in _HIT))
-            hit = launch()
-            for f in _HIT:
-                v[f].copy_(getattr(hit, f))
-            return hit
-        if self.replay:
-            return v["occ"]
-        occ = launch()
-        v["occ"].copy_(occ)
-        return occ
+def _kept(views) -> _Sweeps:
+    """A round's sweeps that read its results from its slab's views."""
+    return _Sweeps([Hit(*(views[f] for f in _HIT)), views["occ"]])
 
 
 class _Run(NamedTuple):
@@ -113,11 +103,11 @@ class _Run(NamedTuple):
 class _FitProgram:
     """A differentiable trace of R0 rays into n_pixels pixels over tables
     like `st`, its parameters `fields` (and the ray inputs `ray_grads`)
-    read from static buffers: see the module docstring.  `capture` runs
-    each step as a CUDA graph (render._Graph) after the warm-up."""
+    read from static buffers: see the module docstring.  Each step runs as
+    a CUDA graph (render._Graph) after the warm-up."""
 
     def __init__(self, st: SceneTables, cfg: RenderConfig, R0: int, n_pixels: int,
-                 spp_c: int, fields: tuple, ray_grads: tuple, has_w0: bool, capture: bool):
+                 spp_c: int, fields: tuple, ray_grads: tuple, has_w0: bool):
         dev, dt = st.device, cfg.dtype
         self.cfg, self.R0, self.P, self.spp_c = cfg, R0, n_pixels, spp_c
         self.fields, self.ray_grads = fields, ray_grads
@@ -149,9 +139,8 @@ class _FitProgram:
         grads += [(n, dt, tuple(self.inputs[n].shape)) for n in ray_grads]
         self.grads = _Slab(grads, dev)
         self.slabs = {}
-        self.capture = capture
         self.graphs = {}
-        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.pool = torch.cuda.graph_pool_handle()
         self.warm = False
         self.capture_s = 0.0
         self.loaded = None
@@ -187,7 +176,7 @@ class _FitProgram:
         self.loaded = token
 
     def _run(self, name, fn):
-        if not (self.capture and self.warm):
+        if not self.warm:
             fn()
             return
         g = self.graphs.get(name)
@@ -212,9 +201,10 @@ class _FitProgram:
         self.keys.copy_(rng.fold_in(self.key, self.rounds))
         self.ridx.fill_(1)
         q = primary_queue(x["o0"], x["d0"], x["pix0"], x["w0"], cfg)
+        sweeps = _Sweeps()
         acc, q1, dropped, n_live = first_round(
-            self.keys[0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c,
-            sweeps=_Record(self.slabs["head"].views, replay=False))
+            self.keys[0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c, sweeps=sweeps)
+        _keep(self.slabs["head"].views, sweeps)
         self.acc.copy_(acc)
         if q1 is not None:
             self._queue_out(q1, self.pl.cap[1], n_live)
@@ -234,9 +224,11 @@ class _FitProgram:
             v[f].copy_(x[:k])
         q = _Queue(*(v[f] for f in _Queue._fields))
         rkey = self.keys.index_select(0, self.ridx.reshape(1))[0]
+        sweeps = _Sweeps()
         acc, q2, dropped, n_live = bounce_round(
             rkey, q, self.acc, self.inputs["bg"], self.st, self.cfg, k, next_cap, is_last,
-            sweeps=_Record(v, replay=False))
+            sweeps=sweeps)
+        _keep(v, sweeps)
         self.acc.copy_(acc)
         self.ridx.add_(1)
         if not is_last:
@@ -284,7 +276,7 @@ class _FitProgram:
             q = primary_queue(x["o0"], x["d0"], x["pix0"], x["w0"], cfg)
             acc, q1, _, _ = first_round(
                 self.keys[0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c,
-                sweeps=_Record(self.slabs["head"].views, replay=True))
+                sweeps=_kept(self.slabs["head"].views))
             outs = [(acc, self.g_acc)]
             if q1 is not None:
                 outs += self._queue_cotangents(q1, self.pl.cap[1])
@@ -302,7 +294,7 @@ class _FitProgram:
             rkey = self.keys.index_select(0, self.ridx.reshape(1))[0]
             acc, q2, _, _ = bounce_round(
                 rkey, _Queue(**qv), self.zero_acc, x["bg"], st, self.cfg, k, next_cap, is_last,
-                sweeps=_Record(v, replay=True))
+                sweeps=_kept(v))
             outs = [(acc, self.g_acc)]
             if not is_last:
                 outs += self._queue_cotangents(q2, next_cap)
@@ -357,7 +349,7 @@ class _FitProgram:
         return {n: g.clone() for n, g in self.grads.views.items()}
 
     def warm_up(self):
-        """A capturing program's first call: one forward and one backward
+        """A program's first call: one forward and one backward
         op by op (building the kernel, the sweep's chunk groups, the
         allocator's blocks and autograd's threads), then forgotten."""
         run = self.forward()
@@ -373,7 +365,7 @@ class _Fit(torch.autograd.Function):
         token = object()
         inputs = (key, o0, d0, pix0, w0, bg, params)
         prog._load(token, *inputs)
-        if prog.capture and not prog.warm:
+        if not prog.warm:
             prog.warm_up()
         run = prog.forward()
         ctx.prog, ctx.run, ctx.token = prog, run, token
@@ -392,7 +384,7 @@ class _Fit(torch.autograd.Function):
 
 
 def _program(st: SceneTables, cfg: RenderConfig, R0: int, n_pixels: int, spp_c: int,
-             fields: tuple, ray_grads: tuple, has_w0: bool, capture: bool) -> _FitProgram:
+             fields: tuple, ray_grads: tuple, has_w0: bool) -> _FitProgram:
     """The fit program of this trace, cached on the tables' packed table by
     configuration, shape, parameters and the identity of every other table
     (the program reads those in place)."""
@@ -400,11 +392,11 @@ def _program(st: SceneTables, cfg: RenderConfig, R0: int, n_pixels: int, spp_c: 
                    for f in dataclasses.fields(st)
                    if f.name not in fields + ("rec", "trec", "packed", "chunk_programs")
                    for v in (getattr(st, f.name),))
-    key = (cfg, R0, n_pixels, spp_c, fields, ray_grads, has_w0, capture, others)
+    key = (cfg, R0, n_pixels, spp_c, fields, ray_grads, has_w0, others)
     cache = st.packed.fit_programs
     prog = cache.pop(key, None)
     if prog is None:
-        prog = _FitProgram(st, cfg, R0, n_pixels, spp_c, fields, ray_grads, has_w0, capture)
+        prog = _FitProgram(st, cfg, R0, n_pixels, spp_c, fields, ray_grads, has_w0)
         while len(cache) >= _MAX_PROGRAMS:
             cache.pop(next(iter(cache)))
     cache[key] = prog
@@ -412,11 +404,10 @@ def _program(st: SceneTables, cfg: RenderConfig, R0: int, n_pixels: int, spp_c: 
 
 
 def trace_captured(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
-                   w0=None, spp_contiguous: int = 0, with_stats: bool = False,
-                   capture: bool = True):
+                   w0=None, spp_contiguous: int = 0, with_stats: bool = False):
     """ops.trace.trace through the fit program (same arguments and
     results), differentiable in the tables' fields that require grad and
-    in the ray inputs that do.  capture=False runs the program op by op."""
+    in the ray inputs that do."""
     if cfg.remat_min_lanes > 0:
         raise ValueError(
             f"RenderConfig(remat_min_lanes={cfg.remat_min_lanes}): the captured fit "
@@ -426,7 +417,7 @@ def trace_captured(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: R
     xs = dict(zip(_RAY_INPUTS, (o0, d0, w0, bg)))
     ray_grads = tuple(n for n, x in xs.items() if x is not None and x.requires_grad)
     prog = _program(st, cfg, o0.shape[0], n_pixels, spp_contiguous, fields, ray_grads,
-                    w0 is not None, capture)
+                    w0 is not None)
     box = {}
     acc = _Fit.apply(prog, box, key, pix0, o0, d0, w0, bg, *(getattr(st, f) for f in fields))
     if not with_stats:

@@ -90,10 +90,11 @@ class _Sweeps:
     occlusion bits): launched and kept on the round's first run, read back
     on its replays, so that a checkpoint's recompute in backward launches
     no sweep.  The counterpart of the JAX package's "sweep_oracle"
-    residuals (its trace.py ``_REMAT_POLICY``)."""
+    residuals (its trace.py ``_REMAT_POLICY``).  `kept` starts it with
+    results kept elsewhere (the fit program's state slabs)."""
 
-    def __init__(self):
-        self.kept, self.at = [], 0
+    def __init__(self, kept=()):
+        self.kept, self.at = list(kept), 0
 
     def run(self, body):
         """body(self): the round, launching its sweeps through self."""
@@ -340,7 +341,7 @@ def _round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, is_last
     shading, the any-hit sweep, the accumulation and, unless it is the
     last, the compaction of its children into next_cap lanes: (acc, queue
     or None, dropped or None, n_live or None).  Its sweeps go through
-    `sweeps` (a _Sweeps, or the fit program's record of them)."""
+    `sweeps` (a _Sweeps)."""
     hit = sweeps(lambda: _nearest(q, st, cfg))
     acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rkey, is_last=is_last, spp_c=spp_c)
     acc = _apply_shadows(sh, acc, st, cfg, spp_c, sweeps)
@@ -355,8 +356,8 @@ def first_round(rkey, q: _Queue, bg, n_pixels: int, st: SceneTables, cfg: Render
     """Round 0 on the primary queue, its draws keyed rkey (the trace key
     folded with 0): (acc [P,3], the queue of round 1 or None without
     bounces, dropped, n_live), the last two device scalars.  Under
-    autograd it runs checkpointed (the module docstring); `sweeps` runs it
-    directly on the fit program's record."""
+    autograd it runs checkpointed (the module docstring); `sweeps` (a
+    _Sweeps) runs it directly, the fit program's way."""
     is_last = pl.max_depth == 0
     next_cap = None if is_last else pl.cap[1]
 
@@ -365,7 +366,7 @@ def first_round(rkey, q: _Queue, bg, n_pixels: int, st: SceneTables, cfg: Render
         return _round(rkey, q, acc, bg, st, cfg, is_last, next_cap, spp_c, sw)
 
     if sweeps is not None:
-        return body(sweeps)
+        return sweeps.run(body)
     return _checkpointed(body, _remat(st, None, cfg, q.o, q.d, q.w, bg))
 
 
@@ -375,8 +376,8 @@ def bounce_round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, k
     round's index), on the head slice of k lanes of its queue: (acc, the
     queue of next_cap lanes of the next round or, after the last round,
     None, dropped, n_live).  Under autograd it runs checkpointed when k >=
-    cfg.remat_min_lanes; `sweeps` runs it directly on the fit program's
-    record."""
+    cfg.remat_min_lanes; `sweeps` (a _Sweeps) runs it directly, the fit
+    program's way."""
     q = _Queue(*(x[:k] for x in q))
     remat = sweeps is None and _remat(st, k, cfg, q.o, q.d, q.w, q.t_min, acc, bg)
     if remat:
@@ -387,7 +388,7 @@ def bounce_round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, k
         return _round(rkey, q, acc, bg, st, cfg, is_last, next_cap, 0, sw)
 
     if sweeps is not None:
-        return body(sweeps)
+        return sweeps.run(body)
     return _checkpointed(body, remat)
 
 
@@ -402,11 +403,10 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
     Under autograd the rounds run checkpointed; on the card with
     accel="cuda" and cfg.cuda_graphs, the captured fit program
     (``portrayer_tpu_torch/fit.py``) runs them."""
-    if _records(st, o0, d0, w0, bg):
-        from .. import fit, render
+    if _records(st, o0, d0, w0, bg) and cfg.captures:
+        from .. import fit
 
-        if render._captures(cfg):
-            return fit.trace_captured(key, o0, d0, pix0, bg, n_pixels, st, cfg, w0=w0,
+        return fit.trace_captured(key, o0, d0, pix0, bg, n_pixels, st, cfg, w0=w0,
                                       spp_contiguous=spp_contiguous, with_stats=with_stats)
     R0 = o0.shape[0]
     pl = plan(R0, st, cfg)

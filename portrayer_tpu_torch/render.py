@@ -262,16 +262,12 @@ class _ChunkProgram:
 _MAX_PROGRAMS = 2
 
 
-def _captures(cfg: RenderConfig) -> bool:
-    return cfg.cuda_graphs and cfg.accel == "cuda" and cfg.device.type == "cuda"
-
-
 def _program(st, cam, cfg, background, settings, size, **shape):
     """The chunk program of this render: on the card with accel="cuda"
     (and cuda_graphs) a capturing one, cached on the tables by
     configuration, camera, frame size, background and chunk shape;
     otherwise a fresh one that runs op by op."""
-    if not _captures(cfg):
+    if not cfg.captures:
         return _ChunkProgram(st, cam, cfg, background, capture=False, **shape)
     key = (cfg, background, tuple(size), tuple(sorted(shape.items())),
            tuple(tuple(np.asarray(v, dtype=np.float64).reshape(-1).tolist())

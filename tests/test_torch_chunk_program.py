@@ -64,7 +64,7 @@ def stand_in(monkeypatch):
     reads = HostReads()
     monkeypatch.setattr(_StandInGraph, "reads", reads)
     monkeypatch.setattr(render, "_Graph", _StandInGraph)
-    monkeypatch.setattr(render, "_captures", lambda cfg: cfg.cuda_graphs)
+    monkeypatch.setattr(T.RenderConfig, "captures", property(lambda cfg: cfg.cuda_graphs))
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
     monkeypatch.setattr(cuda_intersect, "intersect_scene_sweep_ref",
                         reads.excused(cuda_intersect.intersect_scene_sweep_ref))

@@ -306,7 +306,7 @@ def stand_in(monkeypatch, one_thread):
     reads = HostReads()
     monkeypatch.setattr(_StandInGraph, "reads", reads)
     monkeypatch.setattr(render, "_Graph", _StandInGraph)
-    monkeypatch.setattr(render, "_captures", lambda cfg: cfg.cuda_graphs)
+    monkeypatch.setattr(T.RenderConfig, "captures", property(lambda cfg: cfg.cuda_graphs))
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
     monkeypatch.setattr(cuda_intersect, "intersect_scene_sweep_ref",
                         reads.excused(cuda_intersect.intersect_scene_sweep_ref))
@@ -325,10 +325,10 @@ def _glass_tile(spp=2):
     return (st,) + rays
 
 
-def _tile_grads(st, o, d, pix, bg, w0, cfg, scale=1.0, run=tr.trace, spp=2):
+def _tile_grads(st, o, d, pix, bg, w0, cfg, scale=1.0, spp=2):
     leaves = {f: (getattr(st, f) * scale).detach().requires_grad_() for f in DIFF_FIELDS}
-    acc, stats = run(rng.PRNGKey(5), o, d, pix, bg, 256, st.replace(**leaves), cfg, w0=w0,
-                     spp_contiguous=spp, with_stats=True)
+    acc, stats = tr.trace(rng.PRNGKey(5), o, d, pix, bg, 256, st.replace(**leaves), cfg, w0=w0,
+                          spp_contiguous=spp, with_stats=True)
     torch.sum(acc ** 2).backward()
     return acc.detach(), {f: x.grad for f, x in leaves.items()}, stats
 
@@ -341,19 +341,19 @@ def _assert_equal(a, b):
         assert torch.equal(g[f], g2[f]), f
 
 
-def test_fit_program_equals_trace_and_backward(one_thread):
-    """The fit program run op by op (fit.trace_captured, capture=False)
-    against trace + backward() on the glass sphere's tile: the same
-    colours, TraceStats and gradients, bit for bit, and the same again on
-    a second call."""
+def test_fit_program_equals_trace_and_backward(stand_in):
+    """The fit program (its first call op by op, the warm-up, then its
+    steps through the stand-in graphs) against trace + backward() on the
+    glass sphere's tile: the same colours, TraceStats and gradients, bit
+    for bit, on the first call and again on a second."""
     st, *rays = _glass_tile()
+    ref = _tile_grads(st, *rays, T.RenderConfig(device="cpu", cuda_graphs=False))
     cfg = T.RenderConfig(device="cpu")
-    ref = _tile_grads(st, *rays, cfg)
-    run = lambda *a, **k: fit.trace_captured(*a, **k, capture=False)
-    _assert_equal(_tile_grads(st, *rays, cfg, run=run), ref)
-    _assert_equal(_tile_grads(st, *rays, cfg, run=run), ref)
+    _assert_equal(_tile_grads(st, *rays, cfg), ref)
     (prog,) = st.packed.fit_programs.values()
-    assert not prog.capture and prog.graphs == {}
+    assert prog.warm and prog.graphs["head"].replays == 1
+    _assert_equal(_tile_grads(st, *rays, cfg), ref)
+    assert prog.graphs["head"].replays == 2 and stand_in.seen == []
 
 
 def test_captured_fit_steps_read_nothing_on_the_host(stand_in):
@@ -371,7 +371,7 @@ def test_captured_fit_steps_read_nothing_on_the_host(stand_in):
     assert stand_in.seen == []
     _assert_equal(got, _tile_grads(st, *rays, eager))
     (prog,) = st.packed.fit_programs.values()
-    assert prog.capture and prog.warm
+    assert prog.warm
     forward = {k: g.replays for k, g in prog.graphs.items() if k[0] != "grad"}
     backward = {k[1:]: g.replays for k, g in prog.graphs.items() if k[0] == "grad"}
     assert forward == {("head" if k == ("head",) else k): v for k, v in backward.items()}
