@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs seven
+Builds the port's kernels from ``portrayer_tpu_torch/csrc`` and runs eight
 phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, kernel
@@ -88,9 +88,19 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    checked_trace on simple's 16x16 tile, clean; the float64 check mode
    (accel="flat") against the float32 kernel render of simple at 48x36 x
    2 spp;
-7. the sweep kernel alone on the device (torch.profiler) at each launch
+7. the 22 scene programs that load assets (``portrayer_tpu_torch.scenes``)
+   on seeded stand-in assets (``tests/_torch_assets.py``: icospheres for
+   the meshes, small images for the PNG and JPEG files) in a temporary
+   folder named by PORTRAYER_ASSETS, each through
+   ``portrayer_tpu_torch.run_all_examples.render_all`` at its published
+   size, 2 spp, accel="cuda" (the captured chunk program): per scene the
+   first render's seconds and Mrays/s, graphs and replays, sweep launches
+   per mode, dropped_w, its linear image finite, and the kernel against
+   its plain version under phase 2's gates on the first chunk of camera
+   rays, the middle tile's chunk and their shadow rays (0 rays apart);
+8. the sweep kernel alone on the device (torch.profiler) at each launch
    shape of phase 2; last, so that the profiler cannot weigh on the wall
-   times of phases 4 to 6.
+   times of phases 4 to 7.
 
 The last two lines are a JSON object of per-kernel numbers and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
@@ -553,7 +563,7 @@ def phase_device_times(timing, cfg):
                 ms = _device_ms(lambda: intersect_scene_cuda(*args, st, cfg, any_hit=any_hit,
                                                              **kw), 20)
                 (t if order == "uniform" else t["render_order"])[mode] += (ms,)
-                print(f"[7 device] {name} {mode}, {order}: sweep kernel {_fmt(ms)} on the "
+                print(f"[8 device] {name} {mode}, {order}: sweep kernel {_fmt(ms)} on the "
                       f"device", flush=True)
 
 
@@ -1610,6 +1620,118 @@ def phase_checks(dev):
           f"max {diff.max():.3g} (gate: mean < 2e-3, max < 0.05)", flush=True)
 
 
+# Phase 7: the scene programs that load assets, on seeded stand-in assets
+# (tests/_torch_assets.py), at their published sizes and the runner's CI
+# sample count.
+STANDIN_SPP = 2
+STANDIN_SEED = 0
+
+
+def _chunk_rays(cam, size, cfg, middle):
+    """The camera rays of one render chunk of `size` under cfg: the first
+    (tile (0, 0)), or with `middle` the middle tile of the middle tile row,
+    its pixels and samples as render._tile_rays lays them out, jittered
+    with a fixed key."""
+    import torch
+    from portrayer_tpu_torch import render, rng
+
+    th, tw = min(cfg.tile[0], size[1]), min(cfg.tile[1], size[0])
+    spp = max(1, min(STANDIN_SPP, cfg.max_rays_per_launch // (th * tw)))
+    x0 = (-(-size[0] // tw) - 1) // 2 * tw if middle else 0
+    y0 = (-(-size[1] // th) - 1) // 2 * th if middle else 0
+    o, d, *_ = render._tile_rays(rng.PRNGKey(11), cam, x0, y0, 0, cfg=cfg,
+                                 background=render.default_background, tile_h=th, tile_w=tw,
+                                 spp=spp, samples=STANDIN_SPP)
+    src = torch.full((o.shape[0],), -1, dtype=torch.int32, device=o.device)
+    return o, d, src
+
+
+def phase_scenes(dev, path_counts, err, diffs):
+    """The 22 scene programs that load assets, each through
+    run_all_examples.render_all at its published size, STANDIN_SPP spp,
+    accel="cuda" (the captured chunk program), on stand-in assets written
+    to a temporary folder (PORTRAYER_ASSETS).  The launches of the renders
+    go to path_counts, counted from 0 just before render_all and read
+    just after it; the checks of each scene (run between its render and
+    the next, their launches left out of the counts): its linear image
+    finite (render_linear with the graphs cached), and the kernel against
+    its plain version under phase 2's gates on the first chunk of camera
+    rays and the middle tile's chunk, and on their shadow rays (err and
+    diffs as in phase 2)."""
+    import tempfile
+    import numpy as np
+    from portrayer_tpu_torch import render_linear, scenes
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops import cuda_intersect
+    from portrayer_tpu_torch.run_all_examples import render_all
+    from _torch_assets import write_standins
+
+    names = [n for n in scenes.names() if n not in scenes.ASSET_FREE]
+    lines = []
+
+    def check(name, spec, st, cfg, res):
+        saved = dict(cuda_intersect.COUNTS)
+        lin = render_linear(st, spec.camera, tuple(res["size"]), spec.background, cfg)
+        finite = bool(np.isfinite(lin).all())
+        if not finite or lin.shape != (res["size"][1], res["size"][0], 3):
+            raise AssertionError(f"{name}: linear image not finite or misshapen")
+        cam = Camera(spec.camera, tuple(res["size"]), dev)
+        torus = _torus_ids(st)
+        apart = sum(diffs.values())
+        held = []
+        for which, middle in (("first", False), ("middle", True)):
+            o, d, src = _chunk_rays(cam, tuple(res["size"]), cfg, middle)
+            near = _hold(f"{name} {which} chunk camera", o, d, cfg.epsilon, st, cfg,
+                         {"src_node": src, "src_tri": src}, torus, err, diffs)
+            so, sd, st_min, sact, snode, stri = _shadow_rays(o, d, near, st, cfg)
+            _hold(f"{name} {which} chunk shadow", so, sd, st_min, st, cfg,
+                  dict(active=sact, src_node=snode, src_tri=stri), torus, err, diffs)
+            held.append(f"{which} chunk {o.shape[0]} camera rays {near.hit.float().mean():.3f} "
+                        f"hit, {int(sact.sum())} shadow rays")
+        apart = sum(diffs.values()) - apart
+        if apart:
+            raise AssertionError(f"{name}: {apart} rays apart between the kernel and its plain "
+                                 "version")
+        cuda_intersect.COUNTS.update(saved)
+        w, h = res["size"]
+        lines.append(
+            f"[7 scenes] {name} (stand-in assets) {w}x{h} x {STANDIN_SPP} spp: first render "
+            f"{res['secs']:.3f} s ({res['Mrays/s']:.3f} Mrays/s primary; scene build, "
+            f"lowering, capture and PNG included), {res['graphs']} graphs, {res['replays']} "
+            f"replays; sweep launches nearest {res['launches']['nearest']} any-hit "
+            f"{res['launches']['any_hit']}; dropped_w {res['dropped_w']:.3g}; linear image "
+            f"finite {finite}; kernel against plain version: {'; '.join(held)}, {apart} rays "
+            f"apart")
+        print(lines[-1], flush=True)
+        if res["launches"]["nearest"] == 0 or res["launches"]["any_hit"] == 0:
+            raise AssertionError(f"{name}: the render launched no sweep kernel: {res}")
+
+    old = os.environ.get("PORTRAYER_ASSETS")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_standins(tmp, seed=STANDIN_SEED)
+        os.environ["PORTRAYER_ASSETS"] = tmp
+        try:
+            _sync(dev)
+            cuda_intersect.reset_counts()
+            render_all(names, os.path.join(OUT_DIR, "scenes"), samples=STANDIN_SPP,
+                       accel="cuda", device=dev, on_scene=check)
+            _sync(dev)
+            counts = dict(cuda_intersect.COUNTS)
+        finally:
+            if old is None:
+                os.environ.pop("PORTRAYER_ASSETS")
+            else:
+                os.environ["PORTRAYER_ASSETS"] = old
+    if len(lines) != len(names) or counts["plain_on_cuda"]:
+        raise AssertionError(f"stand-in scenes: {len(lines)} of {len(names)} rendered, "
+                             f"counts {counts}")
+    path_counts["stand-in scenes"] = counts
+    print(f"[7 scenes] {len(names)} scene programs on stand-in assets in "
+          f"{time.perf_counter() - t0:.3f} s; launches nearest {counts['nearest']} any-hit "
+          f"{counts['any_hit']}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -1648,6 +1770,7 @@ def main():
     phase_gradients(dev, path_counts, err, diffs)
     phase_multi_device(dev, path_counts, err, diffs)
     phase_checks(dev)
+    phase_scenes(dev, path_counts, err, diffs)
     phase_device_times(timing, RenderConfig(device=dev))
 
     kernels = []

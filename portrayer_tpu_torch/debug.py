@@ -69,9 +69,20 @@ class FloatCheck:
             raise FloatingPointError(msg)
 
 
+_aten = torch.ops.aten
+# Ops whose output is memory they did not initialise: its contents are
+# whatever the allocator held before, not a result.
+_ALLOCATIONS = {_aten.empty, _aten.empty_strided, _aten.empty_like, _aten.new_empty,
+                _aten.new_empty_strided}
+# In-place ops that overwrite all of `self`: what it held before is not an
+# input.
+_OVERWRITES = {_aten.fill_, _aten.zero_, _aten.copy_}
+
+
 class _NanMode(TorchDispatchMode):
     """Checks every op's floating outputs for a NaN (one host sync per op
-    on the card: a debug mode) and records the first op per FloatCheck."""
+    on the card: a debug mode) and records the first op per FloatCheck.
+    An in-place op's `self` is judged before the op writes it."""
 
     def __init__(self, check: FloatCheck):
         super().__init__()
@@ -79,10 +90,19 @@ class _NanMode(TorchDispatchMode):
         self.met = None  # (op, frame) of the first op that met a NaN
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        packet = func.overloadpacket
+        if packet in _ALLOCATIONS:
+            return func(*args, **kwargs)
+        inputs = (args, kwargs)
+        self_nan = False
+        if func._schema.name.endswith("_") and args:
+            inputs = (args[1:], kwargs)
+            self_nan = packet not in _OVERWRITES and _has_nan(args[0])
+        out = func(*args, **kwargs)
         if self.check.made_here or not any(_has_nan(x) for x in tree_leaves(out)):
             return out
-        if not any(_has_nan(x) for x in tree_leaves((args, kwargs))):
+        if not (self_nan or any(_has_nan(x) for x in tree_leaves(inputs))):
             self.check.op, self.check.frame, self.check.made_here = (
                 str(func), _port_frame(), True)
         elif self.met is None:

@@ -433,8 +433,9 @@ def occluded(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
 def _vec(v, like):
     """The constant vector v on like's device, filled there: a tensor made
     from host data would be a copy from the host, which a captured CUDA
-    graph cannot hold."""
-    out = torch.empty((len(v),), dtype=like.dtype, device=like.device)
+    graph cannot hold.  Zeros first, then each element: nothing reads the
+    allocator's leftovers."""
+    out = torch.zeros((len(v),), dtype=like.dtype, device=like.device)
     for i, x in enumerate(v):
         out[i].fill_(x)
     return out

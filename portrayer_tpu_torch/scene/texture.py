@@ -11,25 +11,16 @@
   (src/texture.rs:192-221).
 
 Images come from a ``data=`` array ([H, W, 3] uint8, or floats in [0, 1])
-or from a PNG file, read by ``image_io``: the port has no JPEG decoder.
+or from a PNG or baseline JPEG file, read by ``image_io.read_image``.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Optional
 
 import numpy as np
 
-from ..image_io import read_png
-
-
-def _load_image_rgb(path) -> np.ndarray:
-    suffix = os.path.splitext(os.fspath(path))[1]
-    if suffix.lower() != ".png":
-        raise ValueError(f"{path}: the port reads PNG images only, not {suffix!r}; "
-                         "convert it to PNG or pass the texels as data=")
-    return read_png(path)
+from ..image_io import read_image
 
 
 def _as_u8(data: np.ndarray) -> np.ndarray:
@@ -44,7 +35,7 @@ class ImageTexture:
 
     def __init__(self, path=None, *, data: Optional[np.ndarray] = None):
         if data is None:
-            data = _load_image_rgb(path)
+            data = read_image(path)
         self.raw = _as_u8(data)  # [H, W, 3] sRGB-encoded uint8
         self.path = path
 
@@ -64,7 +55,7 @@ class NormalMap:
 
     def __init__(self, path=None, *, data: Optional[np.ndarray] = None):
         if data is None:
-            data = _load_image_rgb(path)
+            data = read_image(path)
         self.raw = _as_u8(data)
         self.path = path
 

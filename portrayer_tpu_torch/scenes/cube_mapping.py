@@ -1,0 +1,65 @@
+"""examples/cube-mapping.rs (``scenes/cube_mapping.py``) (earth_cube.png substituted — see
+texture_mapping)."""
+
+from .. import (
+    Scene, SceneNode, Geometry, Cube, Plane, Material, Light,
+    CameraSettings, Texture, ImageTexture,
+)
+from . import SceneSpec
+from .common import sky_background, deg, asset
+from .texture_mapping import _earth_cubemap
+
+
+def build() -> SceneSpec:
+    mat_mirror = Material(
+        diffuse=(0, 0, 0), specular=(0.6, 0.6, 0.6),
+        shininess=1000.0, reflectivity=1.0,
+    )
+    mat_wood = Material(diffuse=(0.545, 0.353, 0.169), specular=(0.5, 0.7, 0.5), shininess=25.0)
+    earth = Texture(ImageTexture(asset("earth.jpg")))
+    mat_tex = Material(
+        diffuse=(0.506, 0.78, 0.518), specular=(0.5, 0.5, 0.5), shininess=25.0,
+        texture=earth,
+    )
+    mat_tex_cube = Material(
+        diffuse=(0.506, 0.78, 0.518), specular=(0.5, 0.5, 0.5), shininess=25.0,
+        texture=Texture(_earth_cubemap()),
+    )
+
+    mirror = (
+        SceneNode(Geometry(Cube(), mat_wood))
+        .scaled((9.0, 0.5, 6.0)).rotated_x(deg(10.0))
+        .with_child(
+            SceneNode(Geometry(Cube(), mat_mirror))
+            .scaled((8.1 / 9.0, 0.05 / 0.5, 5.4 / 6.0))
+            .translated((0.0, 0.27 / 0.5, 0.0))
+        )
+    )
+
+    scene = Scene(
+        root=SceneNode([
+            mirror,
+            SceneNode(Geometry(Plane(), mat_tex)).scaled((8.0, 1.0, 2.0))
+                .rotated_x(deg(90.0)).translated((0.0, 2.0, -2.0)),
+            SceneNode(Geometry(Cube(), mat_tex_cube)).scaled(1.5)
+                .translated((-3.75, 2.0, 0.0)),
+            SceneNode(Geometry(Cube(), mat_tex_cube)).scaled(1.5)
+                .rotated_y(deg(-90.0)).translated((-1.25, 2.0, 0.0)),
+            SceneNode(Geometry(Cube(), mat_tex_cube)).scaled(1.5)
+                .rotated_y(deg(180.0)).translated((1.25, 2.0, 0.0)),
+            SceneNode(Geometry(Cube(), mat_tex_cube)).scaled(1.5)
+                .rotated_y(deg(-270.0)).translated((3.75, 2.0, 0.0)),
+        ]),
+        lights=[
+            Light(position=(-6.0, 5.0, 4.0), color=(0.5, 0.5, 0.5)),
+            Light(position=(6.0, 5.0, 4.0), color=(0.5, 0.5, 0.5)),
+            Light(position=(0.0, 1.0, -4.0), color=(0.5, 0.5, 0.5)),
+        ],
+        ambient=(0.3, 0.3, 0.3),
+    )
+    cam = CameraSettings(
+        eye=(0.0, 10.15667, 11.579666), center=(0.0, -5.913023, -7.571445),
+        up=(0.0, 1.0, 0.0), fovy=deg(25.0),
+    )
+    return SceneSpec(scene=scene, camera=cam, size=(910, 512),
+                     background=sky_background, name="cube-mapping")

@@ -20,6 +20,29 @@ def jax_arrays(st):
     return arrays, meta
 
 
+def assert_tables_equal(js, ts):
+    """The JAX package's SceneTables `js` and the port's `ts` are equal
+    array for array (shapes, dtypes, values), the fused node records and
+    the scene's flags included."""
+    from portrayer_tpu.scene.flatten import node_record as jax_node_record
+
+    for f in TABLE_FIELDS:
+        a, b = np.asarray(getattr(js, f)), getattr(ts, f).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for f in PACKED_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(js.packed, f)),
+                                      getattr(ts.packed, f).numpy(), err_msg=f)
+    assert ts.groups == js.groups
+    assert ts.packed.kind_ranges == js.packed.kind_ranges
+    assert ts.packed.n_chunks == js.packed.n_chunks
+    for f in ("n_lights", "area_flags", "any_reflective", "any_refractive", "any_glossy",
+              "any_image_tex", "any_normal_map"):
+        assert getattr(ts, f) == getattr(js, f), f
+    assert len(ts.fn_textures) == len(js.fn_textures)
+    np.testing.assert_array_equal(np.asarray(jax_node_record(js)), ts.rec.numpy())
+
+
 # A ray that re-hits the node it left does so near-tangentially, just past
 # the self-eps raise: the root is ill-conditioned there, and the JAX
 # package's own flat sweep and Pallas kernel differ by up to 2e-3 relative

@@ -15,6 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import scenes
 import portrayer_tpu as P
@@ -23,6 +24,7 @@ from portrayer_tpu import reporter as jreporter
 import portrayer_tpu_torch as T
 from portrayer_tpu_torch import debug, reporter, rng, scenes as tscenes
 from portrayer_tpu_torch.camera import Camera
+from portrayer_tpu_torch.ops.intersect import _vec
 
 from _torch_jax import glass_sphere, jax_arrays
 
@@ -59,21 +61,104 @@ def test_checked_trace_clean_on_simple_and_matches_jax():
     np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["big-scene", "torus-showcase", "glossy-reflection",
-                                  "four-shapes"])
-def test_checked_trace_clean_on_the_port_scenes(name):
-    """No op of the port's trace makes a NaN on these scenes either."""
+def _checked_scene_tile(name):
+    """checked_trace (flat sweep) on a 16x16 grid of camera rays spread
+    over the frame of the port's scene `name`: (FloatCheck, acc)."""
     spec = tscenes.load(name)
     ys, xs = np.mgrid[0:TILE, 0:TILE]
     o, d = Camera(spec.camera, (TILE, TILE), "cpu").rays_at(
         torch.tensor(xs.reshape(-1) * spec.size[0] / TILE, dtype=torch.float32) + 0.5,
         torch.tensor(ys.reshape(-1) * spec.size[1] / TILE, dtype=torch.float32) + 0.5)
     n = TILE * TILE
-    err, acc = debug.checked_trace(rng.PRNGKey(1), o, d, torch.arange(n, dtype=torch.int32),
-                                   torch.zeros((n, 3)), n, T.flatten_scene(spec.scene, "cpu"),
-                                   T.RenderConfig(device="cpu", accel="flat"))
+    return debug.checked_trace(rng.PRNGKey(1), o, d, torch.arange(n, dtype=torch.int32),
+                               torch.zeros((n, 3)), n, T.flatten_scene(spec.scene, "cpu"),
+                               T.RenderConfig(device="cpu", accel="flat"))
+
+
+@pytest.mark.parametrize("name", ["big-scene", "torus-showcase", "glossy-reflection",
+                                  "four-shapes"])
+def test_checked_trace_clean_on_the_port_scenes(name):
+    """No op of the port's trace makes a NaN on these scenes either."""
+    err, acc = _checked_scene_tile(name)
     assert err.get() is None, err.get()
     assert torch.isfinite(acc).all()
+
+
+class _NanAllocations(TorchDispatchMode):
+    """Hands out every uninitialised allocation filled with NaN, as an
+    allocator may when its free memory last held NaNs."""
+
+    def __init__(self):
+        super().__init__()
+        self.poisoned = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in (torch.ops.aten.empty, torch.ops.aten.empty_strided,
+                                   torch.ops.aten.empty_like, torch.ops.aten.new_empty):
+            if out.is_floating_point():
+                out.fill_(float("nan"))
+                self.poisoned += 1
+        return out
+
+
+def _free_nans():
+    """Leave NaNs in the allocator's free memory."""
+    junk = [torch.full((1024,), float("nan")) for _ in range(256)]
+    junk += [torch.full((3,), float("nan")) for _ in range(64)]
+    del junk
+
+
+def test_checked_trace_ignores_nans_left_in_freed_memory():
+    """What an allocation holds before anything writes it is no NaN that a
+    computation made: neither _vec's constants after NaN tensors were freed
+    nor a trace whose allocations all come back full of NaN report one."""
+    like = torch.zeros(1)
+    reports = 0
+    for _ in range(200):
+        _free_nans()
+        check = debug.FloatCheck()
+        with debug._NanMode(check):
+            v = _vec((0.2, 0.4, 0.6), like)
+        reports += check.op is not None
+        assert torch.equal(v, torch.tensor([0.2, 0.4, 0.6]))
+    assert reports == 0
+    # The mode below the check hands the check NaN-filled memory.
+    with _NanAllocations() as poison:
+        check = debug.FloatCheck()
+        with debug._NanMode(check):
+            assert torch.isnan(torch.empty(3)).all()
+            v = _vec((0.2, 0.4, 0.6), like)
+        assert check.get() is None, check.get()
+        assert torch.equal(v, torch.tensor([0.2, 0.4, 0.6]))
+        _free_nans()
+        err, acc = _checked_scene_tile("glossy-reflection")
+    assert poison.poisoned >= 1
+    assert err.get() is None, err.get()
+    assert torch.isfinite(acc).all()
+
+
+def test_nan_mode_judges_an_in_place_op_by_what_it_read():
+    """An op that overwrites all of self (fill_, zero_, copy_) met no NaN
+    that was only in the memory it overwrote; any other in-place op is
+    judged by self as it was before the op."""
+    nan = float("nan")
+    for op in (lambda x: x.fill_(nan), lambda x: x.copy_(torch.tensor([0.0, nan]))):
+        check = debug.FloatCheck()
+        x = torch.full((2,), nan)
+        with debug._NanMode(check):
+            op(x)
+        assert check.made_here == (check.op == "aten.fill_.Scalar"), check.get()
+    mode = debug._NanMode(check := debug.FloatCheck())
+    x, y = torch.tensor([float("inf")]), torch.full((1,), nan)
+    with mode:
+        x.add_(float("-inf"))
+        y.add_(1.0)
+    assert check.made_here and check.op == "aten.add_.Tensor", check.get()
+    mode = debug._NanMode(check := debug.FloatCheck())
+    with mode:
+        y.mul_(2.0)
+    assert check.op is None and mode.met[0] == "aten.mul_.Tensor"
 
 
 def test_checked_trace_reports_a_nan_in_a_table_with_its_op():

@@ -37,9 +37,8 @@ from portrayer_tpu_torch.ops import intersect as tx
 from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_cuda
 from portrayer_tpu_torch.scene.flatten import MESH, PACKED_KIND_NAMES, tables_from_numpy
 
-from _torch_jax import jax_arrays, assert_gates, INLINE
+from _torch_jax import jax_arrays, assert_gates, assert_tables_equal, INLINE
 from test_torch_render import GOLDEN, assert_self_golden_rule
-from test_torch_tables import _assert_tables_equal
 
 INF = float("inf")
 J_FLAT = P.RenderConfig(accel="flat")
@@ -124,8 +123,8 @@ def test_procedural_meshes_lowering_equals_flatten_scene():
     tables_from_numpy."""
     js = P.flatten_scene(_scene(P, "procedural-meshes")[0], dtype=jnp.float32)
     ts = T.flatten_scene(_scene(T, "procedural-meshes")[0], "cpu")
-    _assert_tables_equal(js, ts)
-    _assert_tables_equal(js, tables_from_numpy(*jax_arrays(js), "cpu"))
+    assert_tables_equal(js, ts)
+    assert_tables_equal(js, tables_from_numpy(*jax_arrays(js), "cpu"))
     assert ts.n_pairs == 769 and ts.tri_a.shape[0] == 320 + 128 + 1
     assert [PACKED_KIND_NAMES[k] for k, _, _ in ts.packed.kind_ranges] == ["tri_w"]
     assert ts.packed.n_chunks == 7

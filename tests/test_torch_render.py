@@ -213,22 +213,26 @@ def test_png_io_against_pil():
 
 
 def test_port_imports_no_jax():
-    """`import portrayer_tpu_torch`, a CPU render of each of its scenes and
-    of the textured and area-lit stand-ins of tests/_torch_jax.py (which
+    """`import portrayer_tpu_torch`, a CPU render of each of its 29 scenes
+    through its run-all-examples runner (on the stand-in assets of
+    tests/_torch_assets.py, JPEG textures among them) and of the textured
+    and area-lit stand-ins of tests/_torch_jax.py (both of which
     chip_smoke.py imports on the card), a gradient through trace, and the
     parallel, debug, reporter and beam modules (a one-rank train_step
     through the beam sweep, a checked trace) leave JAX, flax, PIL and the
     JAX package out of sys.modules."""
     code = (
-        "import sys\n"
-        "import portrayer_tpu_torch as T\n"
-        "from portrayer_tpu_torch import scenes\n"
-        "assert len(scenes.names()) == 7, scenes.names()\n"
-        "for name in scenes.names():\n"
-        "    s = scenes.load(name)\n"
-        "    T.render_u8(s.scene, s.camera, (12, 8), s.background,\n"
-        "                T.RenderConfig(device='cpu', samples=1))\n"
+        "import os, sys, tempfile\n"
         "sys.path.insert(0, 'tests')\n"
+        "from _torch_assets import write_standins\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "write_standins(tmp, seed=0)\n"
+        "os.environ['PORTRAYER_ASSETS'] = tmp\n"
+        "import portrayer_tpu_torch as T\n"
+        "from portrayer_tpu_torch import scenes, run_all_examples\n"
+        "assert len(scenes.names()) == 29, scenes.names()\n"
+        "run_all_examples.render_all(scenes.names(), os.path.join(tmp, 'out'), samples=1,\n"
+        "                            scale=0.01, device='cpu')\n"
         "from _torch_jax import INLINE\n"
         "for name in ('normal-mapping-numpy', 'soft-shadows-icosphere'):\n"
         "    scene, cam, _ = INLINE[name](T)\n"

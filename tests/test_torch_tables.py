@@ -10,32 +10,13 @@ import torch
 
 import scenes
 import portrayer_tpu as P
-from portrayer_tpu.scene.flatten import node_record as jax_node_record
 import portrayer_tpu_torch as T
 from portrayer_tpu_torch import scenes as tscenes
 from portrayer_tpu_torch.scene.flatten import (
-    TABLE_FIELDS, PACKED_FIELDS, PACKED_KIND_NAMES, MESH, CUBE, tables_from_numpy,
+    TABLE_FIELDS, PACKED_KIND_NAMES, MESH, CUBE, tables_from_numpy,
 )
 
-from _torch_jax import INLINE, checker, jax_arrays
-
-
-def _assert_tables_equal(js, ts):
-    for f in TABLE_FIELDS:
-        a, b = np.asarray(getattr(js, f)), getattr(ts, f).numpy()
-        assert a.shape == b.shape and a.dtype == b.dtype, f
-        np.testing.assert_array_equal(a, b, err_msg=f)
-    for f in PACKED_FIELDS:
-        np.testing.assert_array_equal(np.asarray(getattr(js.packed, f)),
-                                      getattr(ts.packed, f).numpy(), err_msg=f)
-    assert ts.groups == js.groups
-    assert ts.packed.kind_ranges == js.packed.kind_ranges
-    assert ts.packed.n_chunks == js.packed.n_chunks
-    for f in ("n_lights", "area_flags", "any_reflective", "any_refractive", "any_glossy",
-              "any_image_tex", "any_normal_map"):
-        assert getattr(ts, f) == getattr(js, f), f
-    assert len(ts.fn_textures) == len(js.fn_textures)
-    np.testing.assert_array_equal(np.asarray(jax_node_record(js)), ts.rec.numpy())
+from _torch_jax import INLINE, assert_tables_equal, checker, jax_arrays
 
 
 NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
@@ -46,7 +27,7 @@ NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitiv
 def test_lowering_equals_flatten_scene(name):
     js = P.flatten_scene(scenes.load(name).scene, dtype=jnp.float32)
     ts = T.flatten_scene(tscenes.load(name).scene, "cpu")
-    _assert_tables_equal(js, ts)
+    assert_tables_equal(js, ts)
 
 
 def test_big_scene_kind_runs():
@@ -62,7 +43,7 @@ def test_tables_from_numpy_round_trip(name):
     js = P.flatten_scene(scenes.load(name).scene, dtype=jnp.float32)
     arrays, meta = jax_arrays(js)
     ts = tables_from_numpy(arrays, meta, "cpu")
-    _assert_tables_equal(js, ts)
+    assert_tables_equal(js, ts)
     assert ts.device == torch.device("cpu")
 
 
@@ -91,7 +72,7 @@ def test_unported_kinds_raise(scene, kind):
     kind."""
     tscene, jscene = scene
     ts = T.flatten_scene(tscene, "cpu")
-    _assert_tables_equal(P.flatten_scene(jscene, dtype=jnp.float32), ts)
+    assert_tables_equal(P.flatten_scene(jscene, dtype=jnp.float32), ts)
     kinds = [PACKED_KIND_NAMES[k] for k, _, _ in ts.packed.kind_ranges]
     assert kinds == [kind]
 
@@ -102,7 +83,7 @@ def test_unported_tri_w_raises_through_bridge():
     pair lists and the tri_w chunk included."""
     js = P.flatten_scene(scenes.load("single-triangle").scene, dtype=jnp.float32)
     ts = tables_from_numpy(*jax_arrays(js), "cpu")
-    _assert_tables_equal(js, ts)
+    assert_tables_equal(js, ts)
     assert [PACKED_KIND_NAMES[k] for k, _, _ in ts.packed.kind_ranges] == ["tri_w"]
     assert ts.n_pairs == 1 and ts.mesh_range.tolist() == [[0, 1]]
 
@@ -114,7 +95,7 @@ def test_textures_lower_as_jax():
     its atlas however many materials share it, and the uv transform."""
     ts = T.flatten_scene(INLINE["normal-mapping-numpy"](T)[0], "cpu")
     js = P.flatten_scene(INLINE["normal-mapping-numpy"](P)[0], dtype=jnp.float32)
-    _assert_tables_equal(js, ts)
+    assert_tables_equal(js, ts)
     assert ts.mat_tex_id.tolist() == js.mat_tex_id.tolist()
     assert sorted(ts.mat_tex_id.tolist()) == [-2, 0, 0, 1, 1, 2, 2]
     assert sorted(ts.mat_normal_map_id.tolist()) == [-1, -1, -1, -1, 0, 1, 2]
@@ -177,7 +158,7 @@ def test_bounding_volume_scene_lowers_as_jax():
     before = T.flatten_scene(scene, "cpu")
     boxed = bounding_volume_scene(scene)
     ts = T.flatten_scene(boxed, "cpu")
-    _assert_tables_equal(P.flatten_scene(jax_bv(_bv_scene(P)[0]), dtype=jnp.float32), ts)
+    assert_tables_equal(P.flatten_scene(jax_bv(_bv_scene(P)[0]), dtype=jnp.float32), ts)
     # Left as a triangle: the standalone one, a pair of its own.
     counts = dict((k, n) for k, _, n in ts.groups)
     assert ts.n_pairs == 1 and counts[MESH] == 1 and counts[CUBE] == 5
@@ -185,8 +166,8 @@ def test_bounding_volume_scene_lowers_as_jax():
     assert a.children[0] is b.children[0]
     flat_box = a.children[0].children[0].trans
     assert flat_box[1, 1] == T.EPSILON
-    _assert_tables_equal(P.flatten_scene(_bv_scene(P)[0], dtype=jnp.float32), before)
-    _assert_tables_equal(P.flatten_scene(_bv_scene(P)[0], dtype=jnp.float32),
+    assert_tables_equal(P.flatten_scene(_bv_scene(P)[0], dtype=jnp.float32), before)
+    assert_tables_equal(P.flatten_scene(_bv_scene(P)[0], dtype=jnp.float32),
                          T.flatten_scene(scene, "cpu"))
 
 

@@ -138,18 +138,25 @@ def test_save_as_writes_png_only(tmp_path, name, writes):
 # ---------------------------------------------------------------------------
 
 def test_textures_from_png_paths_and_arrays(tmp_path):
-    """A PNG path reads what PIL reads (an RGBA file here); a JPG path is
-    refused with a clear error; float data goes through the JAX package's
-    _as_u8; identity hashing, as the JAX package's."""
+    """A PNG path reads what PIL reads (an RGBA file here), and so does a
+    JPEG path; a missing file raises naming it, a file of another kind
+    names its path; float data goes through the JAX package's _as_u8;
+    identity hashing, as the JAX package's."""
     data, ref = _pil_png("RGBA", seed=4)
     path = tmp_path / "tex.png"
     path.write_bytes(data)
+    jpg = tmp_path / "tex.jpg"
+    PILImage.fromarray(colour_image(4, 21, 37)).save(jpg, quality=80)
+    jref = np.asarray(PILImage.open(jpg).convert("RGB"))
+    (tmp_path / "tex.gif").write_bytes(b"GIF89a" + bytes(32))
     for cls in (ttexture.ImageTexture, ttexture.NormalMap):
         np.testing.assert_array_equal(cls(str(path)).raw, ref)
-        with pytest.raises(ValueError, match="PNG"):
-            cls(str(tmp_path / "tex.jpg"))
-    with pytest.raises(ValueError, match="PNG"):
-        T.Texture.open(str(tmp_path / "tex.JPG"))
+        np.testing.assert_array_equal(cls(str(jpg)).raw, jref)
+        with pytest.raises(FileNotFoundError, match="missing.jpg"):
+            cls(str(tmp_path / "missing.jpg"))
+        with pytest.raises(ValueError, match="tex.gif: neither a PNG nor a JPEG"):
+            cls(str(tmp_path / "tex.gif"))
+    np.testing.assert_array_equal(T.Texture.open(str(jpg)).image.raw, jref)
     f = np.random.default_rng(2).uniform(-0.1, 1.1, (4, 6, 3))
     np.testing.assert_array_equal(T.ImageTexture(data=f).raw, jtexture._as_u8(f))
     a, b = T.ImageTexture(data=ref), T.ImageTexture(data=ref)
