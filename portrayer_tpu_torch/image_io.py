@@ -1,4 +1,5 @@
-"""8-bit RGB PNG writer and reader on the standard library's zlib.
+"""8-bit RGB PNG writer and reader on the standard library's zlib, and a
+baseline JPEG reader in numpy.
 
 The writer stores every row with filter type 0.  The reader accepts
 non-interlaced 8-bit greyscale, greyscale with alpha, RGB, RGBA and
@@ -6,6 +7,8 @@ palette PNGs, undoes all five filter types (None, Sub, Up, Average,
 Paeth), which other encoders choose per row, and returns RGB as PIL's
 ``convert("RGB")`` does: grey replicated, the palette expanded, alpha
 dropped.  Other bit depths and interlaced files raise ``ValueError``.
+``decode_jpeg`` (below) gives the texels PIL gives a JPEG file;
+``read_image`` reads either kind, told apart by the file's first bytes.
 """
 
 from __future__ import annotations
@@ -148,6 +151,11 @@ _SOF_KINDS = {
     0xCD: "arithmetic-coded differential sequential",
     0xCE: "arithmetic-coded differential progressive",
     0xCF: "arithmetic-coded differential lossless"}
+
+# A marker that ends a scan's entropy-coded bytes (not a stuffed 0xFF00,
+# not a restart marker RSTn), and a restart marker.
+_MARKER = re.compile(rb"\xff[^\x00\xd0-\xd7]")
+_RESTART = re.compile(rb"\xff[\xd0-\xd7]")
 
 # jidctint.c's post-IDCT range limit: a descaled value v becomes
 # _IDCT_LIMIT[v & 1023] (v + 128 clamped to 0..255 for |v| < 512).
@@ -401,9 +409,9 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
                 if c["q"] is None:
                     c["q"] = qt[c["tq"]]
                 scan.append((comps.index(c), dht[(0, tables >> 4)], dht[(1, tables & 15)]))
-            end = re.compile(rb"\xff[^\x00\xd0-\xd7]").search(data, pos)
+            end = _MARKER.search(data, pos)
             end = end.start() if end else len(data)
-            pos = _decode_scan(data[pos:end], scan, comps, width, height, restart, coef, name)
+            _decode_scan(data[pos:end], scan, comps, width, height, restart, coef, name)
             pos = end
     if coef is None:
         raise ValueError(f"{name}: JPEG without a frame header")
@@ -438,7 +446,7 @@ def _decode_scan(entropy, scan, comps, width, height, restart, coef, name):
         if len(scan) > 1 else list(scan)
     n_mcus = len(bases)
     per = restart or n_mcus
-    segments = re.split(rb"\xff[\xd0-\xd7]", entropy)
+    segments = _RESTART.split(entropy)
     idx, val = [], []
     for i, start in enumerate(range(0, n_mcus, per)):
         if i >= len(segments):
@@ -448,7 +456,6 @@ def _decode_scan(entropy, scan, comps, width, height, restart, coef, name):
         _decode_segment(win, bases[start:start + per], slots, pred,
                         min(per, n_mcus - start), idx, val, name)
     coef[np.asarray(idx, np.int64)] = np.asarray(val, np.int32)
-    return len(entropy)
 
 
 def _reconstruct(coef, comps, width, height, adobe, jfif):
