@@ -9,6 +9,7 @@ fixed-point colour conversion.
 
 import io
 import os
+import struct
 import time
 
 import numpy as np
@@ -19,7 +20,9 @@ from portrayer_tpu_torch import image_io
 
 from _torch_assets import JPEG_FIXTURES
 
-SIZES = [(37, 23), (70, 45), (1, 1), (9, 2)]
+# Sizes not multiples of 16; at 4:2:0 and 4:2:2 the chroma of the last
+# two is 2 and 5 samples wide (box and fancy upsampling), of (1, 1) 1.
+SIZES = [(37, 23), (70, 45), (1, 1), (4, 3), (9, 2)]
 SUBSAMPLING = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "grey": None}
 
 
@@ -67,6 +70,43 @@ def test_restart_markers_and_optimized_tables(kw):
     if "optimize" not in kw:
         assert b"\xff\xdd" in data and b"\xff\xd0" in data   # DRI and RST0 present
     np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data))
+
+
+def _as_sampling_1x2(data: bytes, width: int, height: int) -> bytes:
+    """A 4:2:2 file (luma sampled 2x1) made 4:4:0 (luma 1x2), which PIL
+    does not write: its MCUs hold the same blocks, so with a frame of
+    `width` x `height` that has as many MCUs it is a valid file (of
+    another picture), which libjpeg upsamples with its 1x2 rule."""
+    i = data.index(b"\xff\xc0")
+    sof = bytearray(data[i:i + 19])
+    assert sof[11] == 0x21, sof.hex()
+    struct.pack_into(">HH", sof, 5, height, width)
+    sof[11] = 0x12
+    return data[:i] + bytes(sof) + data[i + 19:]
+
+
+@pytest.mark.parametrize("quality", [30, 95])
+@pytest.mark.parametrize("size, size_1x2", [((40, 20), (21, 37)), ((48, 24), (17, 33)),
+                                            ((16, 8), (1, 9))],
+                         ids=["21x37", "17x33", "1x9"])
+def test_1x2_sampling_equals_pil(quality, size, size_1x2):
+    data = _as_sampling_1x2(_encode(_image(*size, seed=size[0] + quality), quality=quality,
+                                    subsampling=1), *size_1x2)
+    got = image_io.decode_jpeg(data)
+    assert got.shape == (size_1x2[1], size_1x2[0], 3)
+    np.testing.assert_array_equal(got, _pil(data))
+
+
+def test_extended_sequential_and_wider_sampling():
+    """A baseline file marked SOF1 (extended sequential, which it also
+    is) reads as PIL reads it; 4:1:1 (luma sampled 4x1) raises."""
+    base = _encode(_image(37, 23, seed=6), quality=75, subsampling=2)
+    sof1 = _with_sof(base, 0xC1)
+    np.testing.assert_array_equal(image_io.decode_jpeg(sof1), _pil(sof1))
+    i = base.index(b"\xff\xc0") + 11   # luma's sampling factors, 2x2 here
+    assert base[i] == 0x22
+    with pytest.raises(ValueError, match="sampling factors 4x1"):
+        image_io.decode_jpeg(base[:i] + b"\x41" + base[i + 1:])
 
 
 @pytest.mark.parametrize("name", ["colour_420.jpg", "normal_444.jpg", "grey.jpg"])
