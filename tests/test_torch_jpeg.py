@@ -140,6 +140,18 @@ def test_other_kinds_raise_naming_the_file_and_marker(tmp_path, marker, kind):
         image_io.read_image(path)
 
 
+def test_a_cut_file_raises_as_pil_does():
+    """PIL refuses a file cut before its EOI marker (a truncated image);
+    so does the reader."""
+    data = _encode(_image(37, 23, seed=7), quality=75, subsampling=2)
+    assert data.endswith(b"\xff\xd9")
+    for cut in (data[:-2], data[:data.index(b"\xff\xda")]):
+        with pytest.raises(OSError):
+            _pil(cut)
+        with pytest.raises(ValueError, match="ends before its EOI marker"):
+            image_io.decode_jpeg(cut)
+
+
 def test_read_image_goes_by_content_not_name(tmp_path):
     rgb = np.random.default_rng(3).integers(0, 256, (5, 7, 3), dtype=np.uint8)
     (tmp_path / "png.jpg").write_bytes(image_io.encode_png(rgb))
