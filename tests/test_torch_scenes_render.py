@@ -17,7 +17,8 @@ Tolerances, with their reasons:
   t-range start: a shadow ray that leaves a mesh triangle and meets the
   pair's other triangle is occluded for one and not the other, and its
   sample moves the pixel by a large step (on the robot's tile one shadow
-  ray of 2,048 samples, t = 0.0156 past its source, so in float64 too).
+  ray of its 2,048 samples meets its source pair at t = 0.0156 by the
+  flat formulas and not by the kernel's, in float64 as in float32).
 Most of this file's time is the JAX package's compile of each render
 program.
 """
