@@ -26,22 +26,26 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    (a call by CUDA events), beside the bound of each launch, on the uniform camera
    rays; the kernel's times on a second set in the render's ray order (the
    middle tile of the middle tile row, as ``render._tile_rays`` builds it)
-   and its shadow rays, held against the plain version too;
+   and its shadow rays, held against the plain version too; then the
+   conditional kernel of ``graphs.switch`` (``csrc/conditional.cu``)
+   against the host pick, for every branch, and both their times;
 3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64),
    single-triangle (160x120) and four-shapes (256x68) against the
    committed self-goldens (on torus-showcase, the pixels of
    TORUS_JIT_PIXELS aside), through the captured render;
 4. the main paths through ``Image.render``, which captures each chunk
-   program as CUDA graphs and replays them, each with the kernel launch
-   counts of its run (counted per replay): big-scene's full 1980x1020
+   program as one CUDA graph (each bounce round's slices its conditional
+   bodies) and replays it, each with the kernel launch counts of its run
+   (counted on the device where the graph runs them): big-scene's full 1980x1020
    frame, torus-showcase at 256x256, glossy-reflection at 910x512,
    procedural-meshes at 960x540, single-triangle at 640x480,
    normal-mapping-numpy and soft-shadows-icosphere at 910x512 and
    four-shapes at 1920x512, all at 16 spp, with live rays per bounce
-   round, host syncs and dropped throughput (from the render's
-   TraceStats, read once a frame); the capture's seconds, graphs and
-   replays; beside it in the same call the render again with the graphs
-   cached and the eager chunk loop (``cuda_graphs=False``), whose linear
+   round, host syncs (0 a captured chunk) and dropped throughput (from
+   the render's TraceStats, read once a frame); the capture's seconds,
+   graphs, bodies and replays; beside it in the same call the render again
+   with the graph cached, whose launches must equal those of the eager
+   chunk loop (``cuda_graphs=False``), and the eager loop, whose linear
    image the captured one must equal within CAPTURED_TOL; then simple at
    256x256, glossy-reflection, procedural-meshes and normal-mapping-numpy
    (240x136) at 4 spp through ``render_linear``, held against the flat
@@ -59,7 +63,8 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    1,048,576 lanes; mat_diffuse and light_color), each with its seconds a
    step (the first with its capture), peak memory with every round
    checkpointed and with bounce-round checkpointing off, sweep launches in
-   forward and backward (none in backward), host reads a step, and the
+   forward (one a mode and live round) and backward (none), host reads a
+   step (0 captured), the capture's seconds, graphs and bodies, and the
    captured gradients of every DIFF_FIELDS table held against the op-by-op
    ones within GRAD_RTOL; one more op-by-op step of each with every sweep
    launch held against the plain version under phase 2's gates (the fit's
@@ -94,15 +99,17 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    folder named by PORTRAYER_ASSETS, each through
    ``portrayer_tpu_torch.run_all_examples.render_all`` at its published
    size, 2 spp, accel="cuda" (the captured chunk program): per scene the
-   first render's seconds and Mrays/s, graphs and replays, sweep launches
-   per mode, dropped_w, its linear image finite, and the kernel against
+   first render's seconds and Mrays/s, graphs, bodies and replays, host
+   syncs (0), sweep launches per mode, dropped_w, its linear image
+   finite, and the kernel against
    its plain version under phase 2's gates on the first chunk of camera
    rays, the middle tile's chunk and their shadow rays (0 rays apart);
 8. the sweep kernel alone on the device (torch.profiler) at each launch
    shape of phase 2; last, so that the profiler cannot weigh on the wall
    times of phases 4 to 7.
 
-The last two lines are a JSON object of per-kernel numbers and the
+The last two lines are a JSON object of per-kernel numbers (the sweep's
+two modes and the conditional kernel) and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
 Nothing here imports JAX.
 """
@@ -120,6 +127,13 @@ OUT_DIR = os.path.join(ROOT, "out")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "self_golden")
 KERNEL_SOURCE = "portrayer_tpu_torch/csrc/sweep.cu"
 TPU_KERNEL = "portrayer_tpu/ops/pallas_intersect.py:159"
+# graphs.switch's conditional kernel, and the JAX package's lax.switch over
+# a bounce round's slices that it replaces (port-internal control flow,
+# not a TPU kernel): its check switches over COND_BRANCHES branches.
+COND_SOURCE = "portrayer_tpu_torch/csrc/conditional.cu"
+COND_REPLACES = "portrayer_tpu/ops/trace.py:431"
+COND_BRANCHES = 4
+COND_ITERS = 200
 FULL_FRAME_SPP = 16
 SIMPLE_SPP = 4
 GLOSSY_LINEAR_SPP = 4
@@ -427,12 +441,14 @@ def phase_card(dev):
           f"cuda {torch.version.cuda} | kernel build {_build.build_info['seconds']:.2f} s",
           flush=True)
     for name, regs, st_bytes, ld_bytes in _build.ptxas_kernels(_build.build_info["ptxas"]):
-        # Mangled sweep_kernel<ANY_HIT, HAS_TORUS>: ...ILb<0|1>ELb<0|1>EE...
-        flags = name[name.index("sweep_kernel") + len("sweep_kernel"):][:12]
-        mode = "any_hit" if flags.startswith("ILb1") else "nearest"
-        torus = "with torus" if "ELb1E" in flags else "no torus"
-        print(f"[1 ptxas] sweep_kernel {mode}, {torus}: {regs} registers, spill stores "
-              f"{st_bytes} B, spill loads {ld_bytes} B", flush=True)
+        if "sweep_kernel" in name:
+            # Mangled sweep_kernel<ANY_HIT, HAS_TORUS>: ...ILb<0|1>ELb<0|1>EE...
+            flags = name[name.index("sweep_kernel") + len("sweep_kernel"):][:12]
+            mode = "any_hit" if flags.startswith("ILb1") else "nearest"
+            torus = "with torus" if "ELb1E" in flags else "no torus"
+            name = f"sweep_kernel {mode}, {torus}"
+        print(f"[1 ptxas] {name}: {regs} registers, spill stores {st_bytes} B, spill loads "
+              f"{ld_bytes} B", flush=True)
     return smi
 
 
@@ -546,6 +562,57 @@ def phase_kernels(dev):
             timing[name] = _time_launches(name, sets, st, cfg)
             timing[name]["launch_sets"] = (sets, st)
     return err, diffs, timing, sorted(branches)
+
+
+def phase_conditional(dev):
+    """graphs.switch's conditional kernel (csrc/conditional.cu) against its
+    plain version, the host pick: a step that clears `out` and switches
+    over COND_BRANCHES branches (the first dead, branch i writes i),
+    captured as one graph and replayed for every sel from 0 to
+    COND_BRANCHES - 1, against the same step op by op (one host read of
+    sel, then the branch) on the same sel; then the time of a replay and
+    of an op-by-op step, each a mean over COND_ITERS with the card
+    synchronised at the end.  Returns the kernel's line fields."""
+    import functools
+    import torch
+    from portrayer_tpu_torch import graphs
+
+    out = torch.zeros((), dtype=torch.int64, device=dev)
+    sel = torch.zeros((), dtype=torch.int64, device=dev)
+    branches = [None] + [functools.partial(out.fill_, i) for i in range(1, COND_BRANCHES)]
+
+    def step():
+        out.fill_(-1)
+        graphs.switch(sel, branches)
+
+    g = graphs.Graph(step, torch.cuda.graph_pool_handle())
+    err = 0
+    for i in range(COND_BRANCHES):
+        sel.fill_(i)
+        g.replay()
+        captured = int(out)
+        step()
+        err = max(err, abs(captured - int(out)))
+        if captured != (i or -1):
+            raise AssertionError(f"conditional: sel {i} ran the branch that writes {captured}")
+
+    def mean_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COND_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / COND_ITERS * 1e3
+
+    ms, plain_ms = mean_ms(g.replay), mean_ms(step)
+    # It reads sel and its count, and writes the count: 24 bytes.
+    bound_ms = 24 / PEAK_BYTES * 1e3
+    print(f"[2 conditional] graphs.switch over {COND_BRANCHES} branches ({g.bodies} bodies): "
+          f"captured against the host pick for every sel, largest difference {err}; a replay "
+          f"{ms:.4f} ms, the op-by-op step {plain_ms:.4f} ms (means of {COND_ITERS}); bound "
+          f"{bound_ms:.3g} ms (bytes)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def phase_device_times(timing, cfg):
@@ -706,11 +773,13 @@ def phase_goldens(dev):
 def _main_path(dev, spec, path_counts):
     """One main path: `spec` (a SceneSpec or a registry name) at its size
     and FULL_FRAME_SPP through Image.render on its tables, which captures
-    the chunk program as CUDA graphs and replays them, with the counts of
-    that run alone; beside it, in this call, the same render again (the
-    graphs cached) and the eager chunk loop (cuda_graphs=False).  The
-    captured linear image is held against the eager one within
-    CAPTURED_TOL."""
+    the chunk program as one CUDA graph (its bounce rounds' slices
+    conditional bodies) and replays it, with the counts of that run alone;
+    beside it, in this call, the same render again (the graph cached) and
+    the eager chunk loop (cuda_graphs=False).  Captured chunks read
+    nothing on the host; the cached render launches the sweep as often as
+    the eager loop, the first as often plus its warm-up; the captured
+    linear image is held against the eager one within CAPTURED_TOL."""
     import dataclasses
     import numpy as np
     from portrayer_tpu_torch import Image, RenderConfig, flatten_scene, render_linear, scenes
@@ -736,7 +805,7 @@ def _main_path(dev, spec, path_counts):
     (prog,) = st.chunk_programs.values()
     graphs = prog.graphs
     replays = sum(g.replays for g in graphs.values())
-    per_replay = {str(k): g.launches for k, g in graphs.items()}
+    bodies = sum(g.bodies for g in graphs.values())
     img.save_as(path)
     if not np.array_equal(read_png(path), img.buffer):
         raise AssertionError(f"{name}: saved PNG does not decode to the rendered bytes")
@@ -747,24 +816,32 @@ def _main_path(dev, spec, path_counts):
     if counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{name}: plain version ran on CUDA tensors: {counts}")
     chunks = len(stats)  # every chunk traces the same number of rays
-    if graphs["head"].replays != chunks:
-        raise AssertionError(f"{name}: {graphs['head'].replays} replays of the chunk's head "
-                             f"graph for {chunks} chunks")
+    if list(graphs) != ["chunk"] or graphs["chunk"].replays != chunks:
+        raise AssertionError(f"{name}: graphs {list(graphs)}, {replays} replays for {chunks} "
+                             f"chunks (one graph, one replay a chunk)")
     live = sum(s.live for s in stats).tolist()
     rounds = sum(n > 0 for s in stats for n in s.live.tolist())
     syncs = sum(s.syncs for s in stats)
-    bounce_rounds = prog.pl.max_depth
-    if bounce_rounds == 0 and syncs != 0 or any(s.syncs > bounce_rounds for s in stats):
-        raise AssertionError(f"{name}: {syncs} host syncs over {chunks} chunks "
-                             f"({bounce_rounds} bounce rounds a chunk at most)")
+    if syncs != 0:
+        raise AssertionError(f"{name}: {syncs} host syncs over {chunks} captured chunks")
     dropped_w = sum(s.dropped_w for s in stats) / chunks
     if dropped_w > 1e-3:
         raise AssertionError(f"{name}: queue overflow dropped {dropped_w:.4%} of the throughput")
     again = Image(None, w, h)
-    _, again_secs, _, _ = _timed(dev, lambda: again.render(*args, cfg))
-    eager_img = Image(None, w, h)
+    _, again_secs, again_counts, _ = _timed(dev, lambda: again.render(*args, cfg))
+    eager_img, eager_stats = Image(None, w, h), []
     _, eager_secs, eager_counts, eager_peak = _timed(
-        dev, lambda: eager_img.render(*args, eager))
+        dev, lambda: eager_img.render(*args, eager, stats=eager_stats))
+    eager_syncs = sum(s.syncs for s in eager_stats)
+    for mode in ("nearest", "any_hit"):
+        if (again_counts[mode] != eager_counts[mode]
+                or counts[mode] != eager_counts[mode] + prog.warm_launches[mode]):
+            raise AssertionError(
+                f"{name}: {mode} launches captured {counts[mode]} (its warm-up "
+                f"{prog.warm_launches[mode]}), cached {again_counts[mode]}, eager "
+                f"{eager_counts[mode]}")
+    if [s.live.tolist() for s in eager_stats] != [s.live.tolist() for s in stats]:
+        raise AssertionError(f"{name}: live rays per round differ from the eager loop's")
     lin = render_linear(st, spec.camera, (w, h), spec.background, cfg)
     lin_eager = render_linear(st, spec.camera, (w, h), spec.background, eager)
     diff = float(np.abs(lin - lin_eager).max())
@@ -779,12 +856,16 @@ def _main_path(dev, spec, path_counts):
           f"again with the graphs cached {again_secs:.3f} s ({rays / again_secs / 1e6:.3f} "
           f"Mrays/s), eager chunk loop {eager_secs:.3f} s ({rays / eager_secs / 1e6:.3f} "
           f"Mrays/s); peak memory {peak:.3f} GiB captured, {eager_peak:.3f} eager; {chunks} "
-          f"chunks, {len(graphs)} graphs, {replays} replays, launches per replay {per_replay}; "
-          f"launches nearest {counts['nearest']} any-hit {counts['any_hit']} "
-          f"({counts['nearest'] / chunks:.2f} and {counts['any_hit'] / chunks:.2f} per chunk; "
-          f"eager {eager_counts['nearest']} and {eager_counts['any_hit']}), plain on CUDA "
-          f"{counts['plain_on_cuda']}; rounds {rounds}, host syncs of the live counts {syncs} "
-          f"({syncs / chunks:.2f} per chunk); live rays per round {live}; dropped_w "
+          f"chunks, {len(graphs)} graph, {bodies} conditional bodies, {replays} replays; "
+          f"launches nearest {counts['nearest']} any-hit {counts['any_hit']} (the warm-up's "
+          f"{prog.warm_launches['nearest']} and {prog.warm_launches['any_hit']} among them; "
+          f"cached {again_counts['nearest']} and {again_counts['any_hit']}, "
+          f"{again_counts['nearest'] / chunks:.2f} and {again_counts['any_hit'] / chunks:.2f} "
+          f"per chunk; eager {eager_counts['nearest']} and {eager_counts['any_hit']}), "
+          f"conditional kernel {again_counts['graph_if']} cached, plain on CUDA "
+          f"{counts['plain_on_cuda']}; rounds {rounds}, host syncs captured {syncs} "
+          f"({syncs / chunks:.2f} per chunk), eager {eager_syncs} ({eager_syncs / chunks:.2f} "
+          f"per chunk); live rays per round {live}; dropped_w "
           f"{dropped_w:.3g}; linear image against the eager loop's: max |diff| {diff:.3g}, "
           f"u8 pixels apart {u8_off}; PNG {os.path.relpath(path, ROOT)} round-trips",
           flush=True)
@@ -814,7 +895,7 @@ def _linear_vs_flat(dev, spec, spp, size=None):
     ours = render_linear(*args, RenderConfig(device=dev, samples=spp))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(cuda_intersect.COUNTS)
+    counts = cuda_intersect.counts()
     if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{name} did not run through the kernels alone: {counts}")
     t0 = time.perf_counter()
@@ -1014,12 +1095,12 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
                            spp_contiguous=spp, with_stats=True)
         loss = torch.mean((acc / spp - target) ** 2)
         _sync(dev)
-        fwd = dict(cuda_intersect.COUNTS)
+        fwd = cuda_intersect.counts()
         cuda_intersect.reset_counts()
         loss.backward()
         _sync(dev)
         secs = time.perf_counter() - t0
-        bwd = dict(cuda_intersect.COUNTS)
+        bwd = cuda_intersect.counts()
         if not held and (bwd["nearest"] or bwd["any_hit"] or bwd["plain_on_cuda"]
                          or fwd["plain_on_cuda"]):
             raise AssertionError(f"fit {name}: forward {fwd}, backward {bwd} (the backward "
@@ -1066,6 +1147,12 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
         notes.append(f"{f} {diff:.3g} of {scale:.3g}")
     cap, ref = runs["captured"], runs["op by op"]
     (prog,) = st.packed.fit_programs.values()
+    for i, s in enumerate(cap):
+        rounds = int((s["stats"].live > 0).sum())
+        # The first step's counts hold its warm-up's launches too.
+        if s["stats"].syncs or i and (s["fwd"]["nearest"], s["fwd"]["any_hit"]) != (rounds,) * 2:
+            raise AssertionError(f"fit {name}, captured step {i}: {s['stats'].syncs} host "
+                                 f"reads, forward launches {s['fwd']} for {rounds} rounds")
     with _HeldSweep(f"fit {name}", err, diffs) as held:
         step(eager, start, held=True)
     sizes_held = {m: sorted({n for mode, n in held.launches if mode == m}, reverse=True)
@@ -1083,7 +1170,8 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
           f"{caps}, slices {sizes}), {list(fields)} from {FIT_START} of the truth: MSE per "
           f"step captured {mse(cap)}, op by op {mse(ref)}; seconds per step (forward + "
           f"backward) captured {f3('secs', cap)} (the first with a warm-up pass op by op and "
-          f"the captures: {prog.capture_s:.3f} s, {len(prog.graphs)} graphs), op by op "
+          f"the captures: {prog.capture_s:.3f} s, {len(prog.graphs)} graphs, "
+          f"{sum(g.bodies for g in prog.graphs.values())} conditional bodies), op by op "
           f"{f3('secs', ref)}, op by op with bounce-round checkpointing off {off['secs']:.3f}; "
           f"peak memory of a step, GiB allocated / reserved: captured {gib(peaks['captured'])}, "
           f"op by op {gib(peaks['op by op'])} (every round checkpointed), "
@@ -1091,7 +1179,9 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
           f"launches a captured step nearest {fwd['nearest']} any-hit {fwd['any_hit']} in "
           f"forward, {bwd['nearest']} and {bwd['any_hit']} in backward (op by op "
           f"{rfwd['nearest']} / {rfwd['any_hit']} and {rbwd['nearest']} / {rbwd['any_hit']}); "
-          f"host reads a step {cap[-1]['stats'].syncs} (live counts); live rays per round "
+          f"host reads a captured step {cap[-1]['stats'].syncs} (op by op "
+          f"{ref[-1]['stats'].syncs}); conditional kernel runs a captured step "
+          f"{fwd['graph_if']} + {bwd['graph_if']}; live rays per round "
           f"{live}; dropped_w 0; captured against op-by-op gradients, max |diff| of max |g|: "
           + "; ".join(notes) + f"; one op-by-op step with each of its {len(held.launches)} "
           f"sweep launches held against the plain version under phase 2's gates, rays a "
@@ -1104,6 +1194,7 @@ def phase_gradients(dev, path_counts, err, diffs):
     full-width fits (see the module docstring); err and diffs as in phase
     2."""
     import dataclasses
+    import gc
     import torch
     from portrayer_tpu_torch import RenderConfig, flatten_scene, scenes
     from portrayer_tpu_torch.ops import cuda_intersect
@@ -1111,7 +1202,7 @@ def phase_gradients(dev, path_counts, err, diffs):
     for name in ("big-scene", "torus-showcase"):
         cuda_intersect.reset_counts()
         gk, lk = _tile_grads(dev, name, plain=False)
-        counts = dict(cuda_intersect.COUNTS)
+        counts = cuda_intersect.counts()
         cuda_intersect.reset_counts()
         gp, lp = _tile_grads(dev, name, plain=True)
         if counts["nearest"] == 0 or counts["plain_on_cuda"] or not cuda_intersect.COUNTS[
@@ -1141,6 +1232,9 @@ def phase_gradients(dev, path_counts, err, diffs):
     target = _frame_pass(dev, st, spec, cfg)
     x = (st.mat_diffuse * FIT_START).requires_grad_()
     losses, secs = [], []
+    # The bounce fits' programs hold their state slabs until the cycle
+    # collector frees them (a program and its tables refer to each other).
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_intersect.reset_counts()
@@ -1156,7 +1250,7 @@ def phase_gradients(dev, path_counts, err, diffs):
         if step < FIT_STEPS:
             with torch.no_grad():
                 x -= FIT_STEP * g / g.abs().max()
-    counts = dict(cuda_intersect.COUNTS)
+    counts = cuda_intersect.counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     path_counts["fit big-scene, captured"] = counts
     if any(b >= a for a, b in zip(losses, losses[1:])):
@@ -1249,7 +1343,7 @@ def _timed(dev, fn):
     out = fn()
     _sync(dev)
     secs = time.perf_counter() - t0
-    return out, secs, dict(cuda_intersect.COUNTS), _peak_gib(dev)
+    return out, secs, cuda_intersect.counts(), _peak_gib(dev)
 
 
 def _check_counts(label, counts, dev):
@@ -1670,7 +1764,7 @@ def phase_scenes(dev, path_counts, err, diffs):
     lines = []
 
     def check(name, spec, st, cfg, res):
-        saved = dict(cuda_intersect.COUNTS)
+        saved = cuda_intersect.counts()
         lin = render_linear(st, spec.camera, tuple(res["size"]), spec.background, cfg)
         finite = bool(np.isfinite(lin).all())
         if not finite or lin.shape != (res["size"][1], res["size"][0], 3):
@@ -1692,19 +1786,22 @@ def phase_scenes(dev, path_counts, err, diffs):
         if apart:
             raise AssertionError(f"{name}: {apart} rays apart between the kernel and its plain "
                                  "version")
+        cuda_intersect.reset_counts()
         cuda_intersect.COUNTS.update(saved)
         w, h = res["size"]
         lines.append(
             f"[7 scenes] {name} (stand-in assets) {w}x{h} x {STANDIN_SPP} spp: first render "
             f"{res['secs']:.3f} s ({res['Mrays/s']:.3f} Mrays/s primary; scene build, "
-            f"lowering, capture and PNG included), {res['graphs']} graphs, {res['replays']} "
-            f"replays; sweep launches nearest {res['launches']['nearest']} any-hit "
+            f"lowering, capture and PNG included), {res['graphs']} graphs, {res['bodies']} "
+            f"conditional bodies, {res['replays']} replays, {res['syncs']} host syncs; sweep "
+            f"launches nearest {res['launches']['nearest']} any-hit "
             f"{res['launches']['any_hit']}; dropped_w {res['dropped_w']:.3g}; linear image "
             f"finite {finite}; kernel against plain version: {'; '.join(held)}, {apart} rays "
             f"apart")
         print(lines[-1], flush=True)
-        if res["launches"]["nearest"] == 0 or res["launches"]["any_hit"] == 0:
-            raise AssertionError(f"{name}: the render launched no sweep kernel: {res}")
+        if res["launches"]["nearest"] == 0 or res["launches"]["any_hit"] == 0 or res["syncs"]:
+            raise AssertionError(f"{name}: the render launched no sweep kernel, or read on "
+                                 f"the host: {res}")
 
     old = os.environ.get("PORTRAYER_ASSETS")
     t0 = time.perf_counter()
@@ -1717,7 +1814,7 @@ def phase_scenes(dev, path_counts, err, diffs):
             render_all(names, os.path.join(OUT_DIR, "scenes"), samples=STANDIN_SPP,
                        accel="cuda", device=dev, on_scene=check)
             _sync(dev)
-            counts = dict(cuda_intersect.COUNTS)
+            counts = cuda_intersect.counts()
         finally:
             if old is None:
                 os.environ.pop("PORTRAYER_ASSETS")
@@ -1757,6 +1854,7 @@ def main():
 
     phase_card(dev)
     err, diffs, timing, branches = phase_kernels(dev)
+    conditional = phase_conditional(dev)
     phase_goldens(dev)
     path_counts = {}
     mesh, textured = _inline("procedural-meshes"), _inline("normal-mapping-numpy")
@@ -1795,6 +1893,14 @@ def main():
                                     if mode == "nearest" else {}))
                          for s, t in timing.items()},
         })
+    kernels.append({
+        "name": "graph_if", "route": "cuda", "source": COND_SOURCE, "replaces": COND_REPLACES,
+        "launches": sum(c["graph_if"] for c in path_counts.values()),
+        "launches_by_path": {p: c["graph_if"] for p, c in path_counts.items()},
+        **conditional})
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles ``csrc/*.cu`` into one shared library with a
-plain C interface under ``build/`` (keyed by a hash of the sources and
-flags), which ctypes then loads.  Nothing is built when a module is
+At first use, ``nvcc`` compiles each of ``csrc/*.cu`` (all at once, one
+process a source) and links them into one shared library with a plain C
+interface under ``build/`` (keyed by a hash of the sources and flags),
+which ctypes then loads.  Nothing is built when a module is
 imported, and nothing comes from outside the checkout but the CUDA
 toolkit.
 """
@@ -22,8 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # Every mul and add rounds on its own, like the plain PyTorch versions.
     "-fmad=false",
     "-Xptxas", "-v",
@@ -70,6 +70,10 @@ def _bind(lib):
     lib.sweep_nearest.restype = i
     lib.sweep_any_hit.argtypes = common + [p, p]
     lib.sweep_any_hit.restype = i
+    lib.cond_if_begin.argtypes = [p, p, ctypes.c_longlong, p, p]
+    lib.cond_if_begin.restype = i
+    lib.cond_if_end.argtypes = [p]
+    lib.cond_if_end.restype = i
     return lib
 
 
@@ -88,12 +92,22 @@ def load():
     if not os.path.exists(so):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        reports = [proc.communicate()[1] for proc in procs]
+        for proc, src, report in zip(procs, sources, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{report}")
+        proc = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True,
+                              text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so)
-        build_info["ptxas"] = proc.stderr
+        for obj in objs:
+            os.remove(obj)
+        build_info["ptxas"] = "".join(reports)
     build_info["seconds"] = time.perf_counter() - t0
     _lib = _bind(ctypes.CDLL(so))
     return _lib

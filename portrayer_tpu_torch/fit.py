@@ -5,25 +5,28 @@ program with every round under ``jax.checkpoint``).
 
 ``ops.trace.trace`` sends here a trace whose tables (or rays) require
 grad, on the card with accel="cuda" and ``cfg.cuda_graphs``.  The whole
-trace is one autograd node (``_Fit``).  Its forward runs round 0 and each
-bounce round as a step on static buffers: the step sweeps, shades,
-accumulates and compacts without autograd, and leaves in the round's
-state slab what its backward needs, the queue it ran on and its sweep
-results.  Each slab is copied out once a round, so rounds of one shape
-share a step (and a graph) while each keeps its own state.  The backward
-walks the rounds from the last to the first: each copies its state back,
-replays the round's hit detail, shading, light sum and compaction from it
-under autograd (no sweep is launched), and takes the vector-Jacobian
-product into the parameters and into the cotangent of the queue it ran
-on.  The cotangent of the framebuffer is the same in every round (a
-round adds to it), so no round keeps its framebuffer.
+trace is one autograd node (``_Fit``).  Its forward is one step: round 0,
+then each bounce round on the slice that ``slice_sel`` picks on the device
+from the live count (``graphs.switch``, the JAX package's ``lax.switch``),
+each slice a conditional body.  A round sweeps, shades, accumulates and
+compacts without autograd, and leaves in its own slot of the state slab
+what its backward needs: the queue it ran on (at most its capacity) and
+its sweep results.  The slab also holds the round keys, each round's
+branch index (`sel`) and live count, and the dropped throughput; each
+call copies it out once, so calls of one program keep their own state.
+The backward is one step too: it copies a call's slab back and walks the
+rounds from the last to the first, each round under the conditional body
+of the branch its forward took (none for a dead round), replaying the
+round's hit detail, shading, light sum and compaction from its slot under
+autograd (no sweep is launched) and taking the vector-Jacobian product
+into the parameters and into the cotangent of the queue it ran on.  The
+cotangent of the framebuffer is the same in every round (a round adds to
+it), so no round keeps its framebuffer.
 
-The host reads each bounce round's live count once in the forward, to
-pick the round's slice, as ``trace`` does; the backward reuses those
-choices and reads nothing.  Each step is captured as a CUDA graph at its
-first use (a program first runs one forward and backward op by op) and
-replayed after; every step reads its inputs from buffers allocated outside
-the graphs, so one memory pool serves them all.
+Forward and backward are each captured as one CUDA graph (a program
+first runs them op by op, its warm-up) and replayed after; they read
+nothing on the host.  Their steps read their inputs from buffers
+allocated outside the graphs, so one memory pool serves both.
 Parameters change every step (``SceneTables.replace`` makes new tables),
 so the program reads them from static buffers that each call fills, and
 it is cached on the tables' packed table, which ``replace`` keeps.  The
@@ -40,15 +43,14 @@ import dataclasses
 import functools
 import math
 import time
-from typing import NamedTuple
 
 import torch
 
-from . import rng
+from . import graphs, rng
 from .config import RenderConfig
 from .ops.intersect import Hit
-from .ops.trace import (TraceStats, _Queue, _Sweeps, bounce_round, bounce_rounds, first_round,
-                        grad_fields, plan, primary_queue)
+from .ops.trace import (TraceStats, _Queue, _Sweeps, bounce_round, first_round, grad_fields,
+                        plan, primary_queue, round_shapes, rounds, slice_sel)
 from .scene.flatten import SceneTables, node_record, tri_record
 
 # The queue fields that carry a gradient from one round to the one before.
@@ -62,22 +64,26 @@ _MAX_PROGRAMS = 2
 
 class _Slab:
     """Tensors of the given (name, dtype, shape) as views of one byte
-    buffer, so that a round's state is copied out and back in one launch."""
+    buffer, so that a state is copied out and back in one launch;
+    ``views_of`` gives the same views of a copy."""
 
     def __init__(self, specs, device):
-        at, spans = 0, []
+        at, self.spans = 0, []
         for name, dtype, shape in specs:
             n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-            spans.append((name, dtype, shape, at, n))
+            self.spans.append((name, dtype, shape, at, n))
             at += -(-n // 16) * 16
         self.flat = torch.zeros((at,), dtype=torch.uint8, device=device)
-        self.views = {name: self.flat[a:a + n].view(dtype).view(shape)
-                      for name, dtype, shape, a, n in spans}
+        self.views = self.views_of(self.flat)
+
+    def views_of(self, flat) -> dict:
+        return {name: flat[a:a + n].view(dtype).view(shape)
+                for name, dtype, shape, a, n in self.spans}
 
 
 def _keep(views, sweeps: _Sweeps):
     """Write a round's kept sweep results (its nearest hits, then, with
-    lights, its occlusion bits) into its slab's views."""
+    lights, its occlusion bits) into its slot's views."""
     hit, *occ = sweeps.kept
     for f in _HIT:
         views[f].copy_(getattr(hit, f))
@@ -86,25 +92,15 @@ def _keep(views, sweeps: _Sweeps):
 
 
 def _kept(views) -> _Sweeps:
-    """A round's sweeps that read its results from its slab's views."""
+    """A round's sweeps that read its results from its slot's views."""
     return _Sweeps([Hit(*(views[f] for f in _HIT)), views["occ"]])
-
-
-class _Run(NamedTuple):
-    """What one forward of the program keeps for its backward: each step's
-    name and state slab (a copy; bounce rounds with their index), the
-    round keys, the live counts read, and the dropped throughput."""
-    steps: list
-    keys: torch.Tensor
-    live: list
-    dropped: torch.Tensor
 
 
 class _FitProgram:
     """A differentiable trace of R0 rays into n_pixels pixels over tables
     like `st`, its parameters `fields` (and the ray inputs `ray_grads`)
-    read from static buffers: see the module docstring.  Each step runs as
-    a CUDA graph (render._Graph) after the warm-up."""
+    read from static buffers: see the module docstring.  Forward and
+    backward each run as a CUDA graph (graphs.Graph) after the warm-up."""
 
     def __init__(self, st: SceneTables, cfg: RenderConfig, R0: int, n_pixels: int,
                  spp_c: int, fields: tuple, ray_grads: tuple, has_w0: bool):
@@ -112,6 +108,7 @@ class _FitProgram:
         self.cfg, self.R0, self.P, self.spp_c = cfg, R0, n_pixels, spp_c
         self.fields, self.ray_grads = fields, ray_grads
         self.pl = plan(R0, st, cfg)
+        self.rounds = list(rounds(self.pl, cfg.queue_slice_divs))
         self.L = st.n_lights
         self.params = {f: getattr(st, f).detach().clone() for f in fields}
         self.st = st.replace(**self.params)
@@ -121,24 +118,20 @@ class _FitProgram:
         self.inputs = {"o0": f32(R0, 3), "d0": f32(R0, 3), "pix0": i32(R0),
                        "w0": f32(R0) if has_w0 else None, "bg": f32(n_pixels, 3)}
         self.key = i64(2)
-        self.rounds = torch.arange(self.pl.max_depth + 1, dtype=torch.int64, device=dev)
-        self.keys = i64(self.pl.max_depth + 1, 2)
-        self.ridx = i64()
-        self.n_live = i64()
-        self.dropped = f32()
+        self.round_ix = torch.arange(self.pl.max_depth + 1, dtype=torch.int64, device=dev)
         self.acc = f32(n_pixels, 3)
         self.zero_acc = f32(n_pixels, 3)
         self.g_acc = f32(n_pixels, 3)
         caps = sorted(set(self.pl.cap[1:]))
         self.queues = {c: _Queue(o=f32(c, 3), d=f32(c, 3), w=f32(c), pix=i32(c), t_min=f32(c),
                                  src_node=i32(c), src_tri=i32(c), sid=i32(c)) for c in caps}
+        self.state = self._state_slab(dev)
         # Cotangents of each capacity's queue, and of the parameters.
         self.gq = _Slab([((c, f), dt, (c, 3) if f in ("o", "d") else (c,))
                          for c in caps for f in _DIFF_QUEUE], dev)
         grads = [(f, getattr(st, f).dtype, tuple(getattr(st, f).shape)) for f in fields]
         grads += [(n, dt, tuple(self.inputs[n].shape)) for n in ray_grads]
         self.grads = _Slab(grads, dev)
-        self.slabs = {}
         self.graphs = {}
         self.pool = torch.cuda.graph_pool_handle()
         self.warm = False
@@ -147,20 +140,32 @@ class _FitProgram:
 
     # -- state ---------------------------------------------------------------
 
-    def _slab(self, name, k: int, queue: bool):
-        """The state slab of step `name`, a round on k lanes: its hits and
-        occlusion bits and, with `queue`, the queue it ran on.  Made
-        outside every graph, at the step's first use."""
-        slab = self.slabs.get(name)
-        if slab is None:
-            dt, dev = self.cfg.dtype, self.st.device
-            specs = [("t", dt, (k,)), ("node", torch.int32, (k,)), ("tri", torch.int32, (k,)),
-                     ("hit", torch.bool, (k,)), ("occ", torch.bool, (self.L * k,))]
-            if queue:
-                for f, x in zip(_Queue._fields, self.queues[self.pl.cap[1]]):
-                    specs.append((f, x.dtype, (k,) + tuple(x.shape[1:])))
-            slab = self.slabs[name] = _Slab(specs, dev)
-        return slab
+    def _state_slab(self, dev) -> _Slab:
+        """The forward's state: keys, sel and live per round, dropped, and a
+        slot per round ("head", then each bounce round's index) of its
+        hits and occlusion bits and, for a bounce round, the queue it ran
+        on, each at the round's capacity."""
+        D, dt = self.pl.max_depth, self.cfg.dtype
+        specs = [("keys", torch.int64, (D + 1, 2)), ("sel", torch.int64, (D + 1,)),
+                 ("live", torch.int64, (D + 1,)), ("dropped", dt, ())]
+        slots = [("head", self.R0, ())] + [(r, cap, self.queues[cap]) for r, cap, *_ in
+                                           self.rounds]
+        for slot, n, queue in slots:
+            specs += [((slot, "t"), dt, (n,)), ((slot, "node"), torch.int32, (n,)),
+                      ((slot, "tri"), torch.int32, (n,)), ((slot, "hit"), torch.bool, (n,)),
+                      ((slot, "occ"), torch.bool, (self.L * n,))]
+            specs += [((slot, f), x.dtype, (n,) + tuple(x.shape[1:]))
+                      for f, x in zip(_Queue._fields, queue)]
+        return _Slab(specs, dev)
+
+    def _slot(self, slot, k: int) -> dict:
+        """{field: view} of a round's slot, cut to the k lanes it ran on."""
+        v = self.state.views
+        out = {f: v[(slot, f)][:k] for f in _HIT}
+        out["occ"] = v[(slot, "occ")][:self.L * k]
+        if slot != "head":
+            out.update((f, v[(slot, f)][:k]) for f in _Queue._fields)
+        return out
 
     def _load(self, token, key, o0, d0, pix0, w0, bg, params):
         """Fill the static inputs with one call's (skipped when they hold
@@ -181,61 +186,85 @@ class _FitProgram:
             return
         g = self.graphs.get(name)
         if g is None:
-            from . import render
-
             t0 = time.perf_counter()
-            g = self.graphs[name] = render._Graph(fn, self.pool)
+            g = self.graphs[name] = graphs.Graph(fn, self.pool)
             self.capture_s += time.perf_counter() - t0
         g.replay()
 
-    # -- forward steps -------------------------------------------------------
+    # -- forward -------------------------------------------------------------
+
+    def _forward(self):
+        """Round 0, then each bounce round on the slice its live count
+        picks (the dead branch: none), its branch index kept in sel."""
+        v = self.state.views
+        v["sel"].zero_()
+        v["live"].zero_()
+        self.head()
+        for ridx, cap, sizes, nxt, last in self.rounds:
+            sel = v["sel"][ridx]
+            sel.copy_(slice_sel(v["live"][ridx], sizes))
+            if graphs.switch(sel, [None] + [functools.partial(self.bounce, ridx, cap, k, nxt, last)
+                                            for k in sizes]) == 0:
+                break
 
     def head(self):
         """Round 0: the records of the tables from the parameters, the
         round keys, the primary queue and round 0, its state in the head
-        slab, the round-1 queue, acc and the live count in static
+        slot, the round-1 queue, acc and the live counts in static
         buffers."""
-        st, cfg, x = self.st, self.cfg, self.inputs
+        st, cfg, x, v = self.st, self.cfg, self.inputs, self.state.views
         st.rec.copy_(node_record(st))
         st.trec.copy_(tri_record(st))
-        self.keys.copy_(rng.fold_in(self.key, self.rounds))
-        self.ridx.fill_(1)
+        v["keys"].copy_(rng.fold_in(self.key, self.round_ix))
+        if x["w0"] is None:
+            v["live"][0].fill_(self.R0)
+        else:
+            v["live"][0].copy_((x["w0"] > 0.0).sum())
         q = primary_queue(x["o0"], x["d0"], x["pix0"], x["w0"], cfg)
         sweeps = _Sweeps()
         acc, q1, dropped, n_live = first_round(
-            self.keys[0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c, sweeps=sweeps)
-        _keep(self.slabs["head"].views, sweeps)
+            v["keys"][0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c, sweeps=sweeps)
+        _keep(self._slot("head", self.R0), sweeps)
         self.acc.copy_(acc)
         if q1 is not None:
-            self._queue_out(q1, self.pl.cap[1], n_live)
-            self.dropped.copy_(dropped)
+            self._queue_out(q1, self.pl.cap[1], n_live, 1)
+            v["dropped"].copy_(dropped)
 
-    def _queue_out(self, q, cap, n_live):
+    def _queue_out(self, q, cap, n_live, ridx: int):
         for buf, y in zip(self.queues[cap], q):
             buf.copy_(y)
-        self.n_live.copy_(n_live)
+        self.state.views["live"][ridx].copy_(n_live)
 
-    def bounce(self, name, cap: int, k: int, next_cap, is_last: bool):
+    def bounce(self, ridx: int, cap: int, k: int, next_cap, is_last: bool):
         """Bounce round ridx on the head k lanes of the capacity-cap queue:
-        the slice into the round's slab, the round, its children into the
+        the slice into the round's slot, the round, its children into the
         next_cap queue."""
-        v = self.slabs[name].views
+        v = self._slot(ridx, k)
         for f, x in zip(_Queue._fields, self.queues[cap]):
             v[f].copy_(x[:k])
         q = _Queue(*(v[f] for f in _Queue._fields))
-        rkey = self.keys.index_select(0, self.ridx.reshape(1))[0]
         sweeps = _Sweeps()
         acc, q2, dropped, n_live = bounce_round(
-            rkey, q, self.acc, self.inputs["bg"], self.st, self.cfg, k, next_cap, is_last,
-            sweeps=sweeps)
+            self.state.views["keys"][ridx], q, self.acc, self.inputs["bg"], self.st, self.cfg,
+            k, next_cap, is_last, sweeps=sweeps)
         _keep(v, sweeps)
         self.acc.copy_(acc)
-        self.ridx.add_(1)
         if not is_last:
-            self._queue_out(q2, next_cap, n_live)
-            self.dropped.add_(dropped)
+            self._queue_out(q2, next_cap, n_live, ridx + 1)
+            self.state.views["dropped"].add_(dropped)
 
-    # -- backward steps ------------------------------------------------------
+    # -- backward ------------------------------------------------------------
+
+    def _backward(self):
+        """The rounds' backwards from the last to the first, each on the
+        branch its forward took."""
+        self.grads.flat.zero_()
+        self.gq.flat.zero_()
+        sel = self.state.views["sel"]
+        for ridx, cap, sizes, nxt, last in reversed(self.rounds):
+            graphs.switch(sel[ridx], [None] + [
+                functools.partial(self.bounce_grad, ridx, cap, k, nxt, last) for k in sizes])
+        self.head_grad()
 
     def _leaves(self):
         """(tables whose parameters are leaves that record, {name: leaf}
@@ -269,32 +298,31 @@ class _FitProgram:
 
     def head_grad(self):
         """The backward of round 0, replayed from the inputs and the head
-        slab: the gradients of its parameters and ray inputs."""
+        slot: the gradients of its parameters and ray inputs."""
         cfg = self.cfg
         with torch.enable_grad():
             st, leaves, x = self._leaves()
             q = primary_queue(x["o0"], x["d0"], x["pix0"], x["w0"], cfg)
             acc, q1, _, _ = first_round(
-                self.keys[0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c,
-                sweeps=_kept(self.slabs["head"].views))
+                self.state.views["keys"][0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c,
+                sweeps=_kept(self._slot("head", self.R0)))
             outs = [(acc, self.g_acc)]
             if q1 is not None:
                 outs += self._queue_cotangents(q1, self.pl.cap[1])
             self._vjp(outs, leaves)
 
-    def bounce_grad(self, name, cap: int, k: int, next_cap, is_last: bool):
-        """The backward of a bounce round, replayed from its slab: the
+    def bounce_grad(self, ridx: int, cap: int, k: int, next_cap, is_last: bool):
+        """The backward of bounce round ridx, replayed from its slot: the
         gradients of the parameters, and the cotangent of the queue it ran
         on (its head k lanes; 0 on the rest) from that of its children's."""
-        v = self.slabs[name].views
+        v = self._slot(ridx, k)
         with torch.enable_grad():
             st, leaves, x = self._leaves()
             qv = {f: (v[f].detach().requires_grad_() if f in _DIFF_QUEUE else v[f])
                   for f in _Queue._fields}
-            rkey = self.keys.index_select(0, self.ridx.reshape(1))[0]
             acc, q2, _, _ = bounce_round(
-                rkey, _Queue(**qv), self.zero_acc, x["bg"], st, self.cfg, k, next_cap, is_last,
-                sweeps=_kept(v))
+                self.state.views["keys"][ridx], _Queue(**qv), self.zero_acc, x["bg"], st,
+                self.cfg, k, next_cap, is_last, sweeps=_kept(v))
             outs = [(acc, self.g_acc)]
             if not is_last:
                 outs += self._queue_cotangents(q2, next_cap)
@@ -309,52 +337,40 @@ class _FitProgram:
 
     # -- a call --------------------------------------------------------------
 
-    def forward(self) -> _Run:
-        """The forward of the call whose inputs are loaded: the steps run
-        (or replay), each one's state copied out."""
-        self._slab("head", self.R0, queue=False)
-        self._run("head", self.head)
-        steps = [("head", self.slabs["head"].flat.clone())]
-        keys = self.keys.clone()
-        live = []
+    def forward(self) -> torch.Tensor:
+        """The forward of the call whose inputs are loaded (run, or
+        replayed): a copy of its state slab."""
+        self._run("forward", self._forward)
+        return self.state.flat.clone()
 
-        def read_live():
-            live.append(int(self.n_live))
-            return live[-1]
-
-        if self.pl.max_depth:
-            for ridx, k, nxt, last in bounce_rounds(self.pl, self.cfg.queue_slice_divs,
-                                                    read_live):
-                cap = self.pl.cap[ridx]
-                name = ("bounce", cap, k, nxt, last)
-                self._slab(name, k, queue=True)
-                self._run(name, functools.partial(self.bounce, name, cap, k, nxt, last))
-                steps.append((name, ridx, self.slabs[name].flat.clone()))
-        return _Run(steps, keys, live, self.dropped.clone())
-
-    def backward(self, run: _Run, g_acc) -> dict:
+    def backward(self, state, g_acc) -> dict:
         """The gradients {name: tensor} of the call whose inputs are loaded
-        and whose forward kept `run`, for the framebuffer's cotangent
-        g_acc: the steps' backwards, from the last round to the first."""
-        self.keys.copy_(run.keys)
+        and whose forward left `state`, for the framebuffer's cotangent
+        g_acc."""
+        self.state.flat.copy_(state)
         self.g_acc.copy_(g_acc)
-        self.grads.flat.zero_()
-        self.gq.flat.zero_()
-        for name, ridx, state in reversed(run.steps[1:]):
-            self.slabs[name].flat.copy_(state)
-            self.ridx.fill_(ridx)
-            self._run(("grad",) + name, functools.partial(self.bounce_grad, name, *name[1:]))
-        self.slabs["head"].flat.copy_(run.steps[0][1])
-        self._run(("grad", "head"), self.head_grad)
+        self._run("backward", self._backward)
         return {n: g.clone() for n, g in self.grads.views.items()}
 
     def warm_up(self):
-        """A program's first call: one forward and one backward
-        op by op (building the kernel, the sweep's chunk groups, the
-        allocator's blocks and autograd's threads), then forgotten."""
-        run = self.forward()
-        self.backward(run, self.zero_acc)
+        """A program's first call: one forward and one backward op by op,
+        then each bounce round's forward and backward at each of its slice
+        shapes (building the kernel, the sweep's chunk groups, the
+        allocator's blocks, autograd's threads and every branch's first
+        use, as the captures record them all), all forgotten."""
+        self.backward(self.forward(), self.zero_acc)
+        for shape in round_shapes(self.pl, self.cfg.queue_slice_divs):
+            self.bounce(*shape)
+            self.bounce_grad(*shape)
         self.warm = True
+
+    def stats(self, state) -> TraceStats:
+        """The TraceStats of the call that left `state`: one read."""
+        v = self.state.views_of(state)
+        host = torch.cat([v["live"].double(), v["dropped"].double().reshape(1)]).cpu()
+        D = self.pl.max_depth
+        return TraceStats(live=host[:D + 1].to(torch.int32),
+                          dropped_w=float(host[D + 1]) / self.R0 if D else 0.0, syncs=0)
 
 
 class _Fit(torch.autograd.Function):
@@ -367,10 +383,10 @@ class _Fit(torch.autograd.Function):
         prog._load(token, *inputs)
         if not prog.warm:
             prog.warm_up()
-        run = prog.forward()
-        ctx.prog, ctx.run, ctx.token = prog, run, token
+        state = prog.forward()
+        ctx.prog, ctx.state, ctx.token = prog, state, token
         ctx.save_for_backward(key, pix0, o0, d0, w0, bg, *params)
-        box["run"] = run
+        box["state"] = state
         return prog.acc.clone()
 
     @staticmethod
@@ -378,7 +394,7 @@ class _Fit(torch.autograd.Function):
         prog = ctx.prog
         key, pix0, o0, d0, w0, bg, *params = ctx.saved_tensors
         prog._load(ctx.token, key, o0, d0, pix0, w0, bg, params)
-        grads = prog.backward(ctx.run, g_acc)
+        grads = prog.backward(ctx.state, g_acc)
         ray = [grads.get(n) for n in _RAY_INPUTS]
         return (None, None, None, None, *ray, *(grads[f] for f in prog.fields))
 
@@ -407,7 +423,8 @@ def trace_captured(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: R
                    w0=None, spp_contiguous: int = 0, with_stats: bool = False):
     """ops.trace.trace through the fit program (same arguments and
     results), differentiable in the tables' fields that require grad and
-    in the ray inputs that do."""
+    in the ray inputs that do.  With with_stats, the live counts and the
+    dropped throughput are read once, after the forward."""
     if cfg.remat_min_lanes > 0:
         raise ValueError(
             f"RenderConfig(remat_min_lanes={cfg.remat_min_lanes}): the captured fit "
@@ -422,10 +439,4 @@ def trace_captured(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: R
     acc = _Fit.apply(prog, box, key, pix0, o0, d0, w0, bg, *(getattr(st, f) for f in fields))
     if not with_stats:
         return acc
-    run = box["run"]
-    R0, D = o0.shape[0], prog.pl.max_depth
-    lv = [int((w0 > 0.0).sum()) if w0 is not None else R0] + run.live
-    lv = (lv + [0] * D)[:D + 1]
-    return acc, TraceStats(live=torch.tensor(lv, dtype=torch.int32),
-                           dropped_w=float(run.dropped) / R0 if D else 0.0,
-                           syncs=len(run.live))
+    return acc, prog.stats(box["state"])

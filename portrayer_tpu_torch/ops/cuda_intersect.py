@@ -37,37 +37,46 @@ INF = math.inf
 # Chunks per group of the kernel's first cull level: one per lane of a warp.
 GROUP = 32
 
-# Kernel launches per mode, and plain-version calls on CUDA tensors.  A
-# caller zeroes them (reset_counts) before a run and reads them after it.
-COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0}
+# Kernel launches per mode, and plain-version calls on CUDA tensors; and
+# runs of graphs.Graph's conditional kernel (csrc/conditional.cu).  A
+# caller zeroes them (reset_counts) before a run and reads them after it
+# (counts()).
+COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0, "graph_if": 0}
 
 # The kernel reads ray i's origin at o[3 * i + 2] with a 32-bit int: a
 # launch of this many rays or more would overflow it.
 MAX_LAUNCH_RAYS = (2 ** 31 - 1) // 3
 
+# A launch recorded into a captured CUDA graph counts on the device, in
+# the graph, where it runs: at each replay, and in a conditional body only
+# when the body runs.  Per device, [nearest, any-hit, conditional kernel].
+_MODES = ("nearest", "any_hit", "graph_if")
+_ON_DEVICE = {}
+
+
+def device_counts(device: torch.device) -> torch.Tensor:
+    """The launch counters of `device`, made at first call (outside every
+    capture: graphs.Graph calls it before it captures)."""
+    if device not in _ON_DEVICE:
+        _ON_DEVICE[device] = torch.zeros(len(_MODES), dtype=torch.int64, device=device)
+    return _ON_DEVICE[device]
+
 
 def reset_counts():
     for k in COUNTS:
         COUNTS[k] = 0
+    for t in _ON_DEVICE.values():
+        t.zero_()
 
 
-# Launches recorded into the CUDA graph being captured: they run, and
-# count, at each replay of the graph (count_replay), not at its capture.
-_CAPTURED = {"nearest": 0, "any_hit": 0}
-
-
-def take_captured() -> dict:
-    """The launches recorded while a stream captured, since the last call."""
-    out = dict(_CAPTURED)
-    for k in _CAPTURED:
-        _CAPTURED[k] = 0
-    return out
-
-
-def count_replay(launches: dict):
-    """Count a replay of a graph that recorded `launches`."""
-    for k, v in launches.items():
-        COUNTS[k] += v
+def counts() -> dict:
+    """The launches since reset_counts, those of captured graphs read from
+    the device (one read a device) and moved into COUNTS."""
+    for t in _ON_DEVICE.values():
+        for mode, n in zip(_MODES, t.tolist()):
+            COUNTS[mode] += n
+        t.zero_()
+    return dict(COUNTS)
 
 
 def _f32(x: float) -> float:
@@ -656,8 +665,10 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
         mode = "nearest"
     if rc != 0:
         raise RuntimeError(f"sweep kernel ({mode}) launch failed: CUDA error {rc}")
-    if R:
-        (_CAPTURED if torch.cuda.is_current_stream_capturing() else COUNTS)[mode] += 1
+    if R and torch.cuda.is_current_stream_capturing():
+        _ON_DEVICE[o.device][_MODES.index(mode)].add_(1)
+    elif R:
+        COUNTS[mode] += 1
     if any_hit:
         return _any_hit_result((found != 0) & active)
     hit = torch.isfinite(t) & active

@@ -16,10 +16,12 @@ Round 0 runs on the primary lanes.  A later round runs on the smallest
 head slice of its queue that holds the live rays (``slice_sizes``, from
 ``RenderConfig.queue_slice_divs``), or not at all when none is alive: the
 JAX package's ``lax.switch`` over the same slices.  ``first_round`` and
-``bounce_round`` read nothing on the host, so a render can capture each
-as a CUDA graph (render.py); ``trace`` runs them op by op and reads the
-live count once per bounce round to pick the slice.  Draws are keyed by
-sample id, so the slicing moves no pixel.
+``bounce_round`` read nothing on the host, and ``slice_sel`` picks the
+slice on the device, so a render or a fit captures a whole trace as one
+CUDA graph whose rounds are conditional bodies (``graphs.switch``;
+render.py, fit.py); ``trace`` runs the rounds op by op and reads the
+live count once per bounce round to pick the slice (``pick_slice``).
+Draws are keyed by sample id, so the slicing moves no pixel.
 
 Under autograd each round runs under a checkpoint, as the JAX package
 runs it under ``jax.checkpoint`` saving only the sweep outputs: round 0
@@ -283,20 +285,49 @@ def pick_slice(sizes, n_live: int) -> int:
     return next(k for k in sizes if k >= n_live)
 
 
-def bounce_rounds(pl: Plan, divs, read_live):
-    """The bounce rounds of a trace: for each round r = 1.. max_depth,
-    read_live() reads the live count entering it on the host (one read a
-    round) and, unless it is 0 (the dead branch: no later round runs),
-    (r, k, next_cap, is_last) is yielded, k the head slice it runs on and
-    next_cap the capacity of its children's queue (None after the last
-    round)."""
+def slice_sel(n_live: torch.Tensor, sizes) -> torch.Tensor:
+    """pick_slice on the device, as the JAX package's round_r picks its
+    lax.switch branch: 0 (the dead branch) where n_live is 0, else 1 + the
+    searchsorted index of n_live in `sizes` (sizes[sel - 1] is the slice).
+    An int64 tensor of n_live's shape; nothing is read on the host."""
+    sel = (n_live > 0).to(torch.int64)
+    for k in sizes:
+        sel = sel + (n_live > k).to(torch.int64)
+    return sel
+
+
+def rounds(pl: Plan, divs):
+    """(r, capacity, slice sizes, next capacity or None after the last
+    round, is_last) of each bounce round r = 1.. max_depth."""
     for ridx in range(1, pl.max_depth + 1):
+        last = ridx == pl.max_depth
+        yield (ridx, pl.cap[ridx], slice_sizes(pl.cap[ridx], divs),
+               None if last else pl.cap[ridx + 1], last)
+
+
+def round_shapes(pl: Plan, divs):
+    """(r, capacity, k, next capacity, is_last) of each distinct shape of
+    a bounce round's step on a head slice of k lanes, at the first round
+    r that has it: what a program warms before it captures them all."""
+    seen = set()
+    for ridx, cap, sizes, next_cap, last in rounds(pl, divs):
+        for k in sizes:
+            if (cap, k, next_cap, last) not in seen:
+                seen.add((cap, k, next_cap, last))
+                yield ridx, cap, k, next_cap, last
+
+
+def bounce_rounds(pl: Plan, divs, read_live):
+    """The bounce rounds of a trace run op by op: for each round, read_live()
+    reads the live count entering it on the host (one read a round) and,
+    unless it is 0 (the dead branch: no later round runs), (r, k, next_cap,
+    is_last) is yielded, k the head slice it runs on and next_cap the
+    capacity of its children's queue (None after the last round)."""
+    for ridx, _, sizes, next_cap, last in rounds(pl, divs):
         n = read_live()
         if n == 0:
             return
-        last = ridx == pl.max_depth
-        yield (ridx, pick_slice(slice_sizes(pl.cap[ridx], divs), n),
-               None if last else pl.cap[ridx + 1], last)
+        yield ridx, pick_slice(sizes, n), next_cap, last
 
 
 class Plan(NamedTuple):

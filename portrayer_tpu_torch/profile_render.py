@@ -155,13 +155,13 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
     o, d, pix, bg, w0 = render._tile_rays(
         rng.PRNGKey(23), Camera(spec.camera, (w, h), dev), 0, 0, 0, cfg=cfg,
         background=spec.background, tile_h=h, tile_w=w, spp=spp, samples=spp)
-    live = []
+    live, syncs = [], []
 
     def step():
         leaves = {f: getattr(st, f).detach().clone().requires_grad_() for f in DIFF_FIELDS}
         acc, stats = trace(rng.PRNGKey(24), o, d, pix, bg, w * h, st.replace(**leaves), cfg,
                            w0=w0, spp_contiguous=spp, with_stats=True)
-        live[:] = stats.live.tolist()
+        live[:], syncs[:] = stats.live.tolist(), [stats.syncs]
         loss = acc.square().mean()
         torch.cuda.synchronize()
         with torch.profiler.record_function("fit_backward"):
@@ -186,18 +186,23 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
         scene=spec.name, card=torch.cuda.get_device_name(dev), size=(w, h), spp=spp,
         captured=not eager, first_wall_ms=first_ms, untraced_wall_ms=walls,
         untraced_wall_ms_median=statistics.median(walls), live_per_round=live,
-        peak_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        host_syncs=syncs[0], peak_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         peak_reserved_gib=torch.cuda.max_memory_reserved(dev) / 2**30)
     if not eager:
         (prog,) = st.packed.fit_programs.values()
-        summary.update(graphs=len(prog.graphs), capture_s=prog.capture_s)
+        summary.update(graphs=len(prog.graphs), capture_s=prog.capture_s,
+                       bodies=sum(g.bodies for g in prog.graphs.values()))
     _write(out, raw, summary)
     s, b = summary, summary["backward"]
     print(f"[profile fit] {spec.name} {w}x{h} x {spp} spp ({w * h * spp} rays in one trace), "
           f"{'captured' if not eager else 'op by op'}, on {s['card']}: first step "
           f"{first_ms:.3f} ms, untraced {', '.join(f'{x:.3f}' for x in walls)} ms; live rays "
-          f"per round {live}; peak allocated {s['peak_allocated_gib']:.3f} GiB, reserved "
+          f"per round {live}; host reads of the live counts {syncs[0]} a step; peak "
+          f"allocated {s['peak_allocated_gib']:.3f} GiB, reserved "
           f"{s['peak_reserved_gib']:.3f} GiB")
+    if not eager:
+        print(f"[profile fit] {s['graphs']} graphs with {s['bodies']} conditional bodies "
+              f"captured in {s['capture_s']:.3f} s")
     print(f"[profile fit] traced wall {traced_ms:.3f} ms; device busy {s['device_ms']:.3f} ms "
           f"({s['device_busy_share']:.1%}), {s['kernel_launches']} kernels; of it the backward "
           f"{b['device_ms']:.3f} ms, {b['kernel_launches']} kernels, sweep launches "
@@ -266,6 +271,7 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
     if summary["captured"]:
         (prog,) = st.chunk_programs.values()
         summary.update(graphs=len(prog.graphs), capture_s=prog.capture_s,
+                       bodies=sum(g.bodies for g in prog.graphs.values()),
                        replays={str(k): g.replays for k, g in prog.graphs.items()})
     if stats:
         summary.update(
@@ -285,8 +291,8 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
               f"rays on {s['card']}")
     if s["captured"]:
         print(f"[profile] captured chunk program: first render {first_ms:.3f} ms, "
-              f"{s['graphs']} graphs captured in {s['capture_s']:.3f} s, replays "
-              f"{s['replays']}")
+              f"{s['graphs']} graph(s) with {s['bodies']} conditional bodies captured in "
+              f"{s['capture_s']:.3f} s, replays {s['replays']}")
     elif not one_shard_spp:
         print(f"[profile] the chunk program op by op (eager); first render {first_ms:.3f} ms")
     print(f"[profile] untraced wall {', '.join(f'{x:.3f}' for x in walls)} ms "

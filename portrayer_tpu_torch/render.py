@@ -15,11 +15,13 @@ the JAX package's ``_render_image`` is one jitted program: its tile
 origin, sample offset and chunk index come from a frame-wide table on the
 device, read through a counter that the program advances, and its keys,
 rays, background and trace stay on the device.  On the card with
-accel="cuda" the render captures the program once as CUDA graphs (the
-whole chunk in a scene without bounces; round 0, then each bounce round's
-shape, otherwise) and replays them for every chunk; the host reads only
-the live count of each bounce round, to pick the round's slice.  Anywhere
-else the same program runs op by op.  A `reporter` ticks once per tile,
+accel="cuda" the render captures the program once as one CUDA graph and
+replays it for every chunk: round 0, then each bounce round as one
+conditional body per head slice of its queue, the slice picked on the
+device from the live count (``graphs.switch``, the JAX package's
+``lax.switch``), so a chunk reads nothing on the host.  Anywhere else the
+same program runs op by op and reads each bounce round's pick on the
+host.  A `reporter` ticks once per tile,
 when the host has issued its work (the device runs behind by the work
 still queued).
 """
@@ -34,13 +36,13 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from . import rng
+from . import graphs, rng
 from .camera import Camera, CameraSettings
 from .config import RenderConfig, GAMMA
 from .image_io import read_png, write_png
 from .ops import cuda_intersect
-from .ops.trace import (TraceStats, _Queue, bounce_round, bounce_rounds, first_round, plan,
-                        primary_queue)
+from .ops.trace import (TraceStats, _Queue, bounce_round, first_round, plan, primary_queue,
+                        round_shapes, rounds, slice_sel)
 from .reporter import Reporter, NullProgress
 from .scene.flatten import SceneTables, flatten_scene
 from .scene.node import Scene, bounding_volume_scene
@@ -89,37 +91,20 @@ def _tile_rays(key, cam: Camera, x0: int, y0: int, sample_offset: int, *,
     return o, d, pix_id, bg, live.to(dt)
 
 
-class _Graph:
-    """A step of a chunk program captured as a CUDA graph.  Its sweep
-    launches count once per replay (cuda_intersect.count_replay)."""
-
-    def __init__(self, fn, pool):
-        self.graph = torch.cuda.CUDAGraph()
-        cuda_intersect.take_captured()
-        with torch.cuda.graph(self.graph, pool=pool):
-            fn()
-        self.launches = cuda_intersect.take_captured()
-        self.replays = 0
-
-    def replay(self):
-        self.graph.replay()
-        self.replays += 1
-        cuda_intersect.count_replay(self.launches)
-
-
 class _ChunkProgram:
     """One (tile x sample-chunk) of a render as a program that reads
     nothing on the host: its inputs are the next row of `rows` (x0, y0,
     sample offset, chunk index), picked by the device counter `cursor`,
     and that row's keys (`keys`, folded for the whole frame at once).
     ``head`` traces round 0 and, with bounces, leaves the round-1 queue,
-    acc and the live count in static buffers; ``bounce`` runs one bounce
-    round on them; the chunk's radiance ends in `tile_acc`.  Live rays per
-    round and dropped throughput go to the per-row tables `live` and
-    `dropped`.  With `capture`, each step runs
-    as a CUDA graph, captured at its first use (all in one memory pool:
-    steps meet only in the static buffers, allocated outside every
-    graph)."""
+    acc and the live count in static buffers; each bounce round runs
+    ``bounce`` on the slice that ``slice_sel`` picks from the live count,
+    through ``graphs.switch``; the chunk's radiance ends in `tile_acc`.
+    Live rays per round and dropped throughput go to the per-row tables
+    `live` and `dropped`.  With `capture`, the chunk runs as one CUDA graph
+    (``graphs.Graph``, each round's slices its conditional bodies),
+    captured at its first use; its steps meet only in the static buffers,
+    allocated outside the graph."""
 
     def __init__(self, st: SceneTables, cam: Camera, cfg: RenderConfig, background, *,
                  tile_h: int, tile_w: int, spp: int, samples: int, n_rows: int,
@@ -133,8 +118,7 @@ class _ChunkProgram:
         self.rows = torch.zeros((n_rows, 4), **i64)
         self.cursor = torch.zeros((), **i64)
         self.row = torch.zeros((), **i64)     # the row in flight
-        self.ridx = torch.zeros((), **i64)    # its next bounce round
-        self.n_live = torch.zeros((), **i64)  # live rays entering it
+        self.n_live = torch.zeros((), **i64)  # live rays entering its next round
         self.key = rng.PRNGKey(cfg.seed).to(dev)
         # Per row: the jitter key, then the key of each round.
         self.keys = torch.zeros((n_rows, self.pl.max_depth + 2, 2), **i64)
@@ -153,6 +137,7 @@ class _ChunkProgram:
         self.pool = torch.cuda.graph_pool_handle() if capture else None
         self.warm = False
         self.capture_s = 0.0
+        self.warm_launches = {}
 
     def _fold_keys(self, n: int):
         """The keys of rows [0, n), all at once: the chunk key
@@ -167,12 +152,9 @@ class _ChunkProgram:
         self.keys[:n, 0] = rng.fold_in(ckey, 0)
         self.keys[:n, 1:] = rng.fold_in(rng.fold_in(ckey, 1)[:, None, :], rounds[None, :])
 
-    def _row_key(self, col):
-        """keys[row, col], col a 0-d tensor or an int."""
-        keys = self.keys.index_select(0, self.row.reshape(1))[0]
-        if isinstance(col, int):
-            return keys[col]
-        return keys.index_select(0, col.reshape(1))[0]
+    def _row_key(self, col: int):
+        """keys[row, col]."""
+        return self.keys.index_select(0, self.row.reshape(1))[0, col]
 
     def head(self):
         row = self.rows.index_select(0, self.cursor.reshape(1))[0]
@@ -192,66 +174,76 @@ class _ChunkProgram:
             return
         self.acc.copy_(acc)
         self.bg.copy_(bg)
-        self.ridx.fill_(1)
-        self._queue_out(q, self.pl.cap[1], dropped, n_live)
+        self._queue_out(q, self.pl.cap[1], dropped, n_live, 1)
 
-    def _queue_out(self, q, cap, dropped, n_live):
+    def _queue_out(self, q, cap, dropped, n_live, ridx: int):
         for buf, x in zip(self.queues[cap], q):
             buf.copy_(x)
         self.n_live.copy_(n_live)
-        self.live.index_put_((self.row.reshape(1), self.ridx.reshape(1)),
-                             n_live.reshape(1).to(torch.int32))
+        self.live[:, ridx].index_put_((self.row.reshape(1),), n_live.reshape(1).to(torch.int32))
         self.dropped.index_add_(0, self.row.reshape(1), dropped.reshape(1))
 
-    def bounce(self, cap: int, k: int, next_cap, is_last: bool):
+    def bounce(self, ridx: int, cap: int, k: int, next_cap, is_last: bool):
+        """Bounce round ridx on the head k lanes of the capacity-cap queue."""
         acc, q, dropped, n_live = bounce_round(
-            self._row_key(self.ridx + 1), self.queues[cap], self.acc, self.bg, self.st,
-            self.cfg, k, next_cap, is_last)
+            self._row_key(ridx + 1), self.queues[cap], self.acc, self.bg, self.st, self.cfg, k,
+            next_cap, is_last)
         self.acc.copy_(acc)
-        self.ridx.add_(1)
         if not is_last:
-            self._queue_out(q, next_cap, dropped, n_live)
+            self._queue_out(q, next_cap, dropped, n_live, ridx + 1)
 
-    def _run(self, name, fn):
-        if not (self.capture and self.warm):
-            fn()
-            return
-        g = self.graphs.get(name)
-        if g is None:
-            t0 = time.perf_counter()
-            g = self.graphs[name] = _Graph(fn, self.pool)
-            self.capture_s += time.perf_counter() - t0
-        g.replay()
+    def _trace(self) -> int:
+        """The next row's chunk into tile_acc: round 0, then each bounce
+        round on the slice picked from the live count (none once it is 0).
+        Returns the host reads of the picks (0 under capture)."""
+        self.head()
+        if self.pl.max_depth == 0:
+            return 0
+        reads = 0
+        for ridx, cap, sizes, nxt, last in rounds(self.pl, self.cfg.queue_slice_divs):
+            taken = graphs.switch(slice_sel(self.n_live, sizes), [None] + [
+                functools.partial(self.bounce, ridx, cap, k, nxt, last) for k in sizes])
+            if taken is not None:
+                reads += 1
+                if taken == 0:
+                    break
+        self.tile_acc.add_(self.acc)
+        return reads
 
     def chunk(self) -> int:
         """Trace the next row's chunk into tile_acc; returns the host reads
-        of live counts it took."""
-        self._run("head", self.head)
-        if self.pl.max_depth == 0:
-            return 0
-        reads = []
+        it took: 0 when it replays the captured chunk."""
+        if not (self.capture and self.warm):
+            return self._trace()
+        g = self.graphs.get("chunk")
+        if g is None:
+            t0 = time.perf_counter()
+            g = self.graphs["chunk"] = graphs.Graph(self._trace, self.pool)
+            self.capture_s += time.perf_counter() - t0
+        g.replay()
+        return 0
 
-        def read_live():
-            reads.append(int(self.n_live))
-            return reads[-1]
-
-        for ridx, k, nxt, last in bounce_rounds(self.pl, self.cfg.queue_slice_divs, read_live):
-            cap = self.pl.cap[ridx]
-            self._run(("bounce", cap, k, nxt, last),
-                      functools.partial(self.bounce, cap, k, nxt, last))
-        self.tile_acc.add_(self.acc)
-        return len(reads)
+    def _warm_up(self):
+        """One chunk op by op, then each bounce round's step at each of its
+        slice shapes (building the kernel, the sweep's chunk groups and
+        every branch's first use, as the capture records them all); its
+        sweep launches are kept in warm_launches."""
+        before = cuda_intersect.counts()
+        self.cursor.zero_()
+        self._trace()
+        for shape in round_shapes(self.pl, self.cfg.queue_slice_divs):
+            self.bounce(*shape)
+        after = cuda_intersect.counts()
+        self.warm_launches = {m: after[m] - before[m] for m in ("nearest", "any_hit")}
+        self.warm = True
 
     def start(self, rows: np.ndarray):
-        """Load a frame's rows; a capturing program first runs one chunk op
-        by op (building the kernel, the sweep's chunk groups and the
-        allocator's blocks) and forgets it."""
+        """Load a frame's rows; a capturing program first warms up
+        (_warm_up) and forgets what that did."""
         self.rows[:rows.shape[0]].copy_(torch.from_numpy(rows))
         self._fold_keys(rows.shape[0])
         if self.capture and not self.warm:
-            self.cursor.zero_()
-            self.chunk()
-            self.warm = True
+            self._warm_up()
         self.cursor.zero_()
         self.tile_acc.zero_()
         self.live.zero_()

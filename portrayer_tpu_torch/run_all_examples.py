@@ -34,8 +34,9 @@ def render_all(names, out, samples=2, scale=1.0, accel="cuda", tile=128, device=
                on_scene=None) -> dict:
     """Render each scene of `names` into `out`/<name>.png and write
     `out`/timings.json.  Returns {name: {"secs", "Mrays/s", "size",
-    "launches" (sweep kernel launches per mode), "graphs", "replays"
-    (captured chunk graphs and their replays), "dropped_w"}}; "secs"
+    "launches" (sweep kernel launches per mode), "graphs", "bodies",
+    "replays" (captured chunk graphs, their conditional bodies and their
+    replays), "syncs" (host reads of the chunks), "dropped_w"}}; "secs"
     counts building, lowering, rendering and saving the scene, as the JAX
     package's runner does (which rounds it; this one does not).
     `on_scene(name, spec, tables, cfg, result)`, if given, is called after
@@ -50,20 +51,23 @@ def render_all(names, out, samples=2, scale=1.0, accel="cuda", tile=128, device=
         cfg = RenderConfig(samples=samples, tile=(tile, tile), accel=accel,
                            queue_caps=spec.queue_caps, device=device)
         st = flatten_scene(spec.scene, cfg.device)
-        before = dict(cuda_intersect.COUNTS)
+        before = cuda_intersect.counts()
         stats = []
         img = Image(os.path.join(out, f"{name}.png"), w, h)
         img.render(st, spec.camera, spec.background, cfg, stats=stats,
                    reporter=RenderProgress())
         img.save()
         dt = time.perf_counter() - t0
+        after = cuda_intersect.counts()
         progs = st.chunk_programs.values()
         rays = w * h * samples
         results[name] = {
             "secs": dt, "Mrays/s": rays / dt / 1e6, "size": [w, h],
-            "launches": {k: cuda_intersect.COUNTS[k] - before[k] for k in ("nearest", "any_hit")},
+            "launches": {k: after[k] - before[k] for k in ("nearest", "any_hit")},
             "graphs": sum(len(p.graphs) for p in progs),
+            "bodies": sum(g.bodies for p in progs for g in p.graphs.values()),
             "replays": sum(g.replays for p in progs for g in p.graphs.values()),
+            "syncs": sum(s.syncs for s in stats),
             "dropped_w": sum(s.dropped_w for s in stats) / max(len(stats), 1),
         }
         print(f"{name:34s} {w}x{h}  {dt:8.2f}s  {rays / dt / 1e6:7.3f} Mrays/s", flush=True)

@@ -6,11 +6,13 @@ device, to compare two checkouts of the port on the same card.
 
 The first form renders the scene at its published size and 16 spp with
 131,072 rays per launch and the scene's queue caps (the settings of
-``chip_smoke.py``'s main path):
-once to build the kernel and warm up, then ``--repeats`` times, and prints
-one JSON line with each render's seconds, the kernel launches per mode of
-the last render and a hash of its pixels.  ``--root DIR`` imports the
-package from the checkout at DIR instead of this one.
+``chip_smoke.py``'s main path), on tables flattened once: once to build
+the kernel, warm up and capture the chunk program, then ``--repeats``
+times replaying it, and prints one JSON line with each render's seconds,
+the kernel launches per mode of the last render, its host syncs a chunk,
+the chunk program's graphs and conditional bodies, and a hash of its
+pixels.  ``--root DIR`` imports the package from the checkout at DIR
+instead of this one.
 
 The second form times this checkout against the one at DIR: ``--turns``
 times the order DIR, this, this, DIR, each run in a process of its own,
@@ -38,7 +40,7 @@ def _time(root: str, scene: str, repeats: int) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != here]
     import torch
-    from portrayer_tpu_torch import Image, RenderConfig, scenes
+    from portrayer_tpu_torch import Image, RenderConfig, flatten_scene, scenes
     from portrayer_tpu_torch.ops import cuda_intersect
 
     dev = torch.device("cuda", 0)
@@ -46,18 +48,25 @@ def _time(root: str, scene: str, repeats: int) -> dict:
     w, h = spec.size
     cfg = RenderConfig(device=dev, samples=SPP, max_rays_per_launch=LAUNCH_RAYS,
                        queue_caps=spec.queue_caps)
+    st = flatten_scene(spec.scene, dev)
     img = Image(None, w, h)
-    secs = []
+    secs, stats = [], []
     for i in range(repeats + 1):
         torch.cuda.synchronize()
         cuda_intersect.reset_counts()
+        stats.clear()
         t0 = time.perf_counter()
-        img.render(spec.scene, spec.camera, spec.background, cfg)
+        img.render(st, spec.camera, spec.background, cfg, stats=stats)
         torch.cuda.synchronize()
-        if i:  # the first render builds the kernel
+        if i:  # the first render builds the kernel and captures
             secs.append(time.perf_counter() - t0)
+    # A checkout from before conditional graphs counts every launch in
+    # COUNTS, and its graphs have no bodies.
+    counts = getattr(cuda_intersect, "counts", lambda: dict(cuda_intersect.COUNTS))
+    graphs = [g for p in st.chunk_programs.values() for g in p.graphs.values()]
     return {"root": root, "scene": scene, "size": [w, h], "spp": SPP, "seconds": secs,
-            "launches": dict(cuda_intersect.COUNTS),
+            "launches": counts(), "host_syncs_per_chunk": sum(s.syncs for s in stats) / len(stats),
+            "graphs": len(graphs), "bodies": sum(getattr(g, "bodies", 0) for g in graphs),
             "pixels_sha1": hashlib.sha1(img.buffer.tobytes()).hexdigest()}
 
 

@@ -1,9 +1,20 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX
 package: carrying JAX tables across, and the JAX package's kernel gates."""
 
+import sys
+
 import numpy as np
+import torch
 
 from portrayer_tpu_torch.scene.flatten import TABLE_FIELDS, PACKED_FIELDS, META_FIELDS, TORUS
+
+# The suite runs in several pytest workers that share the machine's cores.
+# torch's intra-op threads in each of them would oversubscribe the cores:
+# the port's CPU tests took twice the CPU time for no gain in wall time on
+# 8 threads, and far longer under six workers.  One thread a test process
+# (chip_smoke.py, which imports these helpers too, keeps its threads).
+if "pytest" in sys.modules:
+    torch.set_num_threads(1)
 
 
 def jax_arrays(st):
@@ -515,3 +526,56 @@ class HostReads:
             finally:
                 self.depth -= 1
         return run
+
+
+class StandInGraph:
+    """portrayer_tpu_torch.graphs.Graph without a card: it records its step
+    and runs it at each replay under the HostReads `reads`.  Its switch is
+    the stand-in conditional: it reads sel on the host with the read
+    excused (on the card the graph evaluates it) and runs that branch;
+    `bodies` counts the branches a capture records, once."""
+
+    reads = None
+
+    def __init__(self, fn, pool):
+        self.fn = fn
+        self.bodies = 0
+        self.replays = 0
+
+    def switch(self, sel, branches):
+        i = self.reads.excused(int)(sel)
+        if self.replays == 0:
+            self.bodies += sum(fn is not None for fn in branches)
+        if branches[i] is not None:
+            branches[i]()
+
+    def replay(self):
+        from portrayer_tpu_torch import graphs
+
+        graphs._capturing = self
+        try:
+            with self.reads:
+                self.fn()
+        finally:
+            graphs._capturing = None
+        self.replays += 1
+
+
+def stand_in_graphs(monkeypatch):
+    """Send renders and differentiable traces with cuda_graphs on the CPU
+    through their capturing programs, with StandInGraph for the graphs and
+    the sweep's plain version (the kernel's stand-in) excused; returns the
+    HostReads."""
+    import torch
+    import portrayer_tpu_torch as T
+    from portrayer_tpu_torch import graphs
+    from portrayer_tpu_torch.ops import cuda_intersect
+
+    reads = HostReads()
+    monkeypatch.setattr(StandInGraph, "reads", reads)
+    monkeypatch.setattr(graphs, "Graph", StandInGraph)
+    monkeypatch.setattr(T.RenderConfig, "captures", property(lambda cfg: cfg.cuda_graphs))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(cuda_intersect, "intersect_scene_sweep_ref",
+                        reads.excused(cuda_intersect.intersect_scene_sweep_ref))
+    return reads

@@ -1,14 +1,17 @@
 """The render's chunk program (render.py ``_ChunkProgram``) on the CPU:
-the steps that the card captures as CUDA graphs read nothing on the host,
-replaying them gives the image of the op-by-op chunk loop, and the render
-through the per-chunk row table equals the JAX package's render_linear.
+the chunk that the card captures as one CUDA graph reads nothing on the
+host, bounce rounds and all, replaying it gives the image of the op-by-op
+chunk loop, and the render through the per-chunk row table equals the JAX
+package's render_linear.
 
-On the CPU a render runs its program op by op.  Here a stand-in for
-render._Graph takes the capture's place: it records a step and runs it at
-each replay under tests/_torch_jax.py's HostReads, which sees every op
+On the CPU a render runs its program op by op.  Here
+tests/_torch_jax.py's StandInGraph takes the capture's place: it records
+the chunk and runs it at each replay under HostReads, which sees every op
 that on the card would read a value on the host or copy host data to the
-card (a capture refuses both).  The sweep's plain version, which stands in
-for the kernel, is excused.
+card (a capture refuses both).  Its switch, the stand-in conditional,
+picks each round's slice with its read of sel excused, since on the card
+the graph evaluates it; the sweep's plain version, which stands in for
+the kernel, is excused too.
 
 Tolerances, with their reasons:
 - stand-in capture against the op-by-op loop: equal bit for bit (the same
@@ -23,15 +26,14 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 import scenes
 import portrayer_tpu as P
 import portrayer_tpu_torch as T
 from portrayer_tpu_torch import render, scenes as tscenes
-from portrayer_tpu_torch.ops import cuda_intersect
+from portrayer_tpu_torch.ops.trace import slice_sizes
 
-from _torch_jax import HostReads, INLINE
+from _torch_jax import INLINE, stand_in_graphs
 from test_torch_render import assert_images_close
 
 # Small frames in tiles of 16x16 and chunks of 4 spp: 6 spp is two chunks,
@@ -40,35 +42,11 @@ SIZE = (48, 32)
 CFG = dict(device="cpu", samples=6, tile=(16, 16), max_rays_per_launch=1024, seed=0)
 
 
-class _StandInGraph:
-    """render._Graph without a card: each replay runs the recorded step
-    under HostReads."""
-
-    reads = None
-
-    def __init__(self, fn, pool):
-        self.fn = fn
-        self.launches = {}
-        self.replays = 0
-
-    def replay(self):
-        with _StandInGraph.reads:
-            self.fn()
-        self.replays += 1
-
-
 @pytest.fixture
 def stand_in(monkeypatch):
     """Renders with cuda_graphs on the CPU go through the capturing
-    program, with _StandInGraph for the graphs; returns the HostReads."""
-    reads = HostReads()
-    monkeypatch.setattr(_StandInGraph, "reads", reads)
-    monkeypatch.setattr(render, "_Graph", _StandInGraph)
-    monkeypatch.setattr(T.RenderConfig, "captures", property(lambda cfg: cfg.cuda_graphs))
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    monkeypatch.setattr(cuda_intersect, "intersect_scene_sweep_ref",
-                        reads.excused(cuda_intersect.intersect_scene_sweep_ref))
-    return reads
+    program, with StandInGraph for the graph; returns the HostReads."""
+    return stand_in_graphs(monkeypatch)
 
 
 def _spec(name):
@@ -79,16 +57,8 @@ def _spec(name):
     return tscenes.load(name)
 
 
-# four-shapes has big-scene's four kinds (sphere, cube, cylinder, cone)
-# in four nodes; the others add mirrors, glossy draws, textures and an
-# area light.
-@pytest.mark.parametrize("name", ["four-shapes", "torus-showcase", "glossy-reflection",
-                                  "normal-mapping-numpy", "soft-shadows-icosphere"])
-def test_captured_steps_read_nothing_on_the_host(stand_in, name):
-    """Every step replayed reads nothing on the host; the replays give the
-    op-by-op loop's image and TraceStats; a scene without bounces is one
-    step a chunk and no host sync, a bounce scene's rounds share a step
-    per (capacity, slice, next capacity, last)."""
+def check_captured_chunk(stand_in, name):
+    """The body of test_captured_steps_read_nothing_on_the_host."""
     spec = _spec(name)
     st = T.flatten_scene(spec.scene, "cpu")
     cfg = T.RenderConfig(**CFG, queue_caps=spec.queue_caps)
@@ -98,19 +68,37 @@ def test_captured_steps_read_nothing_on_the_host(stand_in, name):
     assert stand_in.seen == []
     ref = T.render_linear(*args, dataclasses.replace(cfg, cuda_graphs=False), stats=eager_stats)
     np.testing.assert_array_equal(got, ref)
-    assert [(s.live.tolist(), s.dropped_w, s.syncs) for s in stats] == \
-        [(s.live.tolist(), s.dropped_w, s.syncs) for s in eager_stats]
+    assert [(s.live.tolist(), s.dropped_w) for s in stats] == \
+        [(s.live.tolist(), s.dropped_w) for s in eager_stats]
+    assert all(s.syncs == 0 for s in stats)
     (prog,) = st.chunk_programs.values()
     chunks = len(stats)
-    assert chunks == 6 * 2 and prog.graphs["head"].replays == chunks
-    if not st.any_reflective:
-        assert list(prog.graphs) == ["head"] and all(s.syncs == 0 for s in stats)
-    else:
-        rounds = [k for k in prog.graphs if k != "head"]
-        assert rounds and all(k[0] == "bounce" for k in rounds)
-        replays = sum(prog.graphs[k].replays for k in rounds)
-        assert replays == sum(int((s.live[1:] > 0).sum()) for s in stats)
-        assert len(rounds) < replays  # rounds of equal shape share a step
+    assert chunks == 6 * 2 and list(prog.graphs) == ["chunk"]
+    assert prog.graphs["chunk"].replays == chunks
+    D = prog.pl.max_depth
+    assert prog.graphs["chunk"].bodies == sum(len(slice_sizes(c, cfg.queue_slice_divs))
+                                              for c in prog.pl.cap[1:])
+    # Op by op, a chunk reads each round's pick up to its first dead round.
+    assert [s.syncs for s in eager_stats] == [min(D, int((s.live[1:] > 0).sum()) + 1) if D
+                                              else 0 for s in eager_stats]
+    if st.any_reflective:
+        assert any(s.live[2] > 0 for s in stats)  # a chunk that bounces twice
+
+
+# four-shapes has big-scene's four kinds (sphere, cube, cylinder, cone)
+# in four nodes; the others add mirrors, glossy draws, refraction and
+# total internal reflection (the glass sphere), textures and an area light.
+# torus-showcase is in tests/test_torch_chunk_program_torus.py.
+@pytest.mark.parametrize("name", ["four-shapes", "glossy-reflection", "glass-sphere",
+                                  "normal-mapping-numpy", "soft-shadows-icosphere"])
+def test_captured_steps_read_nothing_on_the_host(stand_in, name):
+    """The captured chunk replayed under HostReads reads nothing on the
+    host, each bounce round's slice picked by the stand-in conditional:
+    every chunk's TraceStats.syncs is 0, and the replays give the op-by-op
+    loop's image, live rays per round and dropped_w bit for bit.  A chunk
+    is one graph with a conditional body per slice of each bounce round;
+    op by op a chunk reads each round's pick on the host."""
+    check_captured_chunk(stand_in, name)
 
 
 def test_a_step_that_reads_on_the_host_is_seen(stand_in):
@@ -135,10 +123,10 @@ def test_program_cache_replays_across_renders(stand_in):
     args = (st, spec.camera, SIZE, spec.background)
     first = T.render_u8(*args, cfg)
     (prog,) = st.chunk_programs.values()
-    head = prog.graphs["head"]
+    head = prog.graphs["chunk"]
     np.testing.assert_array_equal(T.render_u8(*args, cfg), first)
     assert st.chunk_programs == {next(iter(st.chunk_programs)): prog}
-    assert prog.graphs == {"head": head} and head.replays == 2 * 12
+    assert prog.graphs == {"chunk": head} and head.replays == 2 * 12
     region = ((16, 0), (31, 15))
     part = T.render_linear(*args, cfg, region=region)
     assert head.replays == 2 * 12 + 2  # the one tile's two chunks

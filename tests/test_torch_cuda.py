@@ -17,10 +17,13 @@ framebuffer equals the shard sum traced in this process within 1e-5.  The
 beam sweep on big-scene's camera rays and their shadow rays: the gates of
 tests/test_beam.py against the flat sweep, and against the kernel the
 kernel gates by category with a float64 witness (tests/_torch_jax.py's
-sweeps_apart).  The render replaying its captured CUDA graphs equals the
-same chunk program run op by op within 1e-6, and a capture that meets a
-host read raises.  The captured fit (fit.py) gives the op-by-op trace's
-gradients within 1e-4 of their largest entry (index_add's atomics),
+sweeps_apart).  graphs.switch under a capture runs the branch that sel
+names on the device, as the host pick does.  The render replaying its
+captured chunk graph (its bounce rounds' slices conditional bodies)
+equals the same chunk program run op by op within 1e-6 and reads nothing
+on the host, and a capture that meets a host read raises.  The captured
+fit (fit.py) gives the op-by-op trace's gradients within 1e-4 of their
+largest entry (index_add's atomics), reads no live count on the host,
 launches no sweep in its backward, and a second step on replaced tables
 replays its graphs without a new capture.
 
@@ -274,10 +277,11 @@ def test_gradients_through_kernel_match_plain_version(dev, monkeypatch, name, so
 
     cuda_intersect.reset_counts()
     gk = grads()
-    assert cuda_intersect.COUNTS["nearest"] > 0 and cuda_intersect.COUNTS["plain_on_cuda"] == 0
+    counts = cuda_intersect.counts()
+    assert counts["nearest"] > 0 and counts["plain_on_cuda"] == 0
     monkeypatch.setattr(cuda_intersect, "intersect_scene_cuda", intersect_scene_sweep_ref)
     gp = grads()
-    assert cuda_intersect.COUNTS["plain_on_cuda"] > 0
+    assert cuda_intersect.counts()["plain_on_cuda"] > 0
     for f in fields:
         assert torch.isfinite(gk[f]).all(), f
         scale = gp[f].abs().max()
@@ -312,7 +316,7 @@ def _gloo_rank(rank, world, store, out, n_rays):
         args = (rng.PRNGKey(5), o, d, pix, bg, 4096, st, RenderConfig(device=dev))
         acc = par.trace_sharded(mesh, *args)
         parts = par.trace_sharded(mesh, *args, reduce=False)
-        torch.save({"acc": acc.cpu(), "parts": parts.cpu(), "counts": dict(cuda_intersect.COUNTS)},
+        torch.save({"acc": acc.cpu(), "parts": parts.cpu(), "counts": cuda_intersect.counts()},
                    f"{out}/rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -401,12 +405,14 @@ BIG_TILE = ((896, 384), (1023, 511))
 @pytest.mark.parametrize("name, size, region", [
     ("big-scene", (1980, 1020), BIG_TILE), ("torus-showcase", (256, 256), None)])
 def test_captured_render_matches_the_eager_chunk_loop(dev, name, size, region):
-    """The render replaying its captured chunk graphs against the same
+    """The render replaying its captured chunk graph against the same
     chunk program run op by op (cuda_graphs=False), at the main paths' 16
     spp and 131,072 rays a chunk: within 1e-6 (index_add's float atomics
-    sum in another order), the same live rays per round, each chunk's head
-    graph replayed once, the sweep launches counted per replay (the
-    captured render's are the eager loop's plus its warm-up chunk's)."""
+    sum in another order), the same live rays per round, the chunk graph
+    replayed once a chunk and reading nothing on the host (each bounce
+    round's slice a conditional body), the sweep launches counted on the
+    device where the bodies ran (the captured render's are the eager
+    loop's plus its warm-up's)."""
     import dataclasses
 
     spec = scenes.load(name)
@@ -420,18 +426,20 @@ def test_captured_render_matches_the_eager_chunk_loop(dev, name, size, region):
         cuda_intersect.reset_counts()
         img = T.render_linear(*args, dataclasses.replace(cfg, cuda_graphs=graphs),
                               region=region, stats=stats)
-        runs[graphs] = img, stats, dict(cuda_intersect.COUNTS)
+        runs[graphs] = img, stats, cuda_intersect.counts()
     (img, stats, counts), (ref, ref_stats, ref_counts) = runs[True], runs[False]
     np.testing.assert_allclose(img, ref, rtol=0, atol=1e-6)
     assert [s.live.tolist() for s in stats] == [s.live.tolist() for s in ref_stats]
     (prog,) = st.chunk_programs.values()
-    assert prog.graphs["head"].replays == len(stats)
-    first = stats[0].live
+    assert list(prog.graphs) == ["chunk"] and prog.graphs["chunk"].replays == len(stats)
+    assert all(s.syncs == 0 for s in stats)
+    assert prog.graphs["chunk"].bodies == sum(
+        len(tr.slice_sizes(c, cfg.queue_slice_divs)) for c in prog.pl.cap[1:])
     for mode in ("nearest", "any_hit"):
-        assert counts[mode] == ref_counts[mode] + int((first > 0).sum()), (counts, ref_counts)
+        assert counts[mode] == ref_counts[mode] + prog.warm_launches[mode], (counts, ref_counts)
     assert counts["plain_on_cuda"] == ref_counts["plain_on_cuda"] == 0
-    if not st.any_reflective:
-        assert list(prog.graphs) == ["head"] and all(s.syncs == 0 for s in stats)
+    if st.any_reflective:
+        assert sum(s.syncs for s in ref_stats) > 0 and counts["graph_if"] > 0
 
 
 def test_a_capture_that_meets_a_host_read_raises(dev, tmp_path):
@@ -475,10 +483,11 @@ def test_captured_fit_matches_the_op_by_op_trace(dev, name):
     internal reflection): gradients of sum(acc^2) with respect to every
     DIFF_FIELDS table through the captured fit program against the trace
     run op by op (cuda_graphs=False) within FIT_RTOL of the largest entry,
-    the colours within 1e-6 and the same live rays per round; no sweep
-    launched in either backward (each backward graph recorded none); a
-    second step on tables replaced with other values replays every graph
-    it needs without a new capture, and matches the op-by-op trace too."""
+    the colours within 1e-6 and the same live rays per round; the captured
+    step reads no live count on the host; no sweep launched in either
+    backward; a second step on tables replaced with other values replays
+    the forward and backward graphs without a new capture, and matches
+    the op-by-op trace too."""
     import dataclasses
     from portrayer_tpu_torch import render
     from portrayer_tpu_torch.ops.trace import trace
@@ -501,7 +510,8 @@ def test_captured_fit_matches_the_op_by_op_trace(dev, name):
         cuda_intersect.reset_counts()
         torch.sum(acc ** 2).backward()
         torch.cuda.synchronize()
-        assert cuda_intersect.COUNTS == {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0}
+        counts = cuda_intersect.counts()
+        assert counts["nearest"] == counts["any_hit"] == counts["plain_on_cuda"] == 0
         return acc.detach(), {f: x.grad for f, x in leaves.items()}, stats
 
     eager = dataclasses.replace(cfg, cuda_graphs=False)
@@ -509,6 +519,7 @@ def test_captured_fit_matches_the_op_by_op_trace(dev, name):
         acc, g, stats = step(cfg, scale)
         racc, rg, rstats = step(eager, scale)
         assert stats.live.tolist() == rstats.live.tolist() and int(stats.live[1]) > 0
+        assert stats.syncs == 0 and rstats.syncs > 0
         torch.testing.assert_close(acc, racc, rtol=0, atol=1e-6)
         for f in FIT_FIELDS:
             assert torch.isfinite(g[f]).all(), f
@@ -518,7 +529,40 @@ def test_captured_fit_matches_the_op_by_op_trace(dev, name):
         if scale == 1.0:
             graphs, capture_s = dict(prog.graphs), prog.capture_s
             replays = {k: v.replays for k, v in graphs.items()}
-    assert all(v.launches == {"nearest": 0, "any_hit": 0}
-               for k, v in prog.graphs.items() if k[0] == "grad")
+    assert sorted(prog.graphs) == ["backward", "forward"]
     assert prog.graphs == graphs and prog.capture_s == capture_s
-    assert prog.graphs["head"].replays == replays["head"] + 1
+    assert prog.graphs["forward"].replays == replays["forward"] + 1
+
+
+def test_switch_on_the_card_takes_the_branch_of_sel(dev):
+    """graphs.switch under a capture: the replayed graph runs the branch
+    that sel names on the device (none for a dead one), as the host pick
+    does off capture, for every sel; a branch that allocates reuses its
+    memory across replays; the conditional kernel counts one run a
+    branch and replay, on the device."""
+    from portrayer_tpu_torch import graphs
+
+    out = torch.zeros(4, device=dev)
+    sel = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def branch(i):
+        return lambda: out.copy_(torch.full((4,), float(i), device=dev) * 2.0)
+
+    branches = [None, branch(1), branch(2), branch(3)]
+
+    def step():
+        out.fill_(-1.0)
+        graphs.switch(sel.clone(), branches)
+
+    g = graphs.Graph(step, torch.cuda.graph_pool_handle())
+    assert g.bodies == 3
+    cuda_intersect.reset_counts()
+    for i in range(4):
+        sel.fill_(i)
+        g.replay()
+        got = out.clone()
+        assert graphs.switch(sel, branches) == i
+        want = -1.0 if i == 0 else 2.0 * i
+        assert got.tolist() == [want] * 4
+    assert cuda_intersect.counts()["graph_if"] == 4 * 3
+    assert g.replays == 4

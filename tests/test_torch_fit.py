@@ -17,9 +17,10 @@ Tolerances, with their reasons:
   threads the CPU backward of a gather (index_put_ with accumulate) adds
   its rows in the order the threads reach them, and two runs of the same
   uncheckpointed trace part by a few ulps.
-- the fit program's steps replayed through a stand-in for render._Graph
-  against the program run op by op: equal bit for bit (the same ops on the
-  same inputs).
+- the fit program's forward and backward replayed through
+  tests/_torch_jax.py's StandInGraph (the stand-in for graphs.Graph and
+  its conditional bodies) against the op-by-op trace: equal bit for bit
+  (the same ops on the same inputs).
 """
 
 import dataclasses
@@ -35,12 +36,12 @@ import portrayer_tpu as P
 from portrayer_tpu.camera import Camera as JaxCamera
 from portrayer_tpu.ops.trace import trace as jax_trace
 import portrayer_tpu_torch as T
-from portrayer_tpu_torch import fit, render, rng
+from portrayer_tpu_torch import fit, render, rng, scenes as tscenes
 from portrayer_tpu_torch.camera import Camera
 from portrayer_tpu_torch.ops import cuda_intersect, intersect as tx, trace as tr
 from portrayer_tpu_torch.parallel import DIFF_FIELDS
 
-from _torch_jax import HostReads, glass_sphere, jax_arrays
+from _torch_jax import glass_sphere, jax_arrays, stand_in_graphs
 import test_torch_grad
 
 SCENES = ("glass-sphere", "grad-scene")
@@ -281,45 +282,28 @@ def test_remat_min_lanes_exempts_small_rounds(monkeypatch):
 # The fit program (fit.py)
 # ---------------------------------------------------------------------------
 
-class _StandInGraph:
-    """render._Graph without a card: each replay runs the recorded step
-    under HostReads (tests/test_torch_chunk_program.py's stand-in)."""
-
-    reads = None
-
-    def __init__(self, fn, pool):
-        self.fn = fn
-        self.launches = {}
-        self.replays = 0
-
-    def replay(self):
-        with _StandInGraph.reads:
-            self.fn()
-        self.replays += 1
-
-
 @pytest.fixture
 def stand_in(monkeypatch, one_thread):
     """Differentiable traces with cuda_graphs on the CPU go through the
-    capturing fit program, with _StandInGraph for the graphs; returns the
+    capturing fit program, with StandInGraph for the graphs; returns the
     HostReads."""
-    reads = HostReads()
-    monkeypatch.setattr(_StandInGraph, "reads", reads)
-    monkeypatch.setattr(render, "_Graph", _StandInGraph)
-    monkeypatch.setattr(T.RenderConfig, "captures", property(lambda cfg: cfg.cuda_graphs))
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    monkeypatch.setattr(cuda_intersect, "intersect_scene_sweep_ref",
-                        reads.excused(cuda_intersect.intersect_scene_sweep_ref))
-    return reads
+    return stand_in_graphs(monkeypatch)
 
 
-def _glass_tile(spp=2):
-    """The glass sphere's middle 16x16 tile at `spp`, as the render builds
-    its rays: (tables, o, d, pix, bg, w0)."""
-    scene, cam, (w, h) = glass_sphere(T)
+def _glass_tile(spp=2, name="glass-sphere"):
+    """The glass sphere's middle 16x16 tile (or a 16x16 tile of
+    glossy-reflection whose rays bounce twice off its spheres) at `spp`, as
+    the render builds its rays: (tables, o, d, pix, bg, w0)."""
+    if name == "glass-sphere":
+        scene, cam, (w, h) = glass_sphere(T)
+        x0 = y0 = 24
+    else:
+        spec = tscenes.load(name)
+        scene, cam, (w, h) = spec.scene, spec.camera, spec.size
+        x0, y0 = 384, 192
     st = T.flatten_scene(scene, "cpu")
     cfg = T.RenderConfig(device="cpu")
-    rays = render._tile_rays(rng.PRNGKey(4), Camera(cam, (w, h), "cpu"), 24, 24, 0,
+    rays = render._tile_rays(rng.PRNGKey(4), Camera(cam, (w, h), "cpu"), x0, y0, 0,
                              cfg=cfg, background=render.default_background, tile_h=16,
                              tile_w=16, spp=spp, samples=spp)
     return (st,) + rays
@@ -343,45 +327,45 @@ def _assert_equal(a, b):
 
 def test_fit_program_equals_trace_and_backward(stand_in):
     """The fit program (its first call op by op, the warm-up, then its
-    steps through the stand-in graphs) against trace + backward() on the
-    glass sphere's tile: the same colours, TraceStats and gradients, bit
-    for bit, on the first call and again on a second."""
+    forward and backward through the stand-in graphs) against trace +
+    backward() on the glass sphere's tile: the same colours, TraceStats and
+    gradients, bit for bit, on the first call and again on a second."""
     st, *rays = _glass_tile()
     ref = _tile_grads(st, *rays, T.RenderConfig(device="cpu", cuda_graphs=False))
     cfg = T.RenderConfig(device="cpu")
     _assert_equal(_tile_grads(st, *rays, cfg), ref)
     (prog,) = st.packed.fit_programs.values()
-    assert prog.warm and prog.graphs["head"].replays == 1
+    assert prog.warm and prog.graphs["forward"].replays == 1
     _assert_equal(_tile_grads(st, *rays, cfg), ref)
-    assert prog.graphs["head"].replays == 2 and stand_in.seen == []
+    assert prog.graphs["forward"].replays == 2 and stand_in.seen == []
 
 
-def test_captured_fit_steps_read_nothing_on_the_host(stand_in):
-    """Every step of the capturing fit program, forward and backward,
-    replayed under HostReads: no host read, no copy from host data; the
-    replays give the op-by-op trace's colours and gradients; rounds of
-    one shape share a step, each backward step replays as often as its
-    forward; a second step on replaced tables (new parameter values)
-    replays the cached steps without a new one, and equals trace on
+@pytest.mark.parametrize("name", ["glass-sphere", "glossy-reflection"])
+def test_captured_fit_steps_read_nothing_on_the_host(stand_in, name):
+    """The capturing fit program's forward and backward, each one graph,
+    replayed under HostReads: no host read, no copy from host data, each
+    bounce round's slice picked by the stand-in conditional (a conditional
+    body per slice of each round, forward and backward); TraceStats.syncs
+    is 0; the replays give the op-by-op trace's colours, live rays per
+    round and gradients bit for bit; a second step on replaced tables (new
+    parameter values) replays the same two graphs, and equals trace on
     those tables."""
-    st, *rays = _glass_tile()
+    st, *rays = _glass_tile(name=name)
     cfg = T.RenderConfig(device="cpu")
     eager = dataclasses.replace(cfg, cuda_graphs=False)
     got = _tile_grads(st, *rays, cfg)
-    assert stand_in.seen == []
-    _assert_equal(got, _tile_grads(st, *rays, eager))
+    assert stand_in.seen == [] and got[2].syncs == 0
+    ref = _tile_grads(st, *rays, eager)
+    _assert_equal(got, ref)
+    assert int((ref[2].live[1:] > 0).sum()) >= 2 and ref[2].syncs > 0
     (prog,) = st.packed.fit_programs.values()
-    assert prog.warm
-    forward = {k: g.replays for k, g in prog.graphs.items() if k[0] != "grad"}
-    backward = {k[1:]: g.replays for k, g in prog.graphs.items() if k[0] == "grad"}
-    assert forward == {("head" if k == ("head",) else k): v for k, v in backward.items()}
-    assert forward["head"] == 1
-    rounds = sum(v for k, v in forward.items() if k != "head")
-    assert rounds == 10 and len(forward) - 1 < rounds
+    assert prog.warm and sorted(prog.graphs) == ["backward", "forward"]
+    bodies = sum(len(tr.slice_sizes(c, cfg.queue_slice_divs)) for c in prog.pl.cap[1:])
+    assert all(g.bodies == bodies and g.replays == 1 for g in prog.graphs.values())
     steps = dict(prog.graphs)
     again = _tile_grads(st, *rays, cfg, scale=0.9)
     assert stand_in.seen == [] and prog.graphs == steps
-    assert prog.graphs["head"].replays == 2
+    assert all(g.replays == 2 for g in prog.graphs.values())
     _assert_equal(again, _tile_grads(st, *rays, eager, scale=0.9))
     assert list(st.packed.fit_programs.values()) == [prog]
 

@@ -73,12 +73,15 @@ def assert_self_golden_rule(ours, ref):
     assert frac < 1e-3, f"{frac:.2%} pixels differ (max {diff.max()})"
 
 
-@pytest.mark.parametrize("name", ["simple", "big-scene"])
+# big-scene's two cases, the longest, are in files of their own
+# (tests/test_torch_render_big_scene_*.py), so that the test run spreads
+# them over its workers.
+@pytest.mark.parametrize("name", ["simple"])
 def test_render_linear_matches_jax(name):
     assert_images_close(_render("port", name), _render("jax", name))
 
 
-@pytest.mark.parametrize("name", ["simple", "big-scene", "four-shapes"])
+@pytest.mark.parametrize("name", ["simple", "four-shapes"])
 def test_render_u8_matches_self_golden_and_jax(name):
     ours = _render("port", name, as_u8=True)
     assert ours.dtype == np.uint8

@@ -1,7 +1,8 @@
 """The port's bounce loop against the JAX package's, on the CPU: queue
 compaction, traces at max_depth 10 through reflective, glossy and
 refractive scenes and an icosphere mirror among meshes, independence of
-the live-count slicing, and the torus-showcase self-golden.
+the live-count slicing and its branch index on the device.  The
+torus-showcase self-golden is in tests/test_torch_trace_torus_golden.py.
 
 Tolerances, with their reasons:
 - _compact: the port's fixed-capacity queue equals the JAX package's on
@@ -13,11 +14,7 @@ Tolerances, with their reasons:
   torus gate is rtol 1e-3 on t), and shading follows the hit point, so
   such pixels may differ by up to 1e-3.  TraceStats.live is equal,
   dropped_w within 1e-6, and every round runs on the same head slice.
-- torus-showcase's u8 render: the rule of tests/test_golden.py (fewer
-  than 0.1% of pixels off by more than 2/255) against the JAX package's
-  render without jit, and against the self-golden on every pixel but
-  those where that JAX render itself is off from the golden (see the
-  test).
+- slice_sel against the JAX package's formula: equal.
 """
 
 import dataclasses
@@ -30,12 +27,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-import chip_smoke
 import scenes
 import portrayer_tpu as P
 from portrayer_tpu.ops import intersect as jx
 import portrayer_tpu_torch as T
-from portrayer_tpu_torch import image_io, rng, scenes as tscenes
+from portrayer_tpu_torch import rng, scenes as tscenes
 from portrayer_tpu_torch.camera import Camera
 from portrayer_tpu_torch.ops import intersect as tx, trace as ttrace
 from portrayer_tpu_torch.render import _tile_rays
@@ -205,40 +201,35 @@ def test_live_slicing_moves_no_pixel(monkeypatch):
     np.testing.assert_allclose(full.numpy(), sliced.numpy(), rtol=0, atol=1e-6)
 
 
-def test_render_u8_torus_showcase_matches_self_golden():
-    """torus-showcase at the self-golden's 64x64, 4 spp, seed 0, tile 64
-    (tools/gen_self_goldens.py), through the port's render loop.  Against
-    the JAX package's render run op by op (no jit): the self-golden rule.
-    The golden was rendered jitted, where XLA contracts the torus quartic's
-    mul+adds into FMAs; the f32 roots move within the torus gate and x^160
-    highlights carry that into the colour, so the JAX package's own op-by-op
-    render is off from its golden on a few torus pixels.  Those pixels are
-    chip_smoke.TORUS_JIT_PIXELS (chip_smoke.py's golden phase has no JAX to
-    find them); on every other pixel the port keeps the self-golden rule."""
-    spec = tscenes.load("torus-showcase")
-    cfg = T.RenderConfig(device="cpu", samples=4, tile=(64, 64), seed=0)
-    ours = T.render_u8(spec.scene, spec.camera, (64, 64), spec.background, cfg)
-    jspec = scenes.load("torus-showcase")
-    with jax.disable_jit():
-        ref = np.asarray(P.render_u8(jspec.scene, jspec.camera, (64, 64), jspec.background,
-                                     P.RenderConfig(samples=4, tile=(64, 64), seed=0,
-                                                    accel="flat", node_chunk=128)))
-    gold = image_io.read_png(os.path.join(ROOT, "tests", "self_golden", "torus-showcase.png"))
-    assert ours.shape == gold.shape == ref.shape
-
-    def off(a, b):
-        return (np.abs(a.astype(np.int16) - b.astype(np.int16)) > 2).any(axis=-1).reshape(-1)
-
-    assert off(ours, ref).mean() < 1e-3, f"{off(ours, ref).mean():.2%} pixels differ from JAX"
-    jit_pixels = np.nonzero(off(ref, gold))[0]
-    assert jit_pixels.tolist() == list(chip_smoke.TORUS_JIT_PIXELS)
-    rest = off(ours, gold)
-    rest[jit_pixels] = False
-    assert rest.mean() < 1e-3, f"{rest.mean():.2%} pixels differ from the golden"
+PLANS = [((4.0,), (16, 4, 1)), ((4.0, 1.0, 0.5), (16, 4, 1)), ((3.0, 0.75), (8, 2)),
+         ((1.0,), (1,))]
 
 
-@pytest.mark.parametrize("caps, divs", [((4.0,), (16, 4, 1)), ((4.0, 1.0, 0.5), (16, 4, 1)),
-                                        ((3.0, 0.75), (8, 2)), ((1.0,), (1,))])
+@pytest.mark.parametrize("caps, divs", PLANS)
+def test_slice_sel_matches_jax(caps, divs):
+    """The branch index that slice_sel computes on the device, for every
+    live count from 0 to each round's capacity (the plans of
+    test_slice_sizes_match_jax), equals the JAX package's round_r formula
+    (portrayer_tpu/ops/trace.py: jnp.where(n_live > 0, 1 +
+    jnp.searchsorted(sizes, n_live), 0)); pick_slice, the host form of
+    the op-by-op trace, takes the same branch."""
+    R0, depth = 8192, 4
+    st = T.flatten_scene(tscenes.load("glossy-reflection").scene, "cpu")
+    pl = ttrace.plan(R0, st, T.RenderConfig(device="cpu", max_depth=depth, queue_caps=caps))
+    for r in range(1, depth + 1):
+        sizes = ttrace.slice_sizes(pl.cap[r], divs)
+        n = np.arange(pl.cap[r] + 1)
+        want = np.asarray(jnp.where(n > 0, 1 + jnp.searchsorted(jnp.asarray(sizes, jnp.int32),
+                                                                 jnp.asarray(n, jnp.int32)), 0))
+        sel = ttrace.slice_sel(torch.as_tensor(n), sizes)
+        assert sel.dtype == torch.int64
+        np.testing.assert_array_equal(sel.numpy(), want)
+        branches = (0,) + sizes
+        assert [ttrace.pick_slice(sizes, i) for i in n.tolist()] == \
+            [branches[i] for i in want.tolist()]
+
+
+@pytest.mark.parametrize("caps, divs", PLANS)
 def test_slice_sizes_match_jax(monkeypatch, caps, divs):
     """The head slices a round may run on, for several capacity schedules
     and queue_slice_divs at 8,192 primary rays: the JAX package's trace,
