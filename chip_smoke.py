@@ -28,25 +28,35 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    middle tile of the middle tile row, as ``render._tile_rays`` builds it)
    and its shadow rays, held against the plain version too; then the
    conditional kernel of ``graphs.switch`` (``csrc/conditional.cu``)
-   against the host pick, for every branch, and both their times;
+   against the host pick, for every branch, and both their times; and the
+   step kernel of ``graphs.loop``'s WHILE node (the same source) against
+   the host loop, for loops of 0 to LOOP_END iterations, and both their
+   times (the two kernels' own device times are taken last, in phase 8);
 3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64),
    single-triangle (160x120) and four-shapes (256x68) against the
    committed self-goldens (on torus-showcase, the pixels of
    TORUS_JIT_PIXELS aside), through the captured render;
 4. the main paths through ``Image.render``, which captures each chunk
    program as one CUDA graph (each bounce round's slices its conditional
-   bodies) and replays it, each with the kernel launch counts of its run
-   (counted on the device where the graph runs them): big-scene's full 1980x1020
-   frame, torus-showcase at 256x256, glossy-reflection at 910x512,
-   procedural-meshes at 960x540, single-triangle at 640x480,
-   normal-mapping-numpy and soft-shadows-icosphere at 910x512 and
-   four-shapes at 1920x512, all at 16 spp, with live rays per bounce
-   round, host syncs (0 a captured chunk) and dropped throughput (from
-   the render's TraceStats, read once a frame); the capture's seconds,
-   graphs, bodies and replays; beside it in the same call the render again
-   with the graph cached, whose launches must equal those of the eager
-   chunk loop (``cuda_graphs=False``), and the eager loop, whose linear
-   image the captured one must equal within CAPTURED_TOL; then simple at
+   bodies; the rounds of the tail of equal capacity but the last one
+   loop, a WHILE node whose body holds one round's slices) and replays
+   it, each with the kernel launch counts
+   of its run (counted on the device where the graph runs them):
+   big-scene's full 1980x1020 frame, torus-showcase at 256x256,
+   glossy-reflection at 910x512, procedural-meshes at 960x540,
+   single-triangle at 640x480, normal-mapping-numpy and
+   soft-shadows-icosphere at 910x512 and four-shapes at 1920x512, all at
+   16 spp, with live rays per bounce round, host syncs (0 a captured
+   chunk) and dropped throughput (from the render's TraceStats, read
+   once a frame); the capture's seconds, graphs, bodies, loops and
+   replays; beside it in the same call the render again with the graph
+   cached, whose launches must equal those of the eager chunk loop
+   (``cuda_graphs=False``), and the eager loop, whose linear
+   image the captured one must equal within CAPTURED_TOL; on
+   torus-showcase and glossy-reflection (DETERMINISTIC_PATHS) the
+   captured program (its tail one loop) and the eager loop (every round
+   unrolled) again on fresh tables under deterministic algorithms, 0
+   pixels apart and 0 host reads captured; then simple at
    256x256, glossy-reflection, procedural-meshes and normal-mapping-numpy
    (240x136) at 4 spp through ``render_linear``, held against the flat
    oracle's render on the card;
@@ -64,11 +74,15 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    step (the first with its capture), peak memory with every round
    checkpointed and with bounce-round checkpointing off, sweep launches in
    forward (one a mode and live round) and backward (none), host reads a
-   step (0 captured), the capture's seconds, graphs and bodies, and the
-   captured gradients of every DIFF_FIELDS table held against the op-by-op
-   ones within GRAD_RTOL; one more op-by-op step of each with every sweep
-   launch held against the plain version under phase 2's gates (the fit's
-   own launch sizes); then big-scene at 1980x1020 and 1 spp,
+   step (0 captured), the capture's seconds, graphs, bodies and loops, and
+   the captured gradients of every DIFF_FIELDS table held against the
+   op-by-op ones within GRAD_RTOL; one more op-by-op step of each with
+   every sweep launch held against the plain version under phase 2's gates
+   (the fit's own launch sizes); one captured step (its tail one loop)
+   on a fresh program and one op-by-op step (every round unrolled) of
+   each under deterministic algorithms, 0 gradient entries apart and 0
+   host reads captured; then big-scene
+   at 1980x1020 and 1 spp,
    mat_diffuse, backward per chunk of 131,072 rays, captured, beside one
    pass op by op;
 6. multi-device (``portrayer_tpu_torch.parallel``): world size 1 under
@@ -99,17 +113,18 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    folder named by PORTRAYER_ASSETS, each through
    ``portrayer_tpu_torch.run_all_examples.render_all`` at its published
    size, 2 spp, accel="cuda" (the captured chunk program): per scene the
-   first render's seconds and Mrays/s, graphs, bodies and replays, host
+   first render's seconds and Mrays/s, graphs, bodies, loops and replays, host
    syncs (0), sweep launches per mode, dropped_w, its linear image
    finite, and the kernel against
    its plain version under phase 2's gates on the first chunk of camera
    rays, the middle tile's chunk and their shadow rays (0 rays apart);
 8. the sweep kernel alone on the device (torch.profiler) at each launch
-   shape of phase 2; last, so that the profiler cannot weigh on the wall
-   times of phases 4 to 7.
+   shape of phase 2, and the conditional and step kernels alone in
+   replays of phase 2's graphs; last, so that the profiler cannot weigh
+   on the wall times of phases 4 to 7.
 
 The last two lines are a JSON object of per-kernel numbers (the sweep's
-two modes and the conditional kernel) and the
+two modes, the conditional kernel and the loop's step kernel) and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
 Nothing here imports JAX.
 """
@@ -134,7 +149,17 @@ COND_SOURCE = "portrayer_tpu_torch/csrc/conditional.cu"
 COND_REPLACES = "portrayer_tpu/ops/trace.py:431"
 COND_BRANCHES = 4
 COND_ITERS = 200
+# graphs.loop's step kernel (the same source), and the JAX package's
+# lax.scan over the tail of equal capacity that its WHILE node replaces:
+# its check runs loops of 0 to LOOP_END iterations, ended by the live
+# count or by the end, against the host loop; it is timed on LOOP_END.
+LOOP_REPLACES = "portrayer_tpu/ops/trace.py:456"
+LOOP_END = 9
 FULL_FRAME_SPP = 16
+# Main paths whose captured render (its tail one loop) is also held
+# against the eager loop (every round unrolled) bit for bit, under
+# deterministic algorithms.
+DETERMINISTIC_PATHS = ("torus-showcase", "glossy-reflection")
 SIMPLE_SPP = 4
 GLOSSY_LINEAR_SPP = 4
 # procedural-meshes through render_linear against the flat oracle: a cut
@@ -357,12 +382,12 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters):
-    """Device time per launch of the sweep kernel launched by `fn`: the
-    mean of its kernel events under torch.profiler over `iters` calls (the
-    wrapper's own small kernels and its host time left out; a mean over the
-    events recorded, as the profiler may drop some); None where the
-    profiler records no device time."""
+def _device_ms(fn, iters, kernel="sweep_kernel"):
+    """Device time per run of the kernel `kernel` (a part of its name) that
+    `fn` launches: the mean of its kernel events under torch.profiler over
+    `iters` calls (the other kernels and the host time left out; a mean
+    over the events recorded, as the profiler may drop some); None where
+    the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -372,7 +397,7 @@ def _device_ms(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "sweep_kernel" in e.key]
+    events = [e for e in prof.key_averages() if kernel in e.key]
     us, n = sum(e.device_time_total for e in events), sum(e.count for e in events)
     return us / n / 1e3 if us > 0 else None
 
@@ -572,7 +597,8 @@ def phase_conditional(dev):
     COND_BRANCHES - 1, against the same step op by op (one host read of
     sel, then the branch) on the same sel; then the time of a replay and
     of an op-by-op step, each a mean over COND_ITERS with the card
-    synchronised at the end.  Returns the kernel's line fields."""
+    synchronised at the end.  Returns the kernel's line fields, and the
+    replay whose kernel runs phase 8 times (_graph_kernel_ms)."""
     import functools
     import torch
     from portrayer_tpu_torch import graphs
@@ -604,15 +630,100 @@ def phase_conditional(dev):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / COND_ITERS * 1e3
 
-    ms, plain_ms = mean_ms(g.replay), mean_ms(step)
+    replay_ms, plain_ms = mean_ms(g.replay), mean_ms(step)
     # It reads sel and its count, and writes the count: 24 bytes.
     bound_ms = 24 / PEAK_BYTES * 1e3
     print(f"[2 conditional] graphs.switch over {COND_BRANCHES} branches ({g.bodies} bodies): "
           f"captured against the host pick for every sel, largest difference {err}; a replay "
-          f"{ms:.4f} ms, the op-by-op step {plain_ms:.4f} ms (means of {COND_ITERS}); bound "
-          f"{bound_ms:.3g} ms (bytes)", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+          f"{replay_ms:.4f} ms, the op-by-op step {plain_ms:.4f} ms (means of {COND_ITERS}); "
+          f"bound {bound_ms:.3g} ms (bytes)", flush=True)
+    return {"max_abs_err": err, "replay_ms": replay_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}, g.replay
+
+
+def phase_loop(dev):
+    """graphs.loop's step kernel (csrc/conditional.cu) against its plain
+    version, the host loop: a step whose loop body adds one to out[index]
+    and clears `live` at index `stop` - 1, captured as one graph (a WHILE
+    node) and replayed for loops of 0, 1, a few and LOOP_END iterations,
+    against the same step op by op (one host read of the condition an
+    iteration, then the body and index += 1) on the same inputs; then the
+    time of a replay and of an op-by-op step that run LOOP_END iterations,
+    each a mean over COND_ITERS with the card synchronised at the end, over
+    the step kernel's runs (LOOP_END + 1 a step).  Returns the kernel's
+    line fields, and the replay whose kernel runs phase 8 times
+    (_graph_kernel_ms)."""
+    import torch
+    from portrayer_tpu_torch import graphs
+    from portrayer_tpu_torch.ops import cuda_intersect
+
+    i64 = dict(dtype=torch.int64, device=dev)
+    index, live, stop = (torch.zeros((), **i64) for _ in range(3))
+    out = torch.zeros(LOOP_END, **i64)
+    one = torch.ones(1, **i64)
+
+    def body():
+        out.index_add_(0, index.reshape(1), one)
+        live.copy_((index + 1 < stop).to(torch.int64))
+
+    def step():
+        out.zero_()
+        index.zero_()
+        live.copy_((stop > 0).to(torch.int64))
+        return graphs.loop(index, LOOP_END, live, body)
+
+    g = graphs.Graph(step, torch.cuda.graph_pool_handle())
+    err = 0
+    for n in (0, 1, 3, LOOP_END, LOOP_END + 5):
+        stop.fill_(n)
+        cuda_intersect.reset_counts()
+        g.replay()
+        runs = cuda_intersect.counts()["graph_while"]
+        captured, captured_index = out.clone(), int(index)
+        reads = step()
+        iterations = min(n, LOOP_END)
+        err = max(err, int((captured - out).abs().max()), abs(captured_index - int(index)))
+        if (captured.sum() != iterations or captured_index != iterations
+                or runs != iterations + 1 or reads != iterations + 1):
+            raise AssertionError(f"loop: stop {n} ran {int(captured.sum())} iterations to "
+                                 f"index {captured_index}, the step kernel {runs} times "
+                                 f"(host loop: {reads} reads)")
+
+    def mean_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COND_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / COND_ITERS * 1e3 / (LOOP_END + 1)
+
+    stop.fill_(LOOP_END)
+    replay_ms, plain_ms = mean_ms(g.replay), mean_ms(step)
+    # A run reads index, live and its count and writes index and its
+    # count: 40 bytes.
+    bound_ms = 40 / PEAK_BYTES * 1e3
+    print(f"[2 loop] graphs.loop ({g.loops} loop, a body of three small kernels): captured "
+          f"against the host loop for 0, 1, 3, {LOOP_END} and {LOOP_END} (cut by the end) "
+          f"iterations, largest difference {err}; a replay's wall over its step kernel runs "
+          f"{replay_ms:.4f} ms (the body's kernels and the node's own cost in it), the op-by-op "
+          f"iteration {plain_ms:.4f} ms (means over {COND_ITERS} steps of {LOOP_END} "
+          f"iterations and {LOOP_END + 1} runs); bound {bound_ms:.3g} ms (bytes)", flush=True)
+    return {"max_abs_err": err, "replay_ms": replay_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}, g.replay
+
+
+def _graph_kernel_ms(fields, replay, kernel, label):
+    """Set fields["ms"] to the device time of one run of the graph kernel
+    `kernel` (conditional.cu) in `replay`'s graph (_device_ms, its own
+    kernel events alone), and fields["ms_from"] to how it was taken: where
+    the profiler records none, the replay's wall per run of the kernel
+    (fields["replay_ms"], the graph's other work in it) stands in."""
+    ms = _device_ms(replay, COND_ITERS, kernel)
+    fields["ms"] = ms if ms is not None else fields["replay_ms"]
+    fields["ms_from"] = ("device time (torch.profiler)" if ms is not None
+                         else "replay wall per run (no device time recorded)")
+    print(f"[8 device] {label}: {kernel} {_fmt(ms)} a run on the device; ms from "
+          f"{fields['ms_from']}", flush=True)
 
 
 def phase_device_times(timing, cfg):
@@ -806,6 +917,7 @@ def _main_path(dev, spec, path_counts):
     graphs = prog.graphs
     replays = sum(g.replays for g in graphs.values())
     bodies = sum(g.bodies for g in graphs.values())
+    loops = sum(g.loops for g in graphs.values())
     img.save_as(path)
     if not np.array_equal(read_png(path), img.buffer):
         raise AssertionError(f"{name}: saved PNG does not decode to the rendered bytes")
@@ -856,19 +968,82 @@ def _main_path(dev, spec, path_counts):
           f"again with the graphs cached {again_secs:.3f} s ({rays / again_secs / 1e6:.3f} "
           f"Mrays/s), eager chunk loop {eager_secs:.3f} s ({rays / eager_secs / 1e6:.3f} "
           f"Mrays/s); peak memory {peak:.3f} GiB captured, {eager_peak:.3f} eager; {chunks} "
-          f"chunks, {len(graphs)} graph, {bodies} conditional bodies, {replays} replays; "
+          f"chunks, {len(graphs)} graph, {bodies} conditional bodies, {loops} loops, {replays} "
+          f"replays; "
           f"launches nearest {counts['nearest']} any-hit {counts['any_hit']} (the warm-up's "
           f"{prog.warm_launches['nearest']} and {prog.warm_launches['any_hit']} among them; "
           f"cached {again_counts['nearest']} and {again_counts['any_hit']}, "
           f"{again_counts['nearest'] / chunks:.2f} and {again_counts['any_hit'] / chunks:.2f} "
           f"per chunk; eager {eager_counts['nearest']} and {eager_counts['any_hit']}), "
-          f"conditional kernel {again_counts['graph_if']} cached, plain on CUDA "
+          f"conditional kernel {again_counts['graph_if']} cached, loop step kernel "
+          f"{again_counts['graph_while']}, plain on CUDA "
           f"{counts['plain_on_cuda']}; rounds {rounds}, host syncs captured {syncs} "
           f"({syncs / chunks:.2f} per chunk), eager {eager_syncs} ({eager_syncs / chunks:.2f} "
           f"per chunk); live rays per round {live}; dropped_w "
           f"{dropped_w:.3g}; linear image against the eager loop's: max |diff| {diff:.3g}, "
           f"u8 pixels apart {u8_off}; PNG {os.path.relpath(path, ROOT)} round-trips",
           flush=True)
+    return dict(spec=spec, cfg=cfg, bodies=bodies, loops=loops)
+
+
+def _deterministic(fn):
+    """fn() under torch.use_deterministic_algorithms (warn_only: index_copy_
+    has no deterministic version on the card, and its targets here are
+    distinct but for a trash slot), uninitialised memory left unfilled:
+    index_add_ sums its rows in one order (a sort, not float atomics), so
+    that two programs that run the same ops on the same inputs agree bit
+    for bit."""
+    import warnings
+    import torch
+    import torch.utils.deterministic
+
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def _looped_against_eager(dev, main):
+    """The main path `main` (_main_path's result) on fresh tables under
+    _deterministic: the captured program (its tail one loop) against the
+    eager chunk loop (every round unrolled, each pick read on the host),
+    their linear images equal bit for bit (0 pixels apart), the same live
+    rays per round and 0 host reads captured."""
+    import dataclasses
+    import numpy as np
+    from portrayer_tpu_torch import flatten_scene, render_linear
+
+    spec, cfg = main["spec"], main["cfg"]
+    w, h = spec.size
+
+    def both():
+        fresh = flatten_scene(spec.scene, dev)
+        out = []
+        for c in (cfg, dataclasses.replace(cfg, cuda_graphs=False)):
+            stats = []
+            out.append((render_linear(fresh, spec.camera, (w, h), spec.background, c,
+                                      stats=stats), stats))
+        return out
+
+    (lin, stats), (elin, estats) = _deterministic(both)
+    apart = int((lin != elin).any(axis=-1).sum())
+    syncs = sum(s.syncs for s in stats)
+    same_live = [s.live.tolist() for s in stats] == [s.live.tolist() for s in estats]
+    print(f"[4 deterministic] {spec.name}: under deterministic algorithms the captured render "
+          f"({main['bodies']} conditional bodies, {main['loops']} loops) against the eager "
+          f"chunk loop: linear images {apart} pixels apart (max |diff| "
+          f"{float(np.abs(lin - elin).max()):.3g}), live rays per round equal {same_live}, "
+          f"host reads captured {syncs}, eager {sum(s.syncs for s in estats)}", flush=True)
+    if apart or syncs or not same_live or not main["loops"]:
+        raise AssertionError(f"{spec.name}: the looped capture against the eager loop: {apart} "
+                             f"pixels apart, {syncs} host reads, live equal {same_live}, "
+                             f"{main['loops']} loops")
 
 
 def _linear_vs_flat(dev, spec, spp, size=None):
@@ -1171,7 +1346,8 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
           f"step captured {mse(cap)}, op by op {mse(ref)}; seconds per step (forward + "
           f"backward) captured {f3('secs', cap)} (the first with a warm-up pass op by op and "
           f"the captures: {prog.capture_s:.3f} s, {len(prog.graphs)} graphs, "
-          f"{sum(g.bodies for g in prog.graphs.values())} conditional bodies), op by op "
+          f"{sum(g.bodies for g in prog.graphs.values())} conditional bodies, "
+          f"{sum(g.loops for g in prog.graphs.values())} loops), op by op "
           f"{f3('secs', ref)}, op by op with bounce-round checkpointing off {off['secs']:.3f}; "
           f"peak memory of a step, GiB allocated / reserved: captured {gib(peaks['captured'])}, "
           f"op by op {gib(peaks['op by op'])} (every round checkpointed), "
@@ -1181,12 +1357,34 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
           f"{rfwd['nearest']} / {rfwd['any_hit']} and {rbwd['nearest']} / {rbwd['any_hit']}); "
           f"host reads a captured step {cap[-1]['stats'].syncs} (op by op "
           f"{ref[-1]['stats'].syncs}); conditional kernel runs a captured step "
-          f"{fwd['graph_if']} + {bwd['graph_if']}; live rays per round "
+          f"{fwd['graph_if']} + {bwd['graph_if']}, loop step kernel runs {fwd['graph_while']} + "
+          f"{bwd['graph_while']}; live rays per round "
           f"{live}; dropped_w 0; captured against op-by-op gradients, max |diff| of max |g|: "
           + "; ".join(notes) + f"; one op-by-op step with each of its {len(held.launches)} "
           f"sweep launches held against the plain version under phase 2's gates, rays a "
           f"launch: nearest {sizes_held['nearest']}, any-hit {sizes_held['any_hit']}",
           flush=True)
+
+    # One captured step (the tail one loop) on a fresh program and one op
+    # by op (every round unrolled), under _deterministic.
+    def both():
+        st.packed.fit_programs.clear()
+        return [step(c, start) for c in (cfg, eager)]
+
+    det = _deterministic(both)
+    st.packed.fit_programs.clear()
+    apart = sum(int((det[0]["grads"][f] != det[1]["grads"][f]).sum()) for f in DIFF_FIELDS)
+    entries = sum(det[0]["grads"][f].numel() for f in DIFF_FIELDS)
+    same_live = det[0]["stats"].live.tolist() == det[1]["stats"].live.tolist()
+    print(f"[5 fit deterministic] {name}: under deterministic algorithms a captured step "
+          f"against an op-by-op one: loss {det[0]['loss']!r} and {det[1]['loss']!r}, {apart} "
+          f"of {entries} gradient entries apart, live rays per round equal {same_live}, host "
+          f"reads captured {det[0]['stats'].syncs}", flush=True)
+    if apart or det[0]["loss"] != det[1]["loss"] or not same_live or det[0]["stats"].syncs:
+        raise AssertionError(f"fit {name}: the looped capture against op by op: {apart} "
+                             f"gradient entries apart, losses {det[0]['loss']!r} and "
+                             f"{det[1]['loss']!r}, live equal {same_live}, host reads "
+                             f"{det[0]['stats'].syncs}")
 
 
 def phase_gradients(dev, path_counts, err, diffs):
@@ -1793,7 +1991,8 @@ def phase_scenes(dev, path_counts, err, diffs):
             f"[7 scenes] {name} (stand-in assets) {w}x{h} x {STANDIN_SPP} spp: first render "
             f"{res['secs']:.3f} s ({res['Mrays/s']:.3f} Mrays/s primary; scene build, "
             f"lowering, capture and PNG included), {res['graphs']} graphs, {res['bodies']} "
-            f"conditional bodies, {res['replays']} replays, {res['syncs']} host syncs; sweep "
+            f"conditional bodies, {res['loops']} loops, {res['replays']} replays, "
+            f"{res['syncs']} host syncs; sweep "
             f"launches nearest {res['launches']['nearest']} any-hit "
             f"{res['launches']['any_hit']}; dropped_w {res['dropped_w']:.3g}; linear image "
             f"finite {finite}; kernel against plain version: {'; '.join(held)}, {apart} rays "
@@ -1854,13 +2053,16 @@ def main():
 
     phase_card(dev)
     err, diffs, timing, branches = phase_kernels(dev)
-    conditional = phase_conditional(dev)
+    conditional, cond_replay = phase_conditional(dev)
+    loop, loop_replay = phase_loop(dev)
     phase_goldens(dev)
     path_counts = {}
     mesh, textured = _inline("procedural-meshes"), _inline("normal-mapping-numpy")
     for spec in ("big-scene", "torus-showcase", "glossy-reflection", mesh, "single-triangle",
                  textured, _inline("soft-shadows-icosphere"), "four-shapes"):
-        _main_path(dev, spec, path_counts)
+        main_path = _main_path(dev, spec, path_counts)
+        if spec in DETERMINISTIC_PATHS:
+            _looped_against_eager(dev, main_path)
     _linear_vs_flat(dev, "simple", SIMPLE_SPP)
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
@@ -1870,6 +2072,8 @@ def main():
     phase_checks(dev)
     phase_scenes(dev, path_counts, err, diffs)
     phase_device_times(timing, RenderConfig(device=dev))
+    _graph_kernel_ms(conditional, cond_replay, "set_if_equal", "graphs.switch")
+    _graph_kernel_ms(loop, loop_replay, "while_step", "graphs.loop")
 
     kernels = []
     for mode in ("nearest", "any_hit"):
@@ -1898,6 +2102,12 @@ def main():
         "launches": sum(c["graph_if"] for c in path_counts.values()),
         "launches_by_path": {p: c["graph_if"] for p, c in path_counts.items()},
         **conditional})
+    kernels.append({
+        "name": "graph_while", "route": "cuda", "source": COND_SOURCE,
+        "replaces": LOOP_REPLACES,
+        "launches": sum(c["graph_while"] for c in path_counts.values()),
+        "launches_by_path": {p: c["graph_while"] for p, c in path_counts.items()},
+        **loop})
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")

@@ -74,6 +74,13 @@ def _bind(lib):
     lib.cond_if_begin.restype = i
     lib.cond_if_end.argtypes = [p]
     lib.cond_if_end.restype = i
+    ll = ctypes.c_longlong
+    lib.cond_while_begin.argtypes = [p, p, ll, p, p, p, p]
+    lib.cond_while_begin.restype = i
+    lib.cond_while_end.argtypes = [p, ctypes.c_ulonglong, p, ll, p, p]
+    lib.cond_while_end.restype = i
+    lib.cond_stream_create.argtypes = [p]
+    lib.cond_stream_create.restype = i
     return lib
 
 

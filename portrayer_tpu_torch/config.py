@@ -3,10 +3,13 @@
 The reference constants, the ``SAMPLES`` env semantics and the bounce
 queues' head slices (``queue_slice_divs``) are the JAX package's.  Its
 Pallas block and slab sizes have no meaning here and are gone, as is
-``unroll_tail`` (bounce rounds of equal capacity share one captured CUDA
-graph by construction, as they share one ``lax.scan`` body there).
-``remat_min_lanes`` has the JAX package's meaning: which rounds of a
-differentiable trace run checkpointed.  ``device`` and ``accel`` choose
+``unroll_tail``: a captured render or fit always runs the bounce rounds
+of the tail of equal capacity, the last round aside, as one loop (a CUDA
+graph WHILE node, the JAX package's ``lax.scan``), which records the
+same ops as the unrolled rounds in a fraction of the capture time, and
+op by op the rounds are a Python loop.  ``remat_min_lanes`` has the JAX
+package's meaning: which rounds of a differentiable trace run
+checkpointed.  ``device`` and ``accel`` choose
 where and through which sweep the port runs, ``dtype`` in which
 precision, ``cuda_graphs`` whether a render or a fit on the card replays
 captured CUDA graphs.

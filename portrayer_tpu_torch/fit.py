@@ -9,19 +9,24 @@ trace is one autograd node (``_Fit``).  Its forward is one step: round 0,
 then each bounce round on the slice that ``slice_sel`` picks on the device
 from the live count (``graphs.switch``, the JAX package's ``lax.switch``),
 each slice a conditional body.  A round sweeps, shades, accumulates and
-compacts without autograd, and leaves in its own slot of the state slab
-what its backward needs: the queue it ran on (at most its capacity) and
-its sweep results.  The slab also holds the round keys, each round's
-branch index (`sel`) and live count, and the dropped throughput; each
-call copies it out once, so calls of one program keep their own state.
-The backward is one step too: it copies a call's slab back and walks the
-rounds from the last to the first, each round under the conditional body
-of the branch its forward took (none for a dead round), replaying the
-round's hit detail, shading, light sum and compaction from its slot under
-autograd (no sweep is launched) and taking the vector-Jacobian product
-into the parameters and into the cotangent of the queue it ran on.  The
-cotangent of the framebuffer is the same in every round (a round adds to
-it), so no round keeps its framebuffer.
+compacts without autograd, and leaves in its slot of the state slab what
+its backward needs: the queue it ran on (at most its capacity) and its
+sweep results.  The rounds of the tail of equal capacity, the last round
+aside, run as one loop (``graphs.loop``, a WHILE node, the JAX package's
+``lax.scan``) over a round index held on the device; their slots are
+one stacked slot [rounds, capacity, ...], written at the index with
+``index_copy_`` and read back with ``index_select`` (the scan's stacked
+residuals).  The slab also holds the round keys, each round's branch
+index (`sel`) and live count, and the dropped throughput; each call
+copies it out once, so calls of one program keep their own state.  The backward is one step
+too: it copies a call's slab back and walks the rounds from the last to
+the first (the tail as a loop in reverse), each round under the
+conditional body of the branch its forward took (none for a dead round),
+replaying the round's hit detail, shading, light sum and compaction from
+its slot under autograd (no sweep is launched) and taking the
+vector-Jacobian product into the parameters and into the cotangent of
+the queue it ran on.  The cotangent of the framebuffer is the same in
+every round (a round adds to it), so no round keeps its framebuffer.
 
 Forward and backward are each captured as one CUDA graph (a program
 first runs them op by op, its warm-up) and replayed after; they read
@@ -49,8 +54,9 @@ import torch
 from . import graphs, rng
 from .config import RenderConfig
 from .ops.intersect import Hit
-from .ops.trace import (TraceStats, _Queue, _Sweeps, bounce_round, first_round, grad_fields,
-                        plan, primary_queue, round_shapes, rounds, slice_sel)
+from .ops.trace import (TraceStats, _Queue, _Sweeps, at_round, bounce_round, first_round,
+                        grad_fields, plan, primary_queue, round_shapes, rounds, set_at_round,
+                        slice_sel)
 from .scene.flatten import SceneTables, node_record, tri_record
 
 # The queue fields that carry a gradient from one round to the one before.
@@ -81,14 +87,14 @@ class _Slab:
                 for name, dtype, shape, a, n in self.spans}
 
 
-def _keep(views, sweeps: _Sweeps):
-    """Write a round's kept sweep results (its nearest hits, then, with
-    lights, its occlusion bits) into its slot's views."""
+def _kept_fields(sweeps: _Sweeps) -> dict:
+    """{field: tensor} of a round's kept sweep results: its nearest hits
+    and, with lights, its occlusion bits."""
     hit, *occ = sweeps.kept
-    for f in _HIT:
-        views[f].copy_(getattr(hit, f))
-    for x in occ:
-        views["occ"].copy_(x)
+    out = {f: getattr(hit, f) for f in _HIT}
+    if occ:
+        out["occ"] = occ[0]
+    return out
 
 
 def _kept(views) -> _Sweeps:
@@ -108,7 +114,8 @@ class _FitProgram:
         self.cfg, self.R0, self.P, self.spp_c = cfg, R0, n_pixels, spp_c
         self.fields, self.ray_grads = fields, ray_grads
         self.pl = plan(R0, st, cfg)
-        self.rounds = list(rounds(self.pl, cfg.queue_slice_divs))
+        self.rounds = list(rounds(self.pl, cfg.queue_slice_divs, loop=True))
+        self.looped = [rd for rd in self.rounds if rd.looped]
         self.L = st.n_lights
         self.params = {f: getattr(st, f).detach().clone() for f in fields}
         self.st = st.replace(**self.params)
@@ -118,6 +125,10 @@ class _FitProgram:
         self.inputs = {"o0": f32(R0, 3), "d0": f32(R0, 3), "pix0": i32(R0),
                        "w0": f32(R0) if has_w0 else None, "bg": f32(n_pixels, 3)}
         self.key = i64(2)
+        # The live count entering the next round, the looped round in
+        # flight (forward), the backward's loop counter and its live.
+        self.n_live, self.r, self.j = i64(), i64(), i64()
+        self.one = torch.ones((), dtype=torch.int64, device=dev)
         self.round_ix = torch.arange(self.pl.max_depth + 1, dtype=torch.int64, device=dev)
         self.acc = f32(n_pixels, 3)
         self.zero_acc = f32(n_pixels, 3)
@@ -142,30 +153,62 @@ class _FitProgram:
 
     def _state_slab(self, dev) -> _Slab:
         """The forward's state: keys, sel and live per round, dropped, and a
-        slot per round ("head", then each bounce round's index) of its
-        hits and occlusion bits and, for a bounce round, the queue it ran
-        on, each at the round's capacity."""
+        slot ("head", then each unrolled bounce round's index, then "tail"
+        stacked over the looped rounds) of its hits and occlusion bits
+        and, for a bounce round, the queue it ran on, each at the round's
+        capacity."""
         D, dt = self.pl.max_depth, self.cfg.dtype
         specs = [("keys", torch.int64, (D + 1, 2)), ("sel", torch.int64, (D + 1,)),
                  ("live", torch.int64, (D + 1,)), ("dropped", dt, ())]
-        slots = [("head", self.R0, ())] + [(r, cap, self.queues[cap]) for r, cap, *_ in
-                                           self.rounds]
-        for slot, n, queue in slots:
-            specs += [((slot, "t"), dt, (n,)), ((slot, "node"), torch.int32, (n,)),
-                      ((slot, "tri"), torch.int32, (n,)), ((slot, "hit"), torch.bool, (n,)),
-                      ((slot, "occ"), torch.bool, (self.L * n,))]
-            specs += [((slot, f), x.dtype, (n,) + tuple(x.shape[1:]))
+        slots = [("head", (), self.R0, ())] + [(rd.r, (), rd.cap, self.queues[rd.cap])
+                                               for rd in self.rounds if not rd.looped]
+        if self.looped:
+            cap = self.looped[0].cap
+            slots.append(("tail", (len(self.looped),), cap, self.queues[cap]))
+        for slot, lead, n, queue in slots:
+            specs += [((slot, "t"), dt, lead + (n,)), ((slot, "node"), torch.int32, lead + (n,)),
+                      ((slot, "tri"), torch.int32, lead + (n,)),
+                      ((slot, "hit"), torch.bool, lead + (n,)),
+                      ((slot, "occ"), torch.bool, lead + (self.L * n,))]
+            specs += [((slot, f), x.dtype, lead + (n,) + tuple(x.shape[1:]))
                       for f, x in zip(_Queue._fields, queue)]
         return _Slab(specs, dev)
 
+    def _lanes(self, f, k: int) -> int:
+        return self.L * k if f == "occ" else k
+
     def _slot(self, slot, k: int) -> dict:
-        """{field: view} of a round's slot, cut to the k lanes it ran on."""
+        """{field: view} of an unrolled round's slot, cut to the k lanes it
+        ran on."""
         v = self.state.views
-        out = {f: v[(slot, f)][:k] for f in _HIT}
-        out["occ"] = v[(slot, "occ")][:self.L * k]
-        if slot != "head":
-            out.update((f, v[(slot, f)][:k]) for f in _Queue._fields)
-        return out
+        fields = _HIT + ("occ",) + (_Queue._fields if slot != "head" else ())
+        return {f: v[(slot, f)][:self._lanes(f, k)] for f in fields}
+
+    def _tail_index(self, ridx):
+        """The looped round ridx's place in the tail slot: [1] on the device."""
+        return (ridx - self.looped[0].r).reshape(1)
+
+    def _get(self, ridx, k: int) -> dict:
+        """{field: tensor} of bounce round ridx's slot on k lanes: views of
+        an unrolled round's (ridx an int), copies of a looped one's (ridx
+        the 0-d index on the device)."""
+        if isinstance(ridx, int):
+            return self._slot(ridx, k)
+        v, i = self.state.views, self._tail_index(ridx)
+        return {f: v[("tail", f)][:, :self._lanes(f, k)].index_select(0, i)[0]
+                for f in _HIT + ("occ",) + _Queue._fields}
+
+    def _put(self, ridx, k: int, values: dict):
+        """Write {field: tensor on k lanes} into the slot of round ridx
+        ("head", a bounce round's index, or the looped index r)."""
+        if not isinstance(ridx, torch.Tensor):
+            views = self._slot(ridx, k)
+            for f, x in values.items():
+                views[f].copy_(x)
+            return
+        v, i = self.state.views, self._tail_index(ridx)
+        for f, x in values.items():
+            v[("tail", f)][:, :self._lanes(f, k)].index_copy_(0, i, x[None])
 
     def _load(self, token, key, o0, d0, pix0, w0, bg, params):
         """Fill the static inputs with one call's (skipped when they hold
@@ -195,17 +238,30 @@ class _FitProgram:
 
     def _forward(self):
         """Round 0, then each bounce round on the slice its live count
-        picks (the dead branch: none), its branch index kept in sel."""
+        picks (the dead branch: none), the looped ones through
+        graphs.loop."""
         v = self.state.views
         v["sel"].zero_()
         v["live"].zero_()
         self.head()
-        for ridx, cap, sizes, nxt, last in self.rounds:
-            sel = v["sel"][ridx]
-            sel.copy_(slice_sel(v["live"][ridx], sizes))
-            if graphs.switch(sel, [None] + [functools.partial(self.bounce, ridx, cap, k, nxt, last)
-                                            for k in sizes]) == 0:
+        for rd in self.rounds:
+            if rd.looped:
+                if rd is self.looped[0]:
+                    self.r.fill_(rd.r)
+                    graphs.loop(self.r, self.looped[-1].r + 1, self.n_live,
+                                functools.partial(self._forward_round, self.r, rd))
+                continue
+            if self._forward_round(rd.r, rd) == 0:
                 break
+
+    def _forward_round(self, ridx, rd):
+        """Round rd at index ridx on the slice its live count picks, its
+        branch index kept in sel."""
+        sel = slice_sel(self.n_live, rd.sizes)
+        set_at_round(self.state.views["sel"], ridx, sel)
+        return graphs.switch(sel, [None] + [
+            functools.partial(self.bounce, ridx, rd.cap, k, rd.next_cap, rd.last)
+            for k in rd.sizes])
 
     def head(self):
         """Round 0: the records of the tables from the parameters, the
@@ -224,30 +280,30 @@ class _FitProgram:
         sweeps = _Sweeps()
         acc, q1, dropped, n_live = first_round(
             v["keys"][0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c, sweeps=sweeps)
-        _keep(self._slot("head", self.R0), sweeps)
+        self._put("head", self.R0, _kept_fields(sweeps))
         self.acc.copy_(acc)
         if q1 is not None:
             self._queue_out(q1, self.pl.cap[1], n_live, 1)
             v["dropped"].copy_(dropped)
 
-    def _queue_out(self, q, cap, n_live, ridx: int):
+    def _queue_out(self, q, cap, n_live, ridx):
         for buf, y in zip(self.queues[cap], q):
             buf.copy_(y)
-        self.state.views["live"][ridx].copy_(n_live)
+        self.n_live.copy_(n_live)
+        set_at_round(self.state.views["live"], ridx, n_live)
 
-    def bounce(self, ridx: int, cap: int, k: int, next_cap, is_last: bool):
-        """Bounce round ridx on the head k lanes of the capacity-cap queue:
-        the slice into the round's slot, the round, its children into the
-        next_cap queue."""
-        v = self._slot(ridx, k)
-        for f, x in zip(_Queue._fields, self.queues[cap]):
-            v[f].copy_(x[:k])
-        q = _Queue(*(v[f] for f in _Queue._fields))
+    def bounce(self, ridx, cap: int, k: int, next_cap, is_last: bool):
+        """Bounce round ridx (an int, or in the loop the index r) on the
+        head k lanes of the capacity-cap queue: the slice into the round's
+        slot, the round, its sweep results into the slot and its children
+        into the next_cap queue."""
+        q = _Queue(*(x[:k] for x in self.queues[cap]))
+        self._put(ridx, k, q._asdict())
         sweeps = _Sweeps()
         acc, q2, dropped, n_live = bounce_round(
-            self.state.views["keys"][ridx], q, self.acc, self.inputs["bg"], self.st, self.cfg,
-            k, next_cap, is_last, sweeps=sweeps)
-        _keep(v, sweeps)
+            at_round(self.state.views["keys"], ridx), q, self.acc, self.inputs["bg"], self.st,
+            self.cfg, k, next_cap, is_last, sweeps=sweeps)
+        self._put(ridx, k, _kept_fields(sweeps))
         self.acc.copy_(acc)
         if not is_last:
             self._queue_out(q2, next_cap, n_live, ridx + 1)
@@ -257,14 +313,26 @@ class _FitProgram:
 
     def _backward(self):
         """The rounds' backwards from the last to the first, each on the
-        branch its forward took."""
+        branch its forward took; the looped ones through graphs.loop over
+        j, at round index (last looped round) - j."""
         self.grads.flat.zero_()
         self.gq.flat.zero_()
-        sel = self.state.views["sel"]
-        for ridx, cap, sizes, nxt, last in reversed(self.rounds):
-            graphs.switch(sel[ridx], [None] + [
-                functools.partial(self.bounce_grad, ridx, cap, k, nxt, last) for k in sizes])
+        for rd in reversed(self.rounds):
+            if rd.looped:
+                if rd is self.looped[-1]:
+                    self.j.zero_()
+                    graphs.loop(self.j, len(self.looped), self.one, self._backward_looped)
+                continue
+            self._backward_round(rd.r, rd)
         self.head_grad()
+
+    def _backward_looped(self):
+        self._backward_round(self.looped[-1].r - self.j, self.looped[0])
+
+    def _backward_round(self, ridx, rd):
+        graphs.switch(at_round(self.state.views["sel"], ridx), [None] + [
+            functools.partial(self.bounce_grad, ridx, rd.cap, k, rd.next_cap, rd.last)
+            for k in rd.sizes])
 
     def _leaves(self):
         """(tables whose parameters are leaves that record, {name: leaf}
@@ -311,17 +379,18 @@ class _FitProgram:
                 outs += self._queue_cotangents(q1, self.pl.cap[1])
             self._vjp(outs, leaves)
 
-    def bounce_grad(self, ridx: int, cap: int, k: int, next_cap, is_last: bool):
-        """The backward of bounce round ridx, replayed from its slot: the
-        gradients of the parameters, and the cotangent of the queue it ran
-        on (its head k lanes; 0 on the rest) from that of its children's."""
-        v = self._slot(ridx, k)
+    def bounce_grad(self, ridx, cap: int, k: int, next_cap, is_last: bool):
+        """The backward of bounce round ridx (an int, or in the loop the
+        index on the device), replayed from its slot: the gradients of the
+        parameters, and the cotangent of the queue it ran on (its head k
+        lanes; 0 on the rest) from that of its children's."""
+        v = self._get(ridx, k)
         with torch.enable_grad():
             st, leaves, x = self._leaves()
             qv = {f: (v[f].detach().requires_grad_() if f in _DIFF_QUEUE else v[f])
                   for f in _Queue._fields}
             acc, q2, _, _ = bounce_round(
-                self.state.views["keys"][ridx], _Queue(**qv), self.zero_acc, x["bg"], st,
+                at_round(self.state.views["keys"], ridx), _Queue(**qv), self.zero_acc, x["bg"], st,
                 self.cfg, k, next_cap, is_last, sweeps=_kept(v))
             outs = [(acc, self.g_acc)]
             if not is_last:
@@ -355,13 +424,17 @@ class _FitProgram:
     def warm_up(self):
         """A program's first call: one forward and one backward op by op,
         then each bounce round's forward and backward at each of its slice
-        shapes (building the kernel, the sweep's chunk groups, the
-        allocator's blocks, autograd's threads and every branch's first
-        use, as the captures record them all), all forgotten."""
+        shapes, a looped one at the device index r (building the kernel,
+        the sweep's chunk groups, the allocator's blocks, autograd's
+        threads and every branch's first use, as the captures record them
+        all), all forgotten."""
         self.backward(self.forward(), self.zero_acc)
-        for shape in round_shapes(self.pl, self.cfg.queue_slice_divs):
-            self.bounce(*shape)
-            self.bounce_grad(*shape)
+        for rd, k in round_shapes(self.pl, self.cfg.queue_slice_divs, loop=True):
+            if rd.looped:
+                self.r.fill_(rd.r)
+            ridx = self.r if rd.looped else rd.r
+            self.bounce(ridx, rd.cap, k, rd.next_cap, rd.last)
+            self.bounce_grad(ridx, rd.cap, k, rd.next_cap, rd.last)
         self.warm = True
 
     def stats(self, state) -> TraceStats:

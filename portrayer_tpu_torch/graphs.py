@@ -1,6 +1,7 @@
-"""Captured CUDA graphs whose branches are picked on the device: the
-counterpart of the JAX package's ``lax.switch`` inside one compiled
-program (its trace.py ``round_r``).
+"""Captured CUDA graphs that branch and loop on the device: the
+counterparts of the JAX package's ``lax.switch`` and ``lax.scan`` inside
+one compiled program (its trace.py ``round_r`` and the scan over the tail
+of equal capacity).
 
 ``Graph(fn, pool)`` captures ``fn`` (a step that reads and writes only
 buffers allocated outside it) as one CUDA graph, replayed by ``replay``.
@@ -8,29 +9,52 @@ Inside such a step, ``switch(sel, branches)`` runs ``branches[sel]``, sel
 a 0-d int64 tensor on the device: while a graph captures, each branch that
 is not None is recorded as the body of a conditional (IF) node that runs
 only when sel equals its index, so each replay takes its branch on the
-device and reads nothing on the host.  Off capture (the CPU, or a program
-run op by op) switch reads sel on the host once and calls that branch.
+device and reads nothing on the host.  ``loop(index, end, live, body)``
+runs body while live > 0 and index < end, adding one to index after each
+run: while a graph captures, body is recorded once as the body of a WHILE
+node, and may itself call switch.  Off capture (the CPU, or a program run
+op by op) switch reads sel on the host once and calls that branch, and
+loop reads its condition on the host once an iteration.
 
 The nodes come from the CUDA runtime through ``csrc/conditional.cu``
-(PyTorch 2.11 has no Python call for them): a one-thread kernel sets the
+(PyTorch 2.11 has no Python call for them): a one-thread kernel sets an IF
 node's handle from sel where the graph reaches it, so a body may change
-what sel was computed from but not sel.  A body is recorded on a stream
-of the graph's own, its allocations in a memory pool of its own that
-lives as long as the graph; it may hold kernels and device copies, and no
-event, side stream or copy to or from the host.  Launches of the sweep
-kernel and of the conditional kernel in a body count on the device when
-the body runs (``cuda_intersect.counts``).
+what sel was computed from but not sel; a one-thread step kernel sets a
+WHILE node's handle before the node and at the end of each iteration.  A
+body is recorded on the stream of its kind of node, IF or WHILE (made
+once a device, outside PyTorch's pool of streams, which hands its
+streams out in turn and would in time hand out the stream a graph is
+captured on), its allocations in a memory pool of the graph's own for
+that kind, which lives as long as the graph: a body's temporaries are
+freed at its end and their memory is reused by the next body of its kind
+and by the next run, which is sound because those run one after another.
+The allocator reuses a block only on the stream it was made on, so every
+IF body, in a loop or not, shares one stream: then a loop's slices reuse
+the memory of the unrolled rounds' slices.  A body may nest only in a
+body of the other kind (a switch in a loop).  It may hold kernels and
+device copies, and no event, side stream or copy to or from the host;
+nothing it makes lives past its end except in buffers allocated outside
+the graph.
+Launches of the sweep kernel, the conditional kernel and the step kernel
+in a body count on the device when the body runs
+(``cuda_intersect.counts``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from .ops import cuda_intersect
 
-# The Graph being captured, whose switch records conditional bodies.
+# The Graph being captured, whose switch and loop record bodies.
 _capturing = None
+# The kinds of body, each recorded on a stream of its own.
+_KINDS = ("if", "while")
+# {device index: {kind: its body stream}}.
+_STREAMS = {}
 
 
 def _check(rc: int, what: str):
@@ -38,9 +62,30 @@ def _check(rc: int, what: str):
         raise RuntimeError(f"CUDA graph conditional node: {what} failed (CUDA error {rc})")
 
 
+def _body_streams(lib, device) -> dict:
+    """The body stream of each kind on `device`, made at first call
+    (outside every capture)."""
+    if device.index not in _STREAMS:
+        streams = {}
+        for kind in _KINDS:
+            handle = ctypes.c_void_p()
+            with torch.cuda.device(device):
+                _check(lib.cond_stream_create(ctypes.addressof(handle)), "stream create")
+            streams[kind] = torch.cuda.ExternalStream(handle.value, device=device)
+        _STREAMS[device.index] = streams
+    return _STREAMS[device.index]
+
+
+def _check_scalar(name, x):
+    if x.dtype != torch.int64 or x.numel() != 1 or not x.is_cuda:
+        raise ValueError(f"{name} must be one int64 on the card, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
 class Graph:
     """`fn` captured as one CUDA graph in memory pool `pool`; `bodies`
-    counts the conditional bodies it recorded, `replays` its replays."""
+    counts the conditional (IF) bodies it recorded, `loops` its WHILE
+    nodes, `replays` its replays."""
 
     def __init__(self, fn, pool):
         global _capturing
@@ -48,50 +93,86 @@ class Graph:
         self.device = torch.device("cuda", torch.cuda.current_device())
         self.graph = torch.cuda.CUDAGraph()
         self.bodies = 0
+        self.loops = 0
         self.replays = 0
-        self.body_stream = torch.cuda.Stream(self.device)
-        self.body_pool = torch.cuda.graph_pool_handle()
+        self.open = []  # the kinds of the bodies being recorded, outermost first
+        self.streams = _body_streams(self.lib, self.device)
+        self.pools = {kind: torch.cuda.graph_pool_handle() for kind in _KINDS}
         # Made before the capture that adds to them.
-        self.if_count = cuda_intersect.device_counts(self.device)[
-            cuda_intersect._MODES.index("graph_if"):]
-        with torch.cuda.stream(self.body_stream):
-            torch._C._cuda_beginAllocateCurrentStreamToPool(self.device.index, self.body_pool)
+        counts = cuda_intersect.device_counts(self.device)
+        self.if_count = counts[cuda_intersect._MODES.index("graph_if"):]
+        self.while_count = counts[cuda_intersect._MODES.index("graph_while"):]
+        for kind in _KINDS:
+            with torch.cuda.stream(self.streams[kind]):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(self.device.index,
+                                                                self.pools[kind])
         _capturing = self
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 fn()
         finally:
             _capturing = None
-            torch._C._cuda_endAllocateToPool(self.device.index, self.body_pool)
+            for body_pool in self.pools.values():
+                torch._C._cuda_endAllocateToPool(self.device.index, body_pool)
+
+    def _body_stream(self, kind):
+        """The stream that records a body of `kind` here: not one whose
+        capture is open."""
+        if kind in self.open:
+            raise RuntimeError(f"graphs: {kind.upper()} bodies do not nest")
+        return self.streams[kind]
+
+    def _body(self, kind, fn):
+        """Record fn on the body stream of `kind`, whose capture the caller
+        has begun."""
+        self.open.append(kind)
+        try:
+            with torch.cuda.stream(self.streams[kind]):
+                fn()
+        finally:
+            self.open.pop()
 
     def switch(self, sel, branches):
-        if sel.dtype != torch.int64 or sel.numel() != 1 or not sel.is_cuda:
-            raise ValueError(f"switch: sel must be one int64 on the card, got {sel.dtype} "
-                             f"{tuple(sel.shape)} on {sel.device}")
+        _check_scalar("switch: sel", sel)
         stream = torch.cuda.current_stream().cuda_stream
-        body = self.body_stream.cuda_stream
+        body = self._body_stream("if").cuda_stream
         for i, fn in enumerate(branches):
             if fn is None:
                 continue
             _check(self.lib.cond_if_begin(stream, sel.data_ptr(), i, self.if_count.data_ptr(),
                                           body), "begin")
             try:
-                with torch.cuda.stream(self.body_stream):
-                    fn()
+                self._body("if", fn)
             finally:
                 _check(self.lib.cond_if_end(body), "end")
             self.bodies += 1
+
+    def loop(self, index, end: int, live, body):
+        _check_scalar("loop: index", index)
+        _check_scalar("loop: live", live)
+        stream = torch.cuda.current_stream().cuda_stream
+        body_stream = self._body_stream("while").cuda_stream
+        handle = ctypes.c_ulonglong()
+        args = (index.data_ptr(), end, live.data_ptr(), self.while_count.data_ptr())
+        _check(self.lib.cond_while_begin(stream, *args, body_stream, ctypes.addressof(handle)),
+               "while begin")
+        try:
+            self._body("while", body)
+        finally:
+            _check(self.lib.cond_while_end(body_stream, handle.value, *args), "while end")
+        self.loops += 1
 
     def replay(self):
         self.graph.replay()
         self.replays += 1
 
     def __del__(self):
-        # The bodies' pool outlives them only as long as the graph.
-        try:
-            torch._C._cuda_releasePool(self.device.index, self.body_pool)
-        except Exception:
-            pass
+        # The bodies' pools outlive them only as long as the graph.
+        for body_pool in getattr(self, "pools", {}).values():
+            try:
+                torch._C._cuda_releasePool(self.device.index, body_pool)
+            except Exception:
+                pass
 
 
 def switch(sel: torch.Tensor, branches) -> int | None:
@@ -105,3 +186,23 @@ def switch(sel: torch.Tensor, branches) -> int | None:
     if branches[i] is not None:
         branches[i]()
     return i
+
+
+def loop(index: torch.Tensor, end: int, live: torch.Tensor, body) -> int | None:
+    """While live > 0 and index < end: body(), then index += 1 (index and
+    live 0-d int64 tensors on the device; body may change live, and reads
+    index).  The counterpart of lax.scan over the rounds [index, end) with
+    the dead branch as an early exit.  Under a Graph's capture, records
+    body once as a WHILE node's body and returns None; otherwise reads the
+    condition on the host before each iteration and once at the exit, and
+    returns the number of those reads."""
+    if _capturing is not None:
+        _capturing.loop(index, end, live, body)
+        return None
+    reads = 0
+    while True:
+        reads += 1
+        if not bool((live > 0) & (index < end)):
+            return reads
+        body()
+        index.add_(1)

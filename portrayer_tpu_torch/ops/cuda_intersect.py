@@ -38,10 +38,10 @@ INF = math.inf
 GROUP = 32
 
 # Kernel launches per mode, and plain-version calls on CUDA tensors; and
-# runs of graphs.Graph's conditional kernel (csrc/conditional.cu).  A
-# caller zeroes them (reset_counts) before a run and reads them after it
-# (counts()).
-COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0, "graph_if": 0}
+# runs of graphs.Graph's conditional kernel and loop step kernel
+# (csrc/conditional.cu).  A caller zeroes them (reset_counts) before a run
+# and reads them after it (counts()).
+COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0, "graph_if": 0, "graph_while": 0}
 
 # The kernel reads ray i's origin at o[3 * i + 2] with a 32-bit int: a
 # launch of this many rays or more would overflow it.
@@ -49,8 +49,9 @@ MAX_LAUNCH_RAYS = (2 ** 31 - 1) // 3
 
 # A launch recorded into a captured CUDA graph counts on the device, in
 # the graph, where it runs: at each replay, and in a conditional body only
-# when the body runs.  Per device, [nearest, any-hit, conditional kernel].
-_MODES = ("nearest", "any_hit", "graph_if")
+# when the body runs.  Per device, [nearest, any-hit, conditional kernel,
+# loop step kernel].
+_MODES = ("nearest", "any_hit", "graph_if", "graph_while")
 _ON_DEVICE = {}
 
 

@@ -18,8 +18,10 @@ head slice of its queue that holds the live rays (``slice_sizes``, from
 JAX package's ``lax.switch`` over the same slices.  ``first_round`` and
 ``bounce_round`` read nothing on the host, and ``slice_sel`` picks the
 slice on the device, so a render or a fit captures a whole trace as one
-CUDA graph whose rounds are conditional bodies (``graphs.switch``;
-render.py, fit.py); ``trace`` runs the rounds op by op and reads the
+CUDA graph whose rounds' slices are conditional bodies (``graphs.switch``;
+render.py, fit.py), the rounds of the tail of equal capacity but the
+last one loop (``tail_start``, ``rounds``; ``graphs.loop``, the JAX
+package's ``lax.scan``); ``trace`` runs the rounds op by op and reads the
 live count once per bounce round to pick the slice (``pick_slice``).
 Draws are keyed by sample id, so the slicing moves no pixel.
 
@@ -296,25 +298,67 @@ def slice_sel(n_live: torch.Tensor, sizes) -> torch.Tensor:
     return sel
 
 
-def rounds(pl: Plan, divs):
-    """(r, capacity, slice sizes, next capacity or None after the last
-    round, is_last) of each bounce round r = 1.. max_depth."""
+def tail_start(pl: Plan) -> int:
+    """The first round of the tail of equal capacity, the JAX package's
+    rule (its trace.py, before its lax.scan): the first round whose
+    capacity is the last round's, never round 0."""
+    r = pl.max_depth
+    while r > 1 and pl.cap[r - 1] == pl.cap[pl.max_depth]:
+        r -= 1
+    return r
+
+
+def at_round(x, ridx):
+    """x[ridx], ridx a round's index: an int, or in a captured program's
+    loop a 0-d index on the device."""
+    return x[ridx] if isinstance(ridx, int) else x.index_select(0, ridx.reshape(1))[0]
+
+
+def set_at_round(x, ridx, y):
+    """x[ridx] = y, ridx as in at_round."""
+    if isinstance(ridx, int):
+        x[ridx].copy_(y)
+    else:
+        x.index_copy_(0, ridx.reshape(1), y.reshape((1,) + x.shape[1:]))
+
+
+class Round(NamedTuple):
+    """A bounce round's static shape: its index r, the capacity of the
+    queue it runs on, the head slices it can run on, the capacity of its
+    children's queue (None after the last round), whether it is the last
+    and whether a captured program runs it in its tail loop."""
+    r: int
+    cap: int
+    sizes: tuple
+    next_cap: "int | None"
+    last: bool
+    looped: bool
+
+
+def rounds(pl: Plan, divs, loop: bool = False):
+    """The Round of each bounce round r = 1.. max_depth.  With `loop`, the
+    rounds from tail_start(pl) up to the last one, the last aside, are
+    `looped`: a captured program runs them as one loop over a round index
+    on the device (graphs.loop); the others are unrolled."""
+    first = tail_start(pl) if loop else pl.max_depth
     for ridx in range(1, pl.max_depth + 1):
         last = ridx == pl.max_depth
-        yield (ridx, pl.cap[ridx], slice_sizes(pl.cap[ridx], divs),
-               None if last else pl.cap[ridx + 1], last)
+        yield Round(ridx, pl.cap[ridx], slice_sizes(pl.cap[ridx], divs),
+                    None if last else pl.cap[ridx + 1], last, first <= ridx < pl.max_depth)
 
 
-def round_shapes(pl: Plan, divs):
-    """(r, capacity, k, next capacity, is_last) of each distinct shape of
-    a bounce round's step on a head slice of k lanes, at the first round
-    r that has it: what a program warms before it captures them all."""
+def round_shapes(pl: Plan, divs, loop: bool = False):
+    """The first Round of each distinct shape of a bounce round's step (its
+    capacity, head slice of k lanes, next capacity, whether it is the last
+    and whether it is looped) and that k: what a program warms before it
+    captures them all."""
     seen = set()
-    for ridx, cap, sizes, next_cap, last in rounds(pl, divs):
-        for k in sizes:
-            if (cap, k, next_cap, last) not in seen:
-                seen.add((cap, k, next_cap, last))
-                yield ridx, cap, k, next_cap, last
+    for rd in rounds(pl, divs, loop):
+        for k in rd.sizes:
+            shape = (rd.cap, k, rd.next_cap, rd.last, rd.looped)
+            if shape not in seen:
+                seen.add(shape)
+                yield rd, k
 
 
 def bounce_rounds(pl: Plan, divs, read_live):
@@ -323,7 +367,7 @@ def bounce_rounds(pl: Plan, divs, read_live):
     unless it is 0 (the dead branch: no later round runs), (r, k, next_cap,
     is_last) is yielded, k the head slice it runs on and next_cap the
     capacity of its children's queue (None after the last round)."""
-    for ridx, _, sizes, next_cap, last in rounds(pl, divs):
+    for ridx, _, sizes, next_cap, last, _ in rounds(pl, divs):
         n = read_live()
         if n == 0:
             return

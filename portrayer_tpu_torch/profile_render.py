@@ -191,7 +191,8 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
     if not eager:
         (prog,) = st.packed.fit_programs.values()
         summary.update(graphs=len(prog.graphs), capture_s=prog.capture_s,
-                       bodies=sum(g.bodies for g in prog.graphs.values()))
+                       bodies=sum(g.bodies for g in prog.graphs.values()),
+                       loops=sum(g.loops for g in prog.graphs.values()))
     _write(out, raw, summary)
     s, b = summary, summary["backward"]
     print(f"[profile fit] {spec.name} {w}x{h} x {spp} spp ({w * h * spp} rays in one trace), "
@@ -202,7 +203,7 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
           f"{s['peak_reserved_gib']:.3f} GiB")
     if not eager:
         print(f"[profile fit] {s['graphs']} graphs with {s['bodies']} conditional bodies "
-              f"captured in {s['capture_s']:.3f} s")
+              f"and {s['loops']} loops captured in {s['capture_s']:.3f} s")
     print(f"[profile fit] traced wall {traced_ms:.3f} ms; device busy {s['device_ms']:.3f} ms "
           f"({s['device_busy_share']:.1%}), {s['kernel_launches']} kernels; of it the backward "
           f"{b['device_ms']:.3f} ms, {b['kernel_launches']} kernels, sweep launches "
@@ -272,6 +273,7 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
         (prog,) = st.chunk_programs.values()
         summary.update(graphs=len(prog.graphs), capture_s=prog.capture_s,
                        bodies=sum(g.bodies for g in prog.graphs.values()),
+                       loops=sum(g.loops for g in prog.graphs.values()),
                        replays={str(k): g.replays for k, g in prog.graphs.items()})
     if stats:
         summary.update(
@@ -291,8 +293,8 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
               f"rays on {s['card']}")
     if s["captured"]:
         print(f"[profile] captured chunk program: first render {first_ms:.3f} ms, "
-              f"{s['graphs']} graph(s) with {s['bodies']} conditional bodies captured in "
-              f"{s['capture_s']:.3f} s, replays {s['replays']}")
+              f"{s['graphs']} graph(s) with {s['bodies']} conditional bodies and {s['loops']} "
+              f"loops captured in {s['capture_s']:.3f} s, replays {s['replays']}")
     elif not one_shard_spp:
         print(f"[profile] the chunk program op by op (eager); first render {first_ms:.3f} ms")
     print(f"[profile] untraced wall {', '.join(f'{x:.3f}' for x in walls)} ms "

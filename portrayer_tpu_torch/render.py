@@ -16,12 +16,15 @@ origin, sample offset and chunk index come from a frame-wide table on the
 device, read through a counter that the program advances, and its keys,
 rays, background and trace stay on the device.  On the card with
 accel="cuda" the render captures the program once as one CUDA graph and
-replays it for every chunk: round 0, then each bounce round as one
+replays it for every chunk: round 0, then the bounce rounds, each as one
 conditional body per head slice of its queue, the slice picked on the
 device from the live count (``graphs.switch``, the JAX package's
-``lax.switch``), so a chunk reads nothing on the host.  Anywhere else the
-same program runs op by op and reads each bounce round's pick on the
-host.  A `reporter` ticks once per tile,
+``lax.switch``), so a chunk reads nothing on the host.  The rounds of the
+tail of equal capacity, the last round aside, share one loop body
+(``graphs.loop``, a WHILE node, the JAX package's ``lax.scan``) that runs
+the round whose index a device counter holds.  Anywhere else the
+same program runs op by op, its rounds unrolled, and reads each bounce
+round's pick on the host.  A `reporter` ticks once per tile,
 when the host has issued its work (the device runs behind by the work
 still queued).
 """
@@ -41,8 +44,8 @@ from .camera import Camera, CameraSettings
 from .config import RenderConfig, GAMMA
 from .image_io import read_png, write_png
 from .ops import cuda_intersect
-from .ops.trace import (TraceStats, _Queue, bounce_round, first_round, plan, primary_queue,
-                        round_shapes, rounds, slice_sel)
+from .ops.trace import (TraceStats, _Queue, at_round, bounce_round, first_round, plan,
+                        primary_queue, round_shapes, rounds, slice_sel)
 from .reporter import Reporter, NullProgress
 from .scene.flatten import SceneTables, flatten_scene
 from .scene.node import Scene, bounding_volume_scene
@@ -104,7 +107,10 @@ class _ChunkProgram:
     `live` and `dropped`.  With `capture`, the chunk runs as one CUDA graph
     (``graphs.Graph``, each round's slices its conditional bodies),
     captured at its first use; its steps meet only in the static buffers,
-    allocated outside the graph."""
+    allocated outside the graph.  A capturing program runs the looped
+    rounds (``rounds``) as one ``graphs.loop`` over the round index `r`,
+    a device counter: its body is one round, whose key and live-table
+    column that index addresses."""
 
     def __init__(self, st: SceneTables, cam: Camera, cfg: RenderConfig, background, *,
                  tile_h: int, tile_w: int, spp: int, samples: int, n_rows: int,
@@ -133,6 +139,8 @@ class _ChunkProgram:
                                  src_node=i32(c), src_tri=i32(c), sid=i32(c))
                        for c in set(self.pl.cap[1:])}
         self.capture = capture
+        self.rounds = list(rounds(self.pl, cfg.queue_slice_divs, loop=capture))
+        self.r = torch.zeros((), **i64)  # the looped round in flight
         self.graphs = {}
         self.pool = torch.cuda.graph_pool_handle() if capture else None
         self.warm = False
@@ -152,9 +160,9 @@ class _ChunkProgram:
         self.keys[:n, 0] = rng.fold_in(ckey, 0)
         self.keys[:n, 1:] = rng.fold_in(rng.fold_in(ckey, 1)[:, None, :], rounds[None, :])
 
-    def _row_key(self, col: int):
-        """keys[row, col]."""
-        return self.keys.index_select(0, self.row.reshape(1))[0, col]
+    def _row_key(self, col):
+        """keys[row, col], col as ops.trace.at_round takes it."""
+        return at_round(self.keys.index_select(0, self.row.reshape(1))[0], col)
 
     def head(self):
         row = self.rows.index_select(0, self.cursor.reshape(1))[0]
@@ -176,15 +184,22 @@ class _ChunkProgram:
         self.bg.copy_(bg)
         self._queue_out(q, self.pl.cap[1], dropped, n_live, 1)
 
-    def _queue_out(self, q, cap, dropped, n_live, ridx: int):
+    def _queue_out(self, q, cap, dropped, n_live, ridx):
+        """The queue, live count (at live[row, ridx], ridx an int or a 0-d
+        index on the device) and dropped throughput of round ridx."""
         for buf, x in zip(self.queues[cap], q):
             buf.copy_(x)
         self.n_live.copy_(n_live)
-        self.live[:, ridx].index_put_((self.row.reshape(1),), n_live.reshape(1).to(torch.int32))
+        n = n_live.reshape(1).to(torch.int32)
+        if isinstance(ridx, int):
+            self.live[:, ridx].index_put_((self.row.reshape(1),), n)
+        else:
+            self.live.index_put_((self.row.reshape(1), ridx.reshape(1)), n)
         self.dropped.index_add_(0, self.row.reshape(1), dropped.reshape(1))
 
-    def bounce(self, ridx: int, cap: int, k: int, next_cap, is_last: bool):
-        """Bounce round ridx on the head k lanes of the capacity-cap queue."""
+    def bounce(self, ridx, cap: int, k: int, next_cap, is_last: bool):
+        """Bounce round ridx (an int, or in the loop the index r) on the
+        head k lanes of the capacity-cap queue."""
         acc, q, dropped, n_live = bounce_round(
             self._row_key(ridx + 1), self.queues[cap], self.acc, self.bg, self.st, self.cfg, k,
             next_cap, is_last)
@@ -192,17 +207,32 @@ class _ChunkProgram:
         if not is_last:
             self._queue_out(q, next_cap, dropped, n_live, ridx + 1)
 
+    def _switch(self, ridx, rd) -> int | None:
+        """Round rd (at index ridx) on the slice picked from the live count
+        (graphs.switch)."""
+        return graphs.switch(slice_sel(self.n_live, rd.sizes), [None] + [
+            functools.partial(self.bounce, ridx, rd.cap, k, rd.next_cap, rd.last)
+            for k in rd.sizes])
+
     def _trace(self) -> int:
         """The next row's chunk into tile_acc: round 0, then each bounce
-        round on the slice picked from the live count (none once it is 0).
-        Returns the host reads of the picks (0 under capture)."""
+        round on the slice picked from the live count (none once it is 0),
+        the looped ones through graphs.loop.  Returns the host reads of
+        the picks and of the loop's condition (0 under capture)."""
         self.head()
         if self.pl.max_depth == 0:
             return 0
         reads = 0
-        for ridx, cap, sizes, nxt, last in rounds(self.pl, self.cfg.queue_slice_divs):
-            taken = graphs.switch(slice_sel(self.n_live, sizes), [None] + [
-                functools.partial(self.bounce, ridx, cap, k, nxt, last) for k in sizes])
+        looped = [rd for rd in self.rounds if rd.looped]
+        for rd in self.rounds:
+            if rd.looped:
+                if rd is looped[0]:
+                    self.r.fill_(rd.r)
+                    n = graphs.loop(self.r, looped[-1].r + 1, self.n_live,
+                                    functools.partial(self._switch, self.r, rd))
+                    reads += n or 0
+                continue
+            taken = self._switch(rd.r, rd)
             if taken is not None:
                 reads += 1
                 if taken == 0:
@@ -225,14 +255,17 @@ class _ChunkProgram:
 
     def _warm_up(self):
         """One chunk op by op, then each bounce round's step at each of its
-        slice shapes (building the kernel, the sweep's chunk groups and
-        every branch's first use, as the capture records them all); its
-        sweep launches are kept in warm_launches."""
+        slice shapes, a looped one at the device index r (building the
+        kernel, the sweep's chunk groups and every branch's first use, as
+        the capture records them all); its sweep launches are kept in
+        warm_launches."""
         before = cuda_intersect.counts()
         self.cursor.zero_()
         self._trace()
-        for shape in round_shapes(self.pl, self.cfg.queue_slice_divs):
-            self.bounce(*shape)
+        for rd, k in round_shapes(self.pl, self.cfg.queue_slice_divs, loop=self.capture):
+            if rd.looped:
+                self.r.fill_(rd.r)
+            self.bounce(self.r if rd.looped else rd.r, rd.cap, k, rd.next_cap, rd.last)
         after = cuda_intersect.counts()
         self.warm_launches = {m: after[m] - before[m] for m in ("nearest", "any_hit")}
         self.warm = True

@@ -35,8 +35,9 @@ def render_all(names, out, samples=2, scale=1.0, accel="cuda", tile=128, device=
     """Render each scene of `names` into `out`/<name>.png and write
     `out`/timings.json.  Returns {name: {"secs", "Mrays/s", "size",
     "launches" (sweep kernel launches per mode), "graphs", "bodies",
-    "replays" (captured chunk graphs, their conditional bodies and their
-    replays), "syncs" (host reads of the chunks), "dropped_w"}}; "secs"
+    "loops", "replays" (captured chunk graphs, their conditional bodies,
+    their loops and their replays), "syncs" (host reads of the chunks),
+    "dropped_w"}}; "secs"
     counts building, lowering, rendering and saving the scene, as the JAX
     package's runner does (which rounds it; this one does not).
     `on_scene(name, spec, tables, cfg, result)`, if given, is called after
@@ -66,6 +67,7 @@ def render_all(names, out, samples=2, scale=1.0, accel="cuda", tile=128, device=
             "launches": {k: after[k] - before[k] for k in ("nearest", "any_hit")},
             "graphs": sum(len(p.graphs) for p in progs),
             "bodies": sum(g.bodies for p in progs for g in p.graphs.values()),
+            "loops": sum(g.loops for p in progs for g in p.graphs.values()),
             "replays": sum(g.replays for p in progs for g in p.graphs.values()),
             "syncs": sum(s.syncs for s in stats),
             "dropped_w": sum(s.dropped_w for s in stats) / max(len(stats), 1),

@@ -533,32 +533,89 @@ class StandInGraph:
     and runs it at each replay under the HostReads `reads`.  Its switch is
     the stand-in conditional: it reads sel on the host with the read
     excused (on the card the graph evaluates it) and runs that branch;
-    `bodies` counts the branches a capture records, once."""
+    its loop is the stand-in WHILE node: it reads its condition (live > 0
+    and index < end) on the host with the read excused before each
+    iteration, runs the body and adds one to index, as the step kernel
+    does.  `bodies` counts the branches the first replay records, a
+    loop's in its first iteration only, and `loops` the loops it meets.
+    The card records a loop's body once even when it runs no iteration:
+    such a loop in the first replay runs its body once more, dry, its
+    switches counting their branches and running none (the programs'
+    loop bodies change nothing outside their switches then)."""
 
     reads = None
 
     def __init__(self, fn, pool):
         self.fn = fn
         self.bodies = 0
+        self.loops = 0
         self.replays = 0
+        self.recording = False
+        self.dry = False
 
     def switch(self, sel, branches):
-        i = self.reads.excused(int)(sel)
-        if self.replays == 0:
+        if self.recording:
             self.bodies += sum(fn is not None for fn in branches)
+        if self.dry:
+            return
+        i = self.reads.excused(int)(sel)
         if branches[i] is not None:
             branches[i]()
+
+    def loop(self, index, end, live, body):
+        recording = self.recording
+        self.loops += recording
+        go = self.reads.excused(lambda: bool((live > 0) & (index < end)))
+        ran = False
+        while go():
+            body()
+            index.add_(1)
+            ran, self.recording = True, False
+        if recording and not ran:
+            self.dry = True
+            try:
+                body()
+            finally:
+                self.dry = False
+        self.recording = recording
 
     def replay(self):
         from portrayer_tpu_torch import graphs
 
+        self.recording = self.replays == 0
         graphs._capturing = self
         try:
             with self.reads:
                 self.fn()
         finally:
             graphs._capturing = None
+            self.recording = False
         self.replays += 1
+
+
+def recorded_bodies(pl, divs) -> int:
+    """The conditional bodies that a captured program on the plan `pl`
+    records, counted from its capacities and tail_start (held against the
+    JAX package's scan by test_torch_unroll_tail.py), not from its rounds:
+    one per head slice of each bounce round before the tail and of the
+    last round, and the tail's slices once, in the loop's body (no loop
+    when the tail is the last round alone)."""
+    from portrayer_tpu_torch.ops.trace import slice_sizes, tail_start
+
+    D = pl.max_depth
+    if D == 0:
+        return 0
+    start = tail_start(pl)
+    n = lambda r: len(slice_sizes(pl.cap[r], divs))
+    return sum(n(r) for r in range(1, start)) + n(D) + (n(start) if start < D else 0)
+
+
+def recorded_loops(pl) -> int:
+    """The loops that a captured program on the plan `pl` records: one
+    when the tail of equal capacity holds a round besides the last."""
+    from portrayer_tpu_torch.ops.trace import tail_start
+
+    return int(pl.max_depth > 0 and tail_start(pl) < pl.max_depth)
 
 
 def stand_in_graphs(monkeypatch):

@@ -31,9 +31,8 @@ import scenes
 import portrayer_tpu as P
 import portrayer_tpu_torch as T
 from portrayer_tpu_torch import render, scenes as tscenes
-from portrayer_tpu_torch.ops.trace import slice_sizes
 
-from _torch_jax import INLINE, stand_in_graphs
+from _torch_jax import INLINE, recorded_bodies, recorded_loops, stand_in_graphs
 from test_torch_render import assert_images_close
 
 # Small frames in tiles of 16x16 and chunks of 4 spp: 6 spp is two chunks,
@@ -76,8 +75,8 @@ def check_captured_chunk(stand_in, name):
     assert chunks == 6 * 2 and list(prog.graphs) == ["chunk"]
     assert prog.graphs["chunk"].replays == chunks
     D = prog.pl.max_depth
-    assert prog.graphs["chunk"].bodies == sum(len(slice_sizes(c, cfg.queue_slice_divs))
-                                              for c in prog.pl.cap[1:])
+    assert prog.graphs["chunk"].bodies == recorded_bodies(prog.pl, cfg.queue_slice_divs)
+    assert prog.graphs["chunk"].loops == recorded_loops(prog.pl)
     # Op by op, a chunk reads each round's pick up to its first dead round.
     assert [s.syncs for s in eager_stats] == [min(D, int((s.live[1:] > 0).sum()) + 1) if D
                                               else 0 for s in eager_stats]
@@ -96,7 +95,8 @@ def test_captured_steps_read_nothing_on_the_host(stand_in, name):
     host, each bounce round's slice picked by the stand-in conditional:
     every chunk's TraceStats.syncs is 0, and the replays give the op-by-op
     loop's image, live rays per round and dropped_w bit for bit.  A chunk
-    is one graph with a conditional body per slice of each bounce round;
+    is one graph with a conditional body per slice of each unrolled bounce
+    round and of the loop over the tail of equal capacity;
     op by op a chunk reads each round's pick on the host."""
     check_captured_chunk(stand_in, name)
 

@@ -49,7 +49,7 @@ from portrayer_tpu_torch.ops.cuda_intersect import (
 )
 
 from _torch_jax import (assert_gates, torus_nodes, INLINE, float64_tables, kernel_apart_limits,
-                        sweeps_apart)
+                        recorded_bodies, recorded_loops, sweeps_apart)
 
 NAMES = ["simple", "big-scene", "torus-showcase", "glossy-reflection", "primitives-simple",
          "ellipsoids", "glass-sphere", "single-triangle", "procedural-meshes", "procedural-meshes-groups",
@@ -409,8 +409,9 @@ def test_captured_render_matches_the_eager_chunk_loop(dev, name, size, region):
     chunk program run op by op (cuda_graphs=False), at the main paths' 16
     spp and 131,072 rays a chunk: within 1e-6 (index_add's float atomics
     sum in another order), the same live rays per round, the chunk graph
-    replayed once a chunk and reading nothing on the host (each bounce
-    round's slice a conditional body), the sweep launches counted on the
+    replayed once a chunk and reading nothing on the host (each unrolled
+    bounce round's slice a conditional body, the tail of equal capacity
+    one loop whose body holds its slices), the sweep launches counted on the
     device where the bodies ran (the captured render's are the eager
     loop's plus its warm-up's)."""
     import dataclasses
@@ -433,8 +434,8 @@ def test_captured_render_matches_the_eager_chunk_loop(dev, name, size, region):
     (prog,) = st.chunk_programs.values()
     assert list(prog.graphs) == ["chunk"] and prog.graphs["chunk"].replays == len(stats)
     assert all(s.syncs == 0 for s in stats)
-    assert prog.graphs["chunk"].bodies == sum(
-        len(tr.slice_sizes(c, cfg.queue_slice_divs)) for c in prog.pl.cap[1:])
+    assert prog.graphs["chunk"].bodies == recorded_bodies(prog.pl, cfg.queue_slice_divs)
+    assert prog.graphs["chunk"].loops == recorded_loops(prog.pl)
     for mode in ("nearest", "any_hit"):
         assert counts[mode] == ref_counts[mode] + prog.warm_launches[mode], (counts, ref_counts)
     assert counts["plain_on_cuda"] == ref_counts["plain_on_cuda"] == 0
@@ -566,3 +567,77 @@ def test_switch_on_the_card_takes_the_branch_of_sel(dev):
         assert got.tolist() == [want] * 4
     assert cuda_intersect.counts()["graph_if"] == 4 * 3
     assert g.replays == 4
+
+
+def test_loop_on_the_card_runs_as_the_host_loop(dev):
+    """graphs.loop under a capture, with a switch nested in its body: the
+    replayed graph runs the iterations that the host loop runs (none, one,
+    several; ended by the live count or by the end), each taking the
+    branch its sel names, and leaves the same index; the body's
+    temporaries are reused across iterations and replays; the step kernel
+    counts one run before the node and one an iteration, the conditional
+    kernel one a branch and iteration, on the device."""
+    from portrayer_tpu_torch import graphs
+
+    end = 6
+    i64 = dict(dtype=torch.int64, device=dev)
+    index, live = torch.zeros((), **i64), torch.zeros((), **i64)
+    start, stop = torch.zeros((), **i64), torch.zeros((), **i64)
+    out = torch.zeros(end + 4, device=dev)
+
+    def branch(i):
+        return lambda: out.index_add_(0, index.reshape(1), torch.full((1,), float(i), device=dev))
+
+    branches = [None, branch(1), branch(2), branch(3)]
+
+    def body():
+        graphs.switch(torch.remainder(index, 3) + 1, branches)
+        live.copy_((index + 1 < stop).to(torch.int64))
+
+    def step():
+        out.fill_(-1.0)
+        index.copy_(start)
+        live.copy_((start < stop).to(torch.int64))
+        return graphs.loop(index, end, live, body)
+
+    g = graphs.Graph(step, torch.cuda.graph_pool_handle())
+    assert g.loops == 1 and g.bodies == 3
+    for s0, s1 in ((0, 0), (0, 1), (0, 4), (1, end + 3), (end, end + 2), (2, 2)):
+        start.fill_(s0)
+        stop.fill_(s1)
+        cuda_intersect.reset_counts()
+        g.replay()
+        torch.cuda.synchronize()
+        counts = cuda_intersect.counts()
+        got, got_index = out.clone(), int(index)
+        reads = step()
+        iterations = max(0, min(s1, end) - s0)
+        assert torch.equal(got, out) and got_index == int(index), (s0, s1)
+        assert reads == iterations + 1
+        assert got[s0:s0 + iterations].tolist() == [
+            -1.0 + (i % 3) + 1 for i in range(s0, s0 + iterations)], (s0, s1)
+        assert counts["graph_while"] == 1 + iterations and counts["graph_if"] == 3 * iterations
+    assert g.replays == 6
+
+
+def test_graphs_keep_their_body_streams_apart_from_the_capture_stream(dev):
+    """More graphs than PyTorch's pool of 32 streams a device, each with a
+    switch inside a loop: every capture succeeds, because the bodies are
+    recorded on streams made outside that pool (which hands its streams
+    out in turn, the capture stream among them)."""
+    from portrayer_tpu_torch import graphs
+
+    i64 = dict(dtype=torch.int64, device=dev)
+    index, live, out = torch.zeros((), **i64), torch.ones((), **i64), torch.zeros(3, **i64)
+    branches = [None, lambda: out.add_(1)]
+
+    def step():
+        out.zero_()
+        index.zero_()
+        graphs.loop(index, 3, live, lambda: graphs.switch(torch.ones((), **i64), branches))
+
+    for _ in range(40):
+        torch.cuda.Stream(dev)  # as other code takes streams from the pool
+        g = graphs.Graph(step, torch.cuda.graph_pool_handle())
+        g.replay()
+        assert out.tolist() == [3, 3, 3] and int(index) == 3

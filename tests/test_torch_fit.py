@@ -41,7 +41,8 @@ from portrayer_tpu_torch.camera import Camera
 from portrayer_tpu_torch.ops import cuda_intersect, intersect as tx, trace as tr
 from portrayer_tpu_torch.parallel import DIFF_FIELDS
 
-from _torch_jax import glass_sphere, jax_arrays, stand_in_graphs
+from _torch_jax import (glass_sphere, jax_arrays, recorded_bodies, recorded_loops,
+                        stand_in_graphs)
 import test_torch_grad
 
 SCENES = ("glass-sphere", "grad-scene")
@@ -345,7 +346,8 @@ def test_captured_fit_steps_read_nothing_on_the_host(stand_in, name):
     """The capturing fit program's forward and backward, each one graph,
     replayed under HostReads: no host read, no copy from host data, each
     bounce round's slice picked by the stand-in conditional (a conditional
-    body per slice of each round, forward and backward); TraceStats.syncs
+    body per slice of each unrolled round and of the tail's loop, forward
+    and backward); TraceStats.syncs
     is 0; the replays give the op-by-op trace's colours, live rays per
     round and gradients bit for bit; a second step on replaced tables (new
     parameter values) replays the same two graphs, and equals trace on
@@ -360,8 +362,10 @@ def test_captured_fit_steps_read_nothing_on_the_host(stand_in, name):
     assert int((ref[2].live[1:] > 0).sum()) >= 2 and ref[2].syncs > 0
     (prog,) = st.packed.fit_programs.values()
     assert prog.warm and sorted(prog.graphs) == ["backward", "forward"]
-    bodies = sum(len(tr.slice_sizes(c, cfg.queue_slice_divs)) for c in prog.pl.cap[1:])
-    assert all(g.bodies == bodies and g.replays == 1 for g in prog.graphs.values())
+    bodies = recorded_bodies(prog.pl, cfg.queue_slice_divs)
+    loops = recorded_loops(prog.pl)
+    assert all(g.bodies == bodies and g.loops == loops and g.replays == 1
+               for g in prog.graphs.values())
     steps = dict(prog.graphs)
     again = _tile_grads(st, *rays, cfg, scale=0.9)
     assert stand_in.seen == [] and prog.graphs == steps
