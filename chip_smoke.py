@@ -56,10 +56,21 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    torus-showcase and glossy-reflection (DETERMINISTIC_PATHS) the
    captured program (its tail one loop) and the eager loop (every round
    unrolled) again on fresh tables under deterministic algorithms, 0
-   pixels apart and 0 host reads captured; then simple at
+   pixels apart and 0 host reads captured; then the main paths through
+   the flat and the beam sweep (SWEEP_PATHS), captured the same way (the
+   beam's ordered walks WHILE nodes, in round 0, in the slices' bodies
+   and in the tail loop's body in turn): big-scene 1980x1020,
+   procedural-meshes 960x540 and glossy-reflection 910x512 with
+   beam_min_prims=0 through the beam, glossy-reflection and
+   torus-showcase at 256x256 through the flat sweep, at the spp that
+   SWEEP_PATHS gives, each with the same three renders and gates, the
+   flat and beam sweeps and beam steps counted on the device in place of
+   kernel launches (none), peak reserved memory, and 0 u8 pixels apart
+   from the eager loop; glossy-reflection's beam path again under
+   deterministic algorithms, 0 pixels apart; then simple at
    256x256, glossy-reflection, procedural-meshes and normal-mapping-numpy
    (240x136) at 4 spp through ``render_linear``, held against the flat
-   oracle's render on the card;
+   oracle's render on the card (the oracle op by op);
 5. gradients through ``trace``: of sum(acc^2) on a 64x64 tile of big-scene
    and of torus-showcase with respect to mat_diffuse, light_pos and inv,
    through the kernel and through its plain version on the card (op by
@@ -81,7 +92,10 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    (the fit's own launch sizes); one captured step (its tail one loop)
    on a fresh program and one op-by-op step (every round unrolled) of
    each under deterministic algorithms, 0 gradient entries apart and 0
-   host reads captured; then big-scene
+   host reads captured; the same glossy-reflection fit through the flat
+   sweep and through the beam (beam_min_prims=0; SWEEP_FITS), with their
+   flat and beam sweeps and beam steps counted on the device, none in a
+   backward; then big-scene
    at 1980x1020 and 1 spp,
    mat_diffuse, backward per chunk of 131,072 rays, captured, beside one
    pass op by op;
@@ -103,10 +117,11 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    uniform camera rays and their shadow rays, against the flat sweep
    (tests/test_beam.py's gates) and the kernel (the kernel gates by
    category, every ray apart printed with its branches and cleared by a
-   float64 witness), with its time and loop steps;
-   checked_trace on simple's 16x16 tile, clean; the float64 check mode
-   (accel="flat") against the float32 kernel render of simple at 48x36 x
-   2 spp;
+   float64 witness), with its time and loop steps (counted on the
+   device); checked_trace on simple's 16x16 tile, clean (op by op); the
+   float64 check mode (accel="flat") through the captured render against
+   its op-by-op render within CAPTURED_TOL and against the float32 kernel
+   render of simple at 48x36 x 2 spp;
 7. the 22 scene programs that load assets (``portrayer_tpu_torch.scenes``)
    on seeded stand-in assets (``tests/_torch_assets.py``: icospheres for
    the meshes, small images for the PNG and JPEG files) in a temporary
@@ -160,6 +175,23 @@ FULL_FRAME_SPP = 16
 # against the eager loop (every round unrolled) bit for bit, under
 # deterministic algorithms.
 DETERMINISTIC_PATHS = ("torus-showcase", "glossy-reflection")
+# Main paths through the flat and the beam sweep, captured as the kernel's
+# are (the beam's ordered walks WHILE nodes): (scene, frame size (None:
+# its own), accel, the RenderConfig's other settings, spp).  Full frames;
+# the spp of the beam legs is cut below FULL_FRAME_SPP (never the frame)
+# so that the whole run stays near 600 s: the beam is plain torch ops,
+# ~1.1 s a chunk on procedural-meshes' 73,729 pairs (~230 steps), and
+# its eager loops read the host once a step.  glossy-reflection with
+# beam_min_prims=0 takes the beam in all ten bounce rounds (a WHILE in an
+# IF in a WHILE).
+SWEEP_PATHS = (("big-scene", None, "beam", {}, 2),
+               ("procedural-meshes", None, "beam", {}, 1),
+               ("glossy-reflection", None, "beam", {"beam_min_prims": 0}, 8),
+               ("glossy-reflection", (256, 256), "flat", {}, FULL_FRAME_SPP),
+               ("torus-showcase", None, "flat", {}, FULL_FRAME_SPP))
+# Sweep paths also held bit for bit against the eager loop under
+# deterministic algorithms: (scene, accel).
+DETERMINISTIC_SWEEP_PATHS = (("glossy-reflection", "beam"),)
 SIMPLE_SPP = 4
 GLOSSY_LINEAR_SPP = 4
 # procedural-meshes through render_linear against the flat oracle: a cut
@@ -185,6 +217,10 @@ FIT_TILE = (256, 512)  # 131,072 rays a chunk at 1 spp
 # the fields stepped); every DIFF_FIELDS table takes a gradient.
 BOUNCE_FITS = (("glossy-reflection", None, 1, ("mat_diffuse", "mat_reflectivity")),
                ("glass-sphere", (256, 256), 4, ("mat_diffuse", "light_color")))
+# The same glossy-reflection fit through the flat and the beam sweep
+# (accel, the RenderConfig's other settings): every round's sweeps take
+# the beam with beam_min_prims=0.
+SWEEP_FITS = (("flat", {}), ("beam", {"beam_min_prims": 0}))
 BOUNCE_FIT_KEY = 23
 # remat_min_lanes above every round's lanes: bounce-round checkpointing off.
 REMAT_OFF = 1 << 40
@@ -881,38 +917,50 @@ def phase_goldens(dev):
               f"(max {diff.max()}){note}", flush=True)
 
 
-def _main_path(dev, spec, path_counts):
+def _main_path(dev, spec, path_counts, accel="cuda", spp=FULL_FRAME_SPP, size=None,
+               extra=None):
     """One main path: `spec` (a SceneSpec or a registry name) at its size
-    and FULL_FRAME_SPP through Image.render on its tables, which captures
-    the chunk program as one CUDA graph (its bounce rounds' slices
-    conditional bodies) and replays it, with the counts of that run alone;
-    beside it, in this call, the same render again (the graph cached) and
-    the eager chunk loop (cuda_graphs=False).  Captured chunks read
-    nothing on the host; the cached render launches the sweep as often as
-    the eager loop, the first as often plus its warm-up; the captured
-    linear image is held against the eager one within CAPTURED_TOL."""
+    (or `size`) and `spp` through Image.render on its tables, which
+    captures the chunk program as one CUDA graph (its bounce rounds'
+    slices conditional bodies, with accel="beam" its ordered sweeps WHILE
+    nodes) and replays it, with the counts of that run alone; beside it,
+    in this call, the same render again (the graph cached) and the eager
+    chunk loop (cuda_graphs=False).  Captured chunks read nothing on the
+    host; the cached render sweeps as often as the eager loop (kernel
+    launches, flat and beam sweeps, beam steps), the first as often plus
+    its warm-up; the captured linear image is held against the eager one
+    within CAPTURED_TOL, and with accel "flat" or "beam" the u8 frames
+    are 0 pixels apart.  `extra`: the RenderConfig's other settings."""
     import dataclasses
     import numpy as np
+    import torch
     from portrayer_tpu_torch import Image, RenderConfig, flatten_scene, render_linear, scenes
     from portrayer_tpu_torch.image_io import read_png
+    from portrayer_tpu_torch.ops import cuda_intersect
 
     if isinstance(spec, str):
         spec = scenes.load(spec)
+    if size is not None:
+        spec = dataclasses.replace(spec, size=tuple(size))
+    extra = extra or {}
     name = spec.name
+    label = name if accel == "cuda" else f"{name} {accel}" + "".join(
+        f" {k}={v}" for k, v in extra.items())
     w, h = spec.size
-    cfg = RenderConfig(device=dev, samples=FULL_FRAME_SPP, max_rays_per_launch=LAUNCH_RAYS,
-                       queue_caps=spec.queue_caps)
+    cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=LAUNCH_RAYS,
+                       queue_caps=spec.queue_caps, accel=accel, **extra)
     eager = dataclasses.replace(cfg, cuda_graphs=False)
     t0 = time.perf_counter()
     st = flatten_scene(spec.scene, dev)
     flatten_s = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, f"{name}.png")
+    path = os.path.join(OUT_DIR, f"{label.replace(' ', '_')}.png")
     img = Image(None, w, h)
     stats = []
     args = (st, spec.camera, spec.background)
     _, secs, counts, peak = _timed(dev, lambda: img.render(*args, cfg, stats=stats))
-    path_counts[name] = counts
+    reserved = torch.cuda.max_memory_reserved(dev) / 2**30
+    path_counts[label] = counts
     (prog,) = st.chunk_programs.values()
     graphs = prog.graphs
     replays = sum(g.replays for g in graphs.values())
@@ -920,61 +968,81 @@ def _main_path(dev, spec, path_counts):
     loops = sum(g.loops for g in graphs.values())
     img.save_as(path)
     if not np.array_equal(read_png(path), img.buffer):
-        raise AssertionError(f"{name}: saved PNG does not decode to the rendered bytes")
+        raise AssertionError(f"{label}: saved PNG does not decode to the rendered bytes")
     if img.buffer.shape != (h, w, 3) or img.buffer.max() == 0:
-        raise AssertionError(f"{name}: frame is empty or misshapen")
-    if counts["nearest"] == 0 or counts["any_hit"] == 0:
-        raise AssertionError(f"{name}: main path did not launch both kernel modes: {counts}")
+        raise AssertionError(f"{label}: frame is empty or misshapen")
+    if accel == "cuda" and (counts["nearest"] == 0 or counts["any_hit"] == 0):
+        raise AssertionError(f"{label}: main path did not launch both kernel modes: {counts}")
+    if accel != "cuda" and (counts["nearest"] or counts["any_hit"] or not counts[
+            {"flat": "flat_sweep", "beam": "beam_step"}[accel]]):
+        raise AssertionError(f"{label}: main path did not run through the {accel} sweep "
+                             f"alone: {counts}")
     if counts["plain_on_cuda"] != 0:
-        raise AssertionError(f"{name}: plain version ran on CUDA tensors: {counts}")
+        raise AssertionError(f"{label}: plain version ran on CUDA tensors: {counts}")
     chunks = len(stats)  # every chunk traces the same number of rays
     if list(graphs) != ["chunk"] or graphs["chunk"].replays != chunks:
-        raise AssertionError(f"{name}: graphs {list(graphs)}, {replays} replays for {chunks} "
+        raise AssertionError(f"{label}: graphs {list(graphs)}, {replays} replays for {chunks} "
                              f"chunks (one graph, one replay a chunk)")
     live = sum(s.live for s in stats).tolist()
     rounds = sum(n > 0 for s in stats for n in s.live.tolist())
     syncs = sum(s.syncs for s in stats)
     if syncs != 0:
-        raise AssertionError(f"{name}: {syncs} host syncs over {chunks} captured chunks")
+        raise AssertionError(f"{label}: {syncs} host syncs over {chunks} captured chunks")
     dropped_w = sum(s.dropped_w for s in stats) / chunks
     if dropped_w > 1e-3:
-        raise AssertionError(f"{name}: queue overflow dropped {dropped_w:.4%} of the throughput")
+        raise AssertionError(f"{label}: queue overflow dropped {dropped_w:.4%} of the "
+                             f"throughput")
     again = Image(None, w, h)
     _, again_secs, again_counts, _ = _timed(dev, lambda: again.render(*args, cfg))
     eager_img, eager_stats = Image(None, w, h), []
     _, eager_secs, eager_counts, eager_peak = _timed(
         dev, lambda: eager_img.render(*args, eager, stats=eager_stats))
+    eager_reserved = torch.cuda.max_memory_reserved(dev) / 2**30
     eager_syncs = sum(s.syncs for s in eager_stats)
-    for mode in ("nearest", "any_hit"):
+    for mode in cuda_intersect.SWEEP_MODES:
         if (again_counts[mode] != eager_counts[mode]
                 or counts[mode] != eager_counts[mode] + prog.warm_launches[mode]):
             raise AssertionError(
-                f"{name}: {mode} launches captured {counts[mode]} (its warm-up "
+                f"{label}: {mode} captured {counts[mode]} (its warm-up "
                 f"{prog.warm_launches[mode]}), cached {again_counts[mode]}, eager "
                 f"{eager_counts[mode]}")
     if [s.live.tolist() for s in eager_stats] != [s.live.tolist() for s in stats]:
-        raise AssertionError(f"{name}: live rays per round differ from the eager loop's")
+        raise AssertionError(f"{label}: live rays per round differ from the eager loop's")
     lin = render_linear(st, spec.camera, (w, h), spec.background, cfg)
     lin_eager = render_linear(st, spec.camera, (w, h), spec.background, eager)
     diff = float(np.abs(lin - lin_eager).max())
     u8_off = int((img.buffer != eager_img.buffer).any(axis=-1).sum())
     if not diff <= CAPTURED_TOL:
-        raise AssertionError(f"{name}: captured render differs from the eager chunk loop by "
+        raise AssertionError(f"{label}: captured render differs from the eager chunk loop by "
                              f"{diff:.3g} (limit {CAPTURED_TOL})")
-    rays = w * h * FULL_FRAME_SPP
-    print(f"[4 main path] {name} {w}x{h} x {FULL_FRAME_SPP} spp, tile {cfg.tile}, "
+    if accel != "cuda" and u8_off:
+        raise AssertionError(f"{label}: captured u8 frame {u8_off} pixels apart from the "
+                             f"eager loop's")
+    rays = w * h * spp
+    sweeps = (f"launches nearest {counts['nearest']} any-hit {counts['any_hit']} (the warm-up's "
+              f"{prog.warm_launches['nearest']} and {prog.warm_launches['any_hit']} among them; "
+              f"cached {again_counts['nearest']} and {again_counts['any_hit']}, "
+              f"{again_counts['nearest'] / chunks:.2f} and {again_counts['any_hit'] / chunks:.2f} "
+              f"per chunk; eager {eager_counts['nearest']} and {eager_counts['any_hit']})")
+    if accel != "cuda":
+        sweeps = (f"flat sweeps {counts['flat_sweep']}, beam sweeps {counts['beam_sweep']} and "
+                  f"beam steps {counts['beam_step']} counted on the device (the warm-up's "
+                  f"{prog.warm_launches['flat_sweep']}, {prog.warm_launches['beam_sweep']} and "
+                  f"{prog.warm_launches['beam_step']} among them; cached "
+                  f"{again_counts['flat_sweep']}, {again_counts['beam_sweep']} and "
+                  f"{again_counts['beam_step']}, {again_counts['beam_step'] / chunks:.2f} beam "
+                  f"steps per chunk; eager {eager_counts['flat_sweep']}, "
+                  f"{eager_counts['beam_sweep']} and {eager_counts['beam_step']}), no kernel "
+                  f"launch")
+    print(f"[4 main path] {label} {w}x{h} x {spp} spp, accel {accel!r}, tile {cfg.tile}, "
           f"{LAUNCH_RAYS} rays/launch: captured {secs:.3f} s ({rays / secs / 1e6:.3f} Mrays/s "
           f"primary; capture {prog.capture_s:.3f} s, flatten {flatten_s:.3f} s before it), "
           f"again with the graphs cached {again_secs:.3f} s ({rays / again_secs / 1e6:.3f} "
           f"Mrays/s), eager chunk loop {eager_secs:.3f} s ({rays / eager_secs / 1e6:.3f} "
-          f"Mrays/s); peak memory {peak:.3f} GiB captured, {eager_peak:.3f} eager; {chunks} "
+          f"Mrays/s); peak memory {peak:.3f} GiB captured, {eager_peak:.3f} eager (reserved "
+          f"{reserved:.3f} and {eager_reserved:.3f}); {chunks} "
           f"chunks, {len(graphs)} graph, {bodies} conditional bodies, {loops} loops, {replays} "
-          f"replays; "
-          f"launches nearest {counts['nearest']} any-hit {counts['any_hit']} (the warm-up's "
-          f"{prog.warm_launches['nearest']} and {prog.warm_launches['any_hit']} among them; "
-          f"cached {again_counts['nearest']} and {again_counts['any_hit']}, "
-          f"{again_counts['nearest'] / chunks:.2f} and {again_counts['any_hit'] / chunks:.2f} "
-          f"per chunk; eager {eager_counts['nearest']} and {eager_counts['any_hit']}), "
+          f"replays; {sweeps}, "
           f"conditional kernel {again_counts['graph_if']} cached, loop step kernel "
           f"{again_counts['graph_while']}, plain on CUDA "
           f"{counts['plain_on_cuda']}; rounds {rounds}, host syncs captured {syncs} "
@@ -983,7 +1051,7 @@ def _main_path(dev, spec, path_counts):
           f"{dropped_w:.3g}; linear image against the eager loop's: max |diff| {diff:.3g}, "
           f"u8 pixels apart {u8_off}; PNG {os.path.relpath(path, ROOT)} round-trips",
           flush=True)
-    return dict(spec=spec, cfg=cfg, bodies=bodies, loops=loops)
+    return dict(spec=spec, cfg=cfg, bodies=bodies, loops=loops, label=label)
 
 
 def _deterministic(fn):
@@ -1035,20 +1103,24 @@ def _looped_against_eager(dev, main):
     apart = int((lin != elin).any(axis=-1).sum())
     syncs = sum(s.syncs for s in stats)
     same_live = [s.live.tolist() for s in stats] == [s.live.tolist() for s in estats]
-    print(f"[4 deterministic] {spec.name}: under deterministic algorithms the captured render "
+    print(f"[4 deterministic] {main['label']}: under deterministic algorithms the captured "
+          f"render "
           f"({main['bodies']} conditional bodies, {main['loops']} loops) against the eager "
           f"chunk loop: linear images {apart} pixels apart (max |diff| "
           f"{float(np.abs(lin - elin).max()):.3g}), live rays per round equal {same_live}, "
           f"host reads captured {syncs}, eager {sum(s.syncs for s in estats)}", flush=True)
     if apart or syncs or not same_live or not main["loops"]:
-        raise AssertionError(f"{spec.name}: the looped capture against the eager loop: {apart} "
+        raise AssertionError(f"{main['label']}: the looped capture against the eager loop: "
+                             f"{apart} "
                              f"pixels apart, {syncs} host reads, live equal {same_live}, "
                              f"{main['loops']} loops")
 
 
 def _linear_vs_flat(dev, spec, spp, size=None):
     """`spec` (a SceneSpec or a registry name) through render_linear and
-    the kernels, held against the flat oracle's render on the card: fewer
+    the kernels, held against the flat oracle's render on the card, run op
+    by op (cuda_graphs=False, so that the oracle shares no captured
+    program with the code under test): fewer
     than 0.1% of pixels may differ by more than 1e-4 (a silhouette sample
     that one sweep hits and the other misses moves its pixel by a large
     step; on a mesh, a ray leaving a triangle meets a neighbour that the
@@ -1074,7 +1146,8 @@ def _linear_vs_flat(dev, spec, spp, size=None):
     if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{name} did not run through the kernels alone: {counts}")
     t0 = time.perf_counter()
-    flat = render_linear(*args, RenderConfig(device=dev, samples=spp, accel="flat"))
+    flat = render_linear(*args, RenderConfig(device=dev, samples=spp, accel="flat",
+                                             cuda_graphs=False))
     flat_secs = time.perf_counter() - t0
     if ours.shape != (h, w, 3) or not np.isfinite(ours).all() or ours.max() <= 0.0:
         raise AssertionError(f"{name} frame is empty, misshapen or not finite")
@@ -1217,18 +1290,22 @@ def _frame_pass(dev, st, spec, cfg, diffuse=None, target=None):
     return out if diffuse is None else loss
 
 
-def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
-    """A fit through the bounce rounds (BOUNCE_FITS): `name`'s frame at
-    `size` x spp in one trace; FIT_STEPS gradient steps on `fields`,
-    started at FIT_START of the truth, against the true render, through
-    the captured fit program and op by op, each pass's loss, seconds,
-    sweep launches (forward, backward) and host reads; an op-by-op pass
-    with bounce-round checkpointing off; a step's peak memory in each of
-    the three; the captured gradients of every DIFF_FIELDS table at the
-    first step, and those with checkpointing off, against the op-by-op ones
-    (GRAD_RTOL of the largest entry); last, an op-by-op step whose every
-    sweep launch is held against the plain version (_HeldSweep; err and
-    diffs as in phase 2)."""
+def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs, accel="cuda",
+                extra=None):
+    """A fit through the bounce rounds (BOUNCE_FITS, SWEEP_FITS): `name`'s
+    frame at `size` x spp in one trace, through the sweep of `accel`
+    (`extra`: the RenderConfig's other settings); FIT_STEPS gradient steps
+    on `fields`, started at FIT_START of the truth, against the true
+    render, through the captured fit program and op by op, each pass's
+    loss, seconds, sweeps (forward, backward: kernel launches, flat and
+    beam sweeps and beam steps, counted on the device) and host reads; an
+    op-by-op pass with bounce-round checkpointing off; a step's peak
+    memory in each of the three; the captured gradients of every
+    DIFF_FIELDS table at the first step, and those with checkpointing off,
+    against the op-by-op ones (GRAD_RTOL of the largest entry); with the
+    kernel, last, an op-by-op step whose every sweep launch is held
+    against the plain version (_HeldSweep; err and diffs as in phase
+    2)."""
     import dataclasses
     import gc
     import torch
@@ -1241,7 +1318,10 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
     spec = _inline(name) if name == "glass-sphere" else scenes.load(name)
     w, h = size or spec.size
     st = flatten_scene(spec.scene, dev)
-    cfg = RenderConfig(device=dev, queue_caps=spec.queue_caps)
+    extra = extra or {}
+    cfg = RenderConfig(device=dev, queue_caps=spec.queue_caps, accel=accel, **extra)
+    label = name if accel == "cuda" else f"{name} {accel}" + "".join(
+        f" {k}={v}" for k, v in extra.items())
     o, d, pix, bg, w0 = render._tile_rays(
         rng.PRNGKey(BOUNCE_FIT_KEY), Camera(spec.camera, (w, h), dev), 0, 0, 0, cfg=cfg,
         background=spec.background, tile_h=h, tile_w=w, spp=spp, samples=spp)
@@ -1276,12 +1356,12 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
         _sync(dev)
         secs = time.perf_counter() - t0
         bwd = cuda_intersect.counts()
-        if not held and (bwd["nearest"] or bwd["any_hit"] or bwd["plain_on_cuda"]
+        if not held and (any(bwd[m] for m in cuda_intersect.SWEEP_MODES) or bwd["plain_on_cuda"]
                          or fwd["plain_on_cuda"]):
-            raise AssertionError(f"fit {name}: forward {fwd}, backward {bwd} (the backward "
-                                 f"launched a sweep, or the plain version ran on the card)")
+            raise AssertionError(f"fit {label}: forward {fwd}, backward {bwd} (the backward "
+                                 f"swept, or the plain version ran on the card)")
         if stats.dropped_w != 0.0:
-            raise AssertionError(f"fit {name}: queue overflow dropped {stats.dropped_w:.3g}")
+            raise AssertionError(f"fit {label}: queue overflow dropped {stats.dropped_w:.3g}")
         return dict(loss=float(loss.detach()), grads={f: x.grad for f, x in leaves.items()},
                     stats=stats, secs=secs, fwd=fwd, bwd=bwd, peak=_peak_gib(dev),
                     reserved=torch.cuda.max_memory_reserved(dev) / 2**30)
@@ -1293,7 +1373,7 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
     off_cfg = dataclasses.replace(eager, remat_min_lanes=REMAT_OFF)
     off = step(off_cfg, start)
     peaks["off"] = step(off_cfg, start, memory=True)
-    for label, c in (("op by op", eager), ("captured", cfg)):
+    for run, c in (("op by op", eager), ("captured", cfg)):
         params = dict(start)
         steps = []
         for _ in range(FIT_STEPS + 1):
@@ -1301,14 +1381,14 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
             for f in fields:
                 g = steps[-1]["grads"][f]
                 if not torch.isfinite(g).all() or g.abs().max() == 0.0:
-                    raise AssertionError(f"fit {name} ({label}): {f} gradient not finite or 0")
+                    raise AssertionError(f"fit {label} ({run}): {f} gradient not finite or 0")
                 params[f] = params[f] - FIT_STEP * g / g.abs().max()
         losses = [s["loss"] for s in steps]
         if any(b >= a for a, b in zip(losses, losses[1:])):
-            raise AssertionError(f"fit {name} ({label}): the loss did not fall at every step: "
+            raise AssertionError(f"fit {label} ({run}): the loss did not fall at every step: "
                                  f"{losses}")
-        runs[label] = steps
-        peaks[label] = step(c, start, memory=True)
+        runs[run] = steps
+        peaks[run] = step(c, start, memory=True)
     notes = []
     for f in DIFF_FIELDS:
         got, ref = runs["captured"][0]["grads"][f], runs["op by op"][0]["grads"][f]
@@ -1316,23 +1396,34 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
         diff = (got - ref).abs().max().item()
         off_diff = (off["grads"][f] - ref).abs().max().item()
         if not torch.isfinite(got).all() or max(diff, off_diff) > GRAD_RTOL * scale:
-            raise AssertionError(f"fit {name}: {f} gradients captured / checkpointing off "
+            raise AssertionError(f"fit {label}: {f} gradients captured / checkpointing off "
                                  f"against op by op differ by {diff:.3g} / {off_diff:.3g} "
                                  f"(largest entry {scale:.3g})")
         notes.append(f"{f} {diff:.3g} of {scale:.3g}")
     cap, ref = runs["captured"], runs["op by op"]
     (prog,) = st.packed.fit_programs.values()
+    # A captured step sweeps once a mode and live round: the kernel's two
+    # modes, or the flat or beam sweep twice (nearest and shadow rays).
+    swept = ((("nearest",), ("any_hit",)) if accel == "cuda"
+             else (("flat_sweep", "beam_sweep"),))
     for i, s in enumerate(cap):
         rounds = int((s["stats"].live > 0).sum())
+        got = tuple(sum(s["fwd"][m] for m in modes) for modes in swept)
+        want = (rounds,) * 2 if accel == "cuda" else (2 * rounds,)
         # The first step's counts hold its warm-up's launches too.
-        if s["stats"].syncs or i and (s["fwd"]["nearest"], s["fwd"]["any_hit"]) != (rounds,) * 2:
-            raise AssertionError(f"fit {name}, captured step {i}: {s['stats'].syncs} host "
-                                 f"reads, forward launches {s['fwd']} for {rounds} rounds")
-    with _HeldSweep(f"fit {name}", err, diffs) as held:
-        step(eager, start, held=True)
-    sizes_held = {m: sorted({n for mode, n in held.launches if mode == m}, reverse=True)
-                  for m in ("nearest", "any_hit")}
-    path_counts[f"fit {name}, captured step"] = {
+        if s["stats"].syncs or i and got != want:
+            raise AssertionError(f"fit {label}, captured step {i}: {s['stats'].syncs} host "
+                                 f"reads, forward sweeps {s['fwd']} for {rounds} rounds")
+    held_note = ""
+    if accel == "cuda":
+        with _HeldSweep(f"fit {name}", err, diffs) as held:
+            step(eager, start, held=True)
+        sizes_held = {m: sorted({n for mode, n in held.launches if mode == m}, reverse=True)
+                      for m in ("nearest", "any_hit")}
+        held_note = (f"; one op-by-op step with each of its {len(held.launches)} sweep launches "
+                     f"held against the plain version under phase 2's gates, rays a launch: "
+                     f"nearest {sizes_held['nearest']}, any-hit {sizes_held['any_hit']}")
+    path_counts[f"fit {label}, captured step"] = {
         k: cap[-1]["fwd"][k] + cap[-1]["bwd"][k] for k in cap[-1]["fwd"]}
     live = cap[0]["stats"].live.tolist()
     f3 = lambda key, steps: [f"{s[key]:.3f}" for s in steps]
@@ -1341,7 +1432,7 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
     caps = sorted(set(prog.pl.cap[1:]))
     sizes = slice_sizes(caps[-1], cfg.queue_slice_divs)
     fwd, bwd, rfwd, rbwd = cap[-1]["fwd"], cap[-1]["bwd"], ref[-1]["fwd"], ref[-1]["bwd"]
-    print(f"[5 fit] {name} {w}x{h} x {spp} spp ({R} rays in one trace; queue capacities "
+    print(f"[5 fit] {label} {w}x{h} x {spp} spp ({R} rays in one trace; queue capacities "
           f"{caps}, slices {sizes}), {list(fields)} from {FIT_START} of the truth: MSE per "
           f"step captured {mse(cap)}, op by op {mse(ref)}; seconds per step (forward + "
           f"backward) captured {f3('secs', cap)} (the first with a warm-up pass op by op and "
@@ -1355,15 +1446,17 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
           f"launches a captured step nearest {fwd['nearest']} any-hit {fwd['any_hit']} in "
           f"forward, {bwd['nearest']} and {bwd['any_hit']} in backward (op by op "
           f"{rfwd['nearest']} / {rfwd['any_hit']} and {rbwd['nearest']} / {rbwd['any_hit']}); "
+          f"flat sweeps, beam sweeps and beam steps a captured step {fwd['flat_sweep']}, "
+          f"{fwd['beam_sweep']} and {fwd['beam_step']} in forward, {bwd['flat_sweep']}, "
+          f"{bwd['beam_sweep']} and {bwd['beam_step']} in backward (op by op "
+          f"{rfwd['flat_sweep']}, {rfwd['beam_sweep']} and {rfwd['beam_step']}, and "
+          f"{rbwd['flat_sweep']}, {rbwd['beam_sweep']} and {rbwd['beam_step']}); "
           f"host reads a captured step {cap[-1]['stats'].syncs} (op by op "
           f"{ref[-1]['stats'].syncs}); conditional kernel runs a captured step "
           f"{fwd['graph_if']} + {bwd['graph_if']}, loop step kernel runs {fwd['graph_while']} + "
           f"{bwd['graph_while']}; live rays per round "
           f"{live}; dropped_w 0; captured against op-by-op gradients, max |diff| of max |g|: "
-          + "; ".join(notes) + f"; one op-by-op step with each of its {len(held.launches)} "
-          f"sweep launches held against the plain version under phase 2's gates, rays a "
-          f"launch: nearest {sizes_held['nearest']}, any-hit {sizes_held['any_hit']}",
-          flush=True)
+          + "; ".join(notes) + held_note, flush=True)
 
     # One captured step (the tail one loop) on a fresh program and one op
     # by op (every round unrolled), under _deterministic.
@@ -1376,12 +1469,12 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs):
     apart = sum(int((det[0]["grads"][f] != det[1]["grads"][f]).sum()) for f in DIFF_FIELDS)
     entries = sum(det[0]["grads"][f].numel() for f in DIFF_FIELDS)
     same_live = det[0]["stats"].live.tolist() == det[1]["stats"].live.tolist()
-    print(f"[5 fit deterministic] {name}: under deterministic algorithms a captured step "
+    print(f"[5 fit deterministic] {label}: under deterministic algorithms a captured step "
           f"against an op-by-op one: loss {det[0]['loss']!r} and {det[1]['loss']!r}, {apart} "
           f"of {entries} gradient entries apart, live rays per round equal {same_live}, host "
           f"reads captured {det[0]['stats'].syncs}", flush=True)
     if apart or det[0]["loss"] != det[1]["loss"] or not same_live or det[0]["stats"].syncs:
-        raise AssertionError(f"fit {name}: the looped capture against op by op: {apart} "
+        raise AssertionError(f"fit {label}: the looped capture against op by op: {apart} "
                              f"gradient entries apart, losses {det[0]['loss']!r} and "
                              f"{det[1]['loss']!r}, live equal {same_live}, host reads "
                              f"{det[0]['stats'].syncs}")
@@ -1423,6 +1516,9 @@ def phase_gradients(dev, path_counts, err, diffs):
 
     for name, size, spp, fields in BOUNCE_FITS:
         _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs)
+    name, size, spp, fields = BOUNCE_FITS[0]
+    for accel, extra in SWEEP_FITS:
+        _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs, accel, extra)
 
     spec = scenes.load("big-scene")
     cfg = RenderConfig(device=dev, samples=1, tile=FIT_TILE, max_rays_per_launch=LAUNCH_RAYS)
@@ -1832,12 +1928,14 @@ def _beam_gates(ref, got, label):
 def phase_checks(dev):
     """The beam sweep against the flat sweep and the kernel on big-scene,
     checked_trace on simple, and the float64 check mode against the
-    float32 render."""
+    float32 render and, captured, against its op-by-op render."""
+    import dataclasses
     import torch
     from _torch_jax import float64_tables, kernel_apart_limits, sweeps_apart
     from portrayer_tpu_torch import RenderConfig, flatten_scene, render_linear, rng, scenes
     from portrayer_tpu_torch.camera import Camera
     from portrayer_tpu_torch.debug import checked_trace
+    from portrayer_tpu_torch.ops import cuda_intersect
     from portrayer_tpu_torch.ops.beam import intersect_scene_beam
     from portrayer_tpu_torch.ops.cuda_intersect import intersect_scene_cuda
     from portrayer_tpu_torch.ops.intersect import intersect_scene
@@ -1858,7 +1956,12 @@ def phase_checks(dev):
     for label, args, kw in (("camera", (o, d, cfg.epsilon, inf), {}),
                             ("shadow", (so, sd, st_min, inf), skw)):
         stats = {}
+        cuda_intersect.reset_counts()
         got = intersect_scene_beam(*args, st, bcfg, stats=stats, **kw)
+        steps = int(stats["trips"])
+        if cuda_intersect.counts()["beam_step"] != steps or not steps:
+            raise AssertionError(f"beam {label}: {steps} steps, counted "
+                                 f"{cuda_intersect.COUNTS['beam_step']} on the device")
         err = _beam_gates(intersect_scene(*args, st, fcfg, **kw), got, f"beam {label}")
         # Against the kernel: the kernel gates of tests/test_pallas.py by
         # category, each ray apart shown with its branches and cleared by
@@ -1874,7 +1977,8 @@ def phase_checks(dev):
         counts = ", ".join(f"{c} {apart[c]} (at most {limits[c]}; by branch "
                            f"{apart['branches'][c]})" for c in limits)
         print(f"[6 beam] big-scene {label} rays ({args[0].shape[0]}): beam sweep {ms:.3f} ms a "
-              f"call, {stats['trips']} steps of its loop (one host sync each); the kernel "
+              f"call, {steps} steps of its loops counted on the device (this call op by op: one "
+              f"host read each; none captured); the kernel "
               f"{kms:.3f} ms; the gates of tests/test_beam.py hold against the flat sweep (max "
               f"|dt| {err:.3g}); against the kernel, rays apart by {counts}, node ties "
               f"{apart['tie']} of {apart['hits']} hits, {apart['uncleared']} not cleared by the "
@@ -1900,15 +2004,32 @@ def phase_checks(dev):
           f"a NaN", flush=True)
 
     args = (simple.scene, simple.camera, F64_SIZE, simple.background)
-    img64 = render_linear(*args, RenderConfig(device=dev, samples=F64_SPP, tile=(48, 48),
-                                              accel="flat", dtype=torch.float64))
+    cfg64 = RenderConfig(device=dev, samples=F64_SPP, tile=(48, 48), accel="flat",
+                         dtype=torch.float64)
+    st64 = flatten_scene(simple.scene, dev, dtype=torch.float64)
+    args64 = (st64,) + args[1:]
+    stats64 = []
+    img64 = render_linear(*args64, cfg64, stats=stats64)
+    (prog64,) = st64.chunk_programs.values()
+    graphs64 = prog64.graphs
+    eager64 = render_linear(*args64, dataclasses.replace(cfg64, cuda_graphs=False))
     img32 = render_linear(*args, RenderConfig(device=dev, samples=F64_SPP, tile=(48, 48)))
     diff = np.abs(img64 - img32)
+    cap_diff = float(np.abs(img64 - eager64).max())
+    syncs64 = sum(s.syncs for s in stats64)
     if not (diff.mean() < 2e-3 and diff.max() < 0.05) or img64.dtype != np.float64:
         raise AssertionError(f"float64 against float32: mean {diff.mean():.3g}, max "
                              f"{diff.max():.3g}")
+    if (not cap_diff <= CAPTURED_TOL or syncs64 or list(graphs64) != ["chunk"]
+            or prog64.tile_acc.dtype != torch.float64):
+        raise AssertionError(f"float64 captured against op by op: max |diff| {cap_diff:.3g}, "
+                             f"{syncs64} host syncs, graphs {list(graphs64)}, buffers "
+                             f"{prog64.tile_acc.dtype}")
     print(f"[6 checks] float64 check mode, simple {F64_SIZE[0]}x{F64_SIZE[1]} x {F64_SPP} spp "
-          f"(accel='flat') against the float32 kernel render: mean |diff| {diff.mean():.3g}, "
+          f"(accel='flat') through the captured render ({len(graphs64)} graph, "
+          f"{graphs64['chunk'].replays} replays, float64 buffers, {syncs64} host syncs): "
+          f"against its op-by-op render max |diff| {cap_diff:.3g} (limit {CAPTURED_TOL}); "
+          f"against the float32 kernel render: mean |diff| {diff.mean():.3g}, "
           f"max {diff.max():.3g} (gate: mean < 2e-3, max < 0.05)", flush=True)
 
 
@@ -2062,6 +2183,11 @@ def main():
                  textured, _inline("soft-shadows-icosphere"), "four-shapes"):
         main_path = _main_path(dev, spec, path_counts)
         if spec in DETERMINISTIC_PATHS:
+            _looped_against_eager(dev, main_path)
+    for name, size, accel, extra, spp in SWEEP_PATHS:
+        spec = mesh if name == "procedural-meshes" else name
+        main_path = _main_path(dev, spec, path_counts, accel, spp, size, extra)
+        if (name, accel) in DETERMINISTIC_SWEEP_PATHS:
             _looped_against_eager(dev, main_path)
     _linear_vs_flat(dev, "simple", SIMPLE_SPP)
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)

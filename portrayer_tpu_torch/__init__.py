@@ -26,9 +26,11 @@ makes silhouettes differentiable too.
 share a card): ``trace_sharded``, ``render_tiles_sharded``,
 ``render_frame_distributed`` and ``train_step``, whose gradients do not
 depend on the world size.  ``accel="beam"`` runs the JAX package's beam
-sweep in plain torch ops; ``RenderConfig(dtype=torch.float64,
-accel="flat")`` is the float64 check mode; ``render_bounding_volumes``
-renders meshes as their boxes; the render entry points take a
+sweep in plain torch ops, its ordered walk a loop on the device (a CUDA
+graph WHILE node when captured); ``RenderConfig(dtype=torch.float64,
+accel="flat")`` is the float64 check mode.  On the card every accel and
+dtype renders and fits through captured CUDA graphs.
+``render_bounding_volumes`` renders meshes as their boxes; the render entry points take a
 ``reporter`` (``reporter.py``); ``debug`` holds ``checked_trace`` (the
 first op that makes a NaN), ``queue_overflow_fraction`` and
 ``assert_image_finite``.

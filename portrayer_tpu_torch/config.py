@@ -9,10 +9,12 @@ graph WHILE node, the JAX package's ``lax.scan``), which records the
 same ops as the unrolled rounds in a fraction of the capture time, and
 op by op the rounds are a Python loop.  ``remat_min_lanes`` has the JAX
 package's meaning: which rounds of a differentiable trace run
-checkpointed.  ``device`` and ``accel`` choose
-where and through which sweep the port runs, ``dtype`` in which
-precision, ``cuda_graphs`` whether a render or a fit on the card replays
-captured CUDA graphs.
+checkpointed.  ``device`` and ``accel`` choose where and through which
+sweep the port runs, ``dtype`` in which precision, ``cuda_graphs``
+whether a render or a fit on the card replays captured CUDA graphs,
+through any of the three sweeps (the beam sweep's ordered walk a WHILE
+node of its own, the JAX package's ``lax.while_loop``), as the JAX
+package compiles each of them into one program.
 """
 
 from __future__ import annotations
@@ -152,11 +154,11 @@ class RenderConfig:
     beam_chunk: int = 64
     beam_min_prims: int = 192
 
-    # With accel="cuda" on the card, a render captures its chunk (and, in
-    # a scene with bounces, each bounce round's shape) once as a CUDA graph
+    # On the card, whatever the accel and dtype, a render captures its
+    # chunk (round 0 and every bounce round's slices) once as a CUDA graph
     # and replays it for every tile and sample chunk; a differentiable
-    # trace captures each round's forward and backward (fit.py).  False
-    # runs the same rounds op by op, as a check of the captured ones.
+    # trace captures its forward and backward (fit.py).  False runs the
+    # same rounds op by op, as a check of the captured ones.
     cuda_graphs: bool = True
 
     def __post_init__(self):
@@ -179,8 +181,8 @@ class RenderConfig:
     @property
     def captures(self) -> bool:
         """Whether a render or a differentiable trace replays captured CUDA
-        graphs: on the card with accel="cuda" and cuda_graphs."""
-        return self.cuda_graphs and self.accel == "cuda" and self.device.type == "cuda"
+        graphs: on the card with cuda_graphs, through any accel."""
+        return self.cuda_graphs and self.device.type == "cuda"
 
     def resolved_samples(self) -> int:
         return self.samples if self.samples is not None else _env_samples()

@@ -114,9 +114,10 @@ def checked_trace(key, o, d, pix, bg, n_pixels, st, cfg: RenderConfig):
     """Run trace() with every op's floating outputs checked for NaN.
     Returns (err, acc); err.throw() raises FloatingPointError naming the
     op and the line of the port.  Uses the flat sweep, as the JAX package
-    does: its checkify cannot look inside the sweep kernel."""
-    if cfg.accel != "flat":
-        cfg = dataclasses.replace(cfg, accel="flat")
+    does: its checkify cannot look inside the sweep kernel; and runs op by
+    op (cuda_graphs=False), as a dispatch mode cannot see inside a graph's
+    replay."""
+    cfg = dataclasses.replace(cfg, accel="flat", cuda_graphs=False)
     check = FloatCheck()
     mode = _NanMode(check)
     with mode:
@@ -132,7 +133,7 @@ def queue_overflow_fraction(scene_or_tables, camera, size, background, cfg: Rend
     (TraceStats.dropped_w) on a full-frame strided subsample of the view,
     one ray at each pixel centre.  The loud-failure gate for stale
     per-scene queue_caps: a crop can miss exactly the geometry that keeps
-    rays alive."""
+    rays alive.  Runs op by op (cuda_graphs=False): one trace, read once."""
     from .camera import Camera
     from .scene.flatten import SceneTables, flatten_scene
 
@@ -151,7 +152,8 @@ def queue_overflow_fraction(scene_or_tables, camera, size, background, cfg: Rend
     o, d = cam.rays_at(px, py)
     pix = torch.arange(P_, dtype=torch.int32, device=dev)
     bg = background(torch.stack([px / w, py / h], dim=-1)).to(dt)
-    _, stats = trace(rng.PRNGKey(cfg.seed), o, d, pix, bg, P_, st, cfg, with_stats=True)
+    _, stats = trace(rng.PRNGKey(cfg.seed), o, d, pix, bg, P_, st,
+                     dataclasses.replace(cfg, cuda_graphs=False), with_stats=True)
     return float(stats.dropped_w)
 
 

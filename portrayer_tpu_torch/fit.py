@@ -4,7 +4,9 @@ graphs, forward and backward (the counterpart of the JAX package's jitted
 program with every round under ``jax.checkpoint``).
 
 ``ops.trace.trace`` sends here a trace whose tables (or rays) require
-grad, on the card with accel="cuda" and ``cfg.cuda_graphs``.  The whole
+grad, on the card with ``cfg.cuda_graphs`` (``cfg.captures``), through
+any of the three sweeps: the kernel, the flat sweep or the beam sweep,
+whose ordered walks are WHILE nodes of the forward's rounds.  The whole
 trace is one autograd node (``_Fit``).  Its forward is one step: round 0,
 then each bounce round on the slice that ``slice_sel`` picks on the device
 from the live count (``graphs.switch``, the JAX package's ``lax.switch``),

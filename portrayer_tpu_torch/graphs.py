@@ -1,7 +1,8 @@
 """Captured CUDA graphs that branch and loop on the device: the
-counterparts of the JAX package's ``lax.switch`` and ``lax.scan`` inside
-one compiled program (its trace.py ``round_r`` and the scan over the tail
-of equal capacity).
+counterparts of the JAX package's ``lax.switch``, ``lax.scan`` and
+``lax.while_loop`` inside one compiled program (its trace.py ``round_r``,
+the scan over the tail of equal capacity, and the beam sweep's ordered
+walk in its beam.py).
 
 ``Graph(fn, pool)`` captures ``fn`` (a step that reads and writes only
 buffers allocated outside it) as one CUDA graph, replayed by ``replay``.
@@ -12,26 +13,30 @@ only when sel equals its index, so each replay takes its branch on the
 device and reads nothing on the host.  ``loop(index, end, live, body)``
 runs body while live > 0 and index < end, adding one to index after each
 run: while a graph captures, body is recorded once as the body of a WHILE
-node, and may itself call switch.  Off capture (the CPU, or a program run
-op by op) switch reads sel on the host once and calls that branch, and
-loop reads its condition on the host once an iteration.
+node, and may itself call switch, whose branches may call loop.  Off
+capture (the CPU, or a program run op by op) switch reads sel on the
+host once and calls that branch, and loop reads its condition on the
+host once an iteration.
 
 The nodes come from the CUDA runtime through ``csrc/conditional.cu``
 (PyTorch 2.11 has no Python call for them): a one-thread kernel sets an IF
 node's handle from sel where the graph reaches it, so a body may change
 what sel was computed from but not sel; a one-thread step kernel sets a
 WHILE node's handle before the node and at the end of each iteration.  A
-body is recorded on the stream of its kind of node, IF or WHILE (made
-once a device, outside PyTorch's pool of streams, which hands its
-streams out in turn and would in time hand out the stream a graph is
-captured on), its allocations in a memory pool of the graph's own for
-that kind, which lives as long as the graph: a body's temporaries are
-freed at its end and their memory is reused by the next body of its kind
-and by the next run, which is sound because those run one after another.
-The allocator reuses a block only on the stream it was made on, so every
-IF body, in a loop or not, shares one stream: then a loop's slices reuse
-the memory of the unrolled rounds' slices.  A body may nest only in a
-body of the other kind (a switch in a loop).  It may hold kernels and
+body is recorded on a body stream (made once a device, outside PyTorch's
+pool of streams, which hands its streams out in turn and would in time
+hand out the stream a graph is captured on), its allocations in a memory
+pool of the graph's own for that stream, which lives as long as the
+graph: a body's temporaries are freed at its end and their memory is
+reused by the next body on its stream and by the next run, which is
+sound because those run one after another.  The allocator reuses a
+block only on the stream it was made on, so every IF body, in a loop or
+not, shares one stream: then a loop's slices reuse the memory of the
+unrolled rounds' slices.  An IF body may not nest in another IF body.  A
+WHILE body is recorded on the stream of its depth among the open WHILE
+bodies: the first for a loop that no loop holds, the second for a loop
+inside a loop's body (the beam sweep's loop inside a bounce round's
+slice inside the loop over the tail).  A body may hold kernels and
 device copies, and no event, side stream or copy to or from the host;
 nothing it makes lives past its end except in buffers allocated outside
 the graph.
@@ -51,9 +56,9 @@ from .ops import cuda_intersect
 
 # The Graph being captured, whose switch and loop record bodies.
 _capturing = None
-# The kinds of body, each recorded on a stream of its own.
-_KINDS = ("if", "while")
-# {device index: {kind: its body stream}}.
+# The body streams: every IF body's, then the WHILE bodies' by depth.
+_SLOTS = ("if", "while", "inner while")
+# {device index: {slot: its body stream}}.
 _STREAMS = {}
 
 
@@ -63,15 +68,15 @@ def _check(rc: int, what: str):
 
 
 def _body_streams(lib, device) -> dict:
-    """The body stream of each kind on `device`, made at first call
+    """The body stream of each slot on `device`, made at first call
     (outside every capture)."""
     if device.index not in _STREAMS:
         streams = {}
-        for kind in _KINDS:
+        for slot in _SLOTS:
             handle = ctypes.c_void_p()
             with torch.cuda.device(device):
                 _check(lib.cond_stream_create(ctypes.addressof(handle)), "stream create")
-            streams[kind] = torch.cuda.ExternalStream(handle.value, device=device)
+            streams[slot] = torch.cuda.ExternalStream(handle.value, device=device)
         _STREAMS[device.index] = streams
     return _STREAMS[device.index]
 
@@ -85,7 +90,7 @@ def _check_scalar(name, x):
 class Graph:
     """`fn` captured as one CUDA graph in memory pool `pool`; `bodies`
     counts the conditional (IF) bodies it recorded, `loops` its WHILE
-    nodes, `replays` its replays."""
+    nodes (nested ones too), `replays` its replays."""
 
     def __init__(self, fn, pool):
         global _capturing
@@ -95,17 +100,17 @@ class Graph:
         self.bodies = 0
         self.loops = 0
         self.replays = 0
-        self.open = []  # the kinds of the bodies being recorded, outermost first
+        self.open = []  # the slots of the bodies being recorded, outermost first
         self.streams = _body_streams(self.lib, self.device)
-        self.pools = {kind: torch.cuda.graph_pool_handle() for kind in _KINDS}
+        self.pools = {slot: torch.cuda.graph_pool_handle() for slot in _SLOTS}
         # Made before the capture that adds to them.
         counts = cuda_intersect.device_counts(self.device)
         self.if_count = counts[cuda_intersect._MODES.index("graph_if"):]
         self.while_count = counts[cuda_intersect._MODES.index("graph_while"):]
-        for kind in _KINDS:
-            with torch.cuda.stream(self.streams[kind]):
+        for slot in _SLOTS:
+            with torch.cuda.stream(self.streams[slot]):
                 torch._C._cuda_beginAllocateCurrentStreamToPool(self.device.index,
-                                                                self.pools[kind])
+                                                                self.pools[slot])
         _capturing = self
         try:
             with torch.cuda.graph(self.graph, pool=pool):
@@ -115,19 +120,24 @@ class Graph:
             for body_pool in self.pools.values():
                 torch._C._cuda_endAllocateToPool(self.device.index, body_pool)
 
-    def _body_stream(self, kind):
-        """The stream that records a body of `kind` here: not one whose
-        capture is open."""
-        if kind in self.open:
-            raise RuntimeError(f"graphs: {kind.upper()} bodies do not nest")
-        return self.streams[kind]
+    def _slot(self, kind) -> str:
+        """The slot that records a body of `kind` ("if" or "while") here:
+        not one whose capture is open."""
+        if kind == "if":
+            if "if" in self.open:
+                raise RuntimeError("graphs: IF bodies do not nest")
+            return "if"
+        depth = sum(slot != "if" for slot in self.open)
+        if depth >= len(_SLOTS) - 1:
+            raise RuntimeError(f"graphs: WHILE bodies nest at most {len(_SLOTS) - 1} deep")
+        return _SLOTS[1 + depth]
 
-    def _body(self, kind, fn):
-        """Record fn on the body stream of `kind`, whose capture the caller
+    def _body(self, slot, fn):
+        """Record fn on the body stream of `slot`, whose capture the caller
         has begun."""
-        self.open.append(kind)
+        self.open.append(slot)
         try:
-            with torch.cuda.stream(self.streams[kind]):
+            with torch.cuda.stream(self.streams[slot]):
                 fn()
         finally:
             self.open.pop()
@@ -135,14 +145,15 @@ class Graph:
     def switch(self, sel, branches):
         _check_scalar("switch: sel", sel)
         stream = torch.cuda.current_stream().cuda_stream
-        body = self._body_stream("if").cuda_stream
+        slot = self._slot("if")
+        body = self.streams[slot].cuda_stream
         for i, fn in enumerate(branches):
             if fn is None:
                 continue
             _check(self.lib.cond_if_begin(stream, sel.data_ptr(), i, self.if_count.data_ptr(),
                                           body), "begin")
             try:
-                self._body("if", fn)
+                self._body(slot, fn)
             finally:
                 _check(self.lib.cond_if_end(body), "end")
             self.bodies += 1
@@ -151,13 +162,14 @@ class Graph:
         _check_scalar("loop: index", index)
         _check_scalar("loop: live", live)
         stream = torch.cuda.current_stream().cuda_stream
-        body_stream = self._body_stream("while").cuda_stream
+        slot = self._slot("while")
+        body_stream = self.streams[slot].cuda_stream
         handle = ctypes.c_ulonglong()
         args = (index.data_ptr(), end, live.data_ptr(), self.while_count.data_ptr())
         _check(self.lib.cond_while_begin(stream, *args, body_stream, ctypes.addressof(handle)),
                "while begin")
         try:
-            self._body("while", body)
+            self._body(slot, body)
         finally:
             _check(self.lib.cond_while_end(body_stream, handle.value, *args), "while end")
         self.loops += 1
@@ -192,7 +204,7 @@ def loop(index: torch.Tensor, end: int, live: torch.Tensor, body) -> int | None:
     """While live > 0 and index < end: body(), then index += 1 (index and
     live 0-d int64 tensors on the device; body may change live, and reads
     index).  The counterpart of lax.scan over the rounds [index, end) with
-    the dead branch as an early exit.  Under a Graph's capture, records
+    the dead branch as an early exit, and of lax.while_loop.  Under a Graph's capture, records
     body once as a WHILE node's body and returns None; otherwise reads the
     condition on the host before each iteration and once at the exit, and
     returns the number of those reads."""

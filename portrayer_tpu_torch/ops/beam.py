@@ -13,10 +13,16 @@ vector-machine stand-in for the reference's kd-tree (src/kdtree/*).
     entry t lies beyond its current best hit (or is +inf): the early exit
     of ordered kd descent (kdtree/node.rs:132-199), per warp.
 
-The JAX package lowers this through XLA with a ``while_loop``; here it is
-plain PyTorch ops and a Python loop.  Each step of the loop reads its
-``any(live)`` test on the host: one host sync per step, per primitive
-group (``stats["trips"]`` counts them).  Its winners are the flat
+The JAX package lowers the walk through XLA with a ``lax.while_loop``;
+here it is ``graphs.loop`` over a step index held on the device: its body
+reads the step's candidates at that index (``index_select``), folds them
+into the best-hit buffers in place and writes the next step's condition,
+the count of warps that may still improve.  Inside a captured CUDA graph
+the loop is a WHILE node and reads nothing on the host; op by op (the
+CPU, ``cuda_graphs=False``) it reads its condition on the host once a
+step.  The steps are counted on the device (``stats["trips"]``, and
+``cuda_intersect.counts()["beam_step"]``, beside the sweep's calls,
+``"beam_sweep"``).  Its winners are the flat
 sweep's, up to ties and rounding.
 """
 
@@ -27,9 +33,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .. import math3d as m3
+from .. import graphs, math3d as m3
 from ..config import RenderConfig
 from ..scene.flatten import SceneTables, MESH
+from . import cuda_intersect
 from .intersect import Hit, INF, _ANALYTIC_CANDIDATES, _as_rays, triangle_candidate
 
 BIGT = 3e38
@@ -95,8 +102,8 @@ def intersect_scene_beam(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
                          stats: Optional[dict] = None) -> Hit:
     """Beam-sweep nearest hit; the contract of ``intersect_scene``.  Needs
     unit ray directions (t = world distance), as the renderer makes them.
-    A dict `stats` receives "trips", the steps of the ordered sweeps (each
-    one host sync)."""
+    A dict `stats` receives "trips", the steps of the ordered sweeps (a
+    0-d int64 on the rays' device, added to what it held)."""
     R0 = o.shape[0]
     dt, dev = o.dtype, o.device
     w = cfg.warp_size
@@ -135,7 +142,9 @@ def intersect_scene_beam(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
     C = cfg.beam_chunk
     eps = cfg.epsilon
     use_src = cfg.self_eps_local > 0.0
-    trips = 0
+    i64 = dict(dtype=torch.int64, device=dev)
+    trips = torch.zeros((), **i64)
+    cols = torch.arange(C, **i64)
 
     def eff_t_min(ld, is_src):
         base = tmin_w[:, :, None]
@@ -150,35 +159,46 @@ def intersect_scene_beam(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
 
     def ordered_sweep(carry, t_enter, pick_tables, is_pairs):
         """Sweep each warp's candidates in entry-t order, C a step, until
-        no warp's next candidate can beat its best hit."""
-        nonlocal trips
+        no warp's next candidate can beat its best hit: graphs.loop over
+        the step index ci, the carry's buffers updated in place."""
         bt, bn, btr = carry
         n = t_enter.shape[1]
         n_pad = max(C, -(-n // C) * C)
         order = torch.argsort(t_enter, dim=1, stable=True)          # [W,N]
         te_sorted = torch.gather(t_enter, 1, order)
         order = F.pad(order, (0, n_pad - n), value=0)
-        te_sorted = F.pad(te_sorted, (0, n_pad - n), value=INF)
-        for ci in range(n_pad // C):
-            start_t = te_sorted[:, ci * C]
-            # isfinite: an exhausted warp (start_t = inf) stops even where
-            # its bound is inf too (a warp that has hit nothing).
-            live = torch.isfinite(start_t) & (start_t <= warp_ub(bt))
-            if not bool(live.any()):  # one host sync a step
-                break
-            trips += 1
-            ids = order[:, ci * C:(ci + 1) * C]                      # [W,C]
-            valid = torch.isfinite(te_sorted[:, ci * C:(ci + 1) * C])
+        # One column of inf past the last step: the condition written after
+        # it reads there.
+        te_sorted = F.pad(te_sorted, (0, n_pad + 1 - n), value=INF)
+        ci = torch.zeros((), **i64)
+        live = torch.zeros((), **i64)
+
+        def set_live(step):
+            """live = the warps whose candidates at `step` may still beat
+            their best hit; isfinite: an exhausted warp (start_t = inf)
+            stops even where its bound is inf too (a warp that has hit
+            nothing)."""
+            start_t = te_sorted.index_select(1, (step * C).reshape(1))[:, 0]
+            live.copy_((torch.isfinite(start_t) & (start_t <= warp_ub(bt))).sum())
+
+        def body():
+            at = ci * C + cols
+            ids = order.index_select(1, at)                          # [W,C]
+            valid = torch.isfinite(te_sorted.index_select(1, at))
             t, node_ids, tri_ids = pick_tables(ids, valid)           # t [W,w,C]
             tj, j = torch.min(t, dim=2)                              # first minimum
             better = tj < bt
             pick = lambda arr: torch.gather(arr[:, None, :].expand(W, w, arr.shape[1]), 2,
                                             j[..., None])[..., 0]
-            bn = torch.where(better, pick(node_ids), bn)
+            bn.copy_(torch.where(better, pick(node_ids), bn))
             if is_pairs:
-                btr = torch.where(better, pick(tri_ids), btr)
-            bt = torch.where(better, tj, bt)
-        return bt, bn, btr
+                btr.copy_(torch.where(better, pick(tri_ids), btr))
+            bt.copy_(torch.where(better, tj, bt))
+            trips.add_(1)
+            set_live(ci + 1)
+
+        set_live(ci)
+        graphs.loop(ci, n_pad // C, live, body)
 
     carry = (torch.full((W, w), INF, dtype=dt, device=dev),
              torch.full((W, w), -1, dtype=torch.int32, device=dev),
@@ -200,7 +220,7 @@ def intersect_scene_beam(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
             t = torch.where(valid[:, None, :] & act_w[:, :, None], t, INF)
             return t, gids.to(torch.int32), None
 
-        carry = ordered_sweep(carry, t_enter, pick_nodes, is_pairs=False)
+        ordered_sweep(carry, t_enter, pick_nodes, is_pairs=False)
 
     if any(kind == MESH and count > 0 for kind, _, count in st.groups) and st.n_pairs > 0:
         t_enter = _warp_entry_t(omin, omax, dmin, dmax, st.pair_aabb_min, st.pair_aabb_max)
@@ -218,8 +238,10 @@ def intersect_scene_beam(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
             t = torch.where(valid[:, None, :] & act_w[:, :, None], t, INF)
             return t, node_ix, tri_ix
 
-        carry = ordered_sweep(carry, t_enter, pick_pairs, is_pairs=True)
+        ordered_sweep(carry, t_enter, pick_pairs, is_pairs=True)
 
+    cuda_intersect.count_on_device(dev, "beam_sweep")
+    cuda_intersect.count_on_device(dev, "beam_step", trips)
     if stats is not None:
         stats["trips"] = stats.get("trips", 0) + trips
     best_t, best_node, best_tri = (x.reshape(R)[:R0] for x in carry)

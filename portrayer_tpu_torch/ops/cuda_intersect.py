@@ -37,11 +37,17 @@ INF = math.inf
 # Chunks per group of the kernel's first cull level: one per lane of a warp.
 GROUP = 32
 
-# Kernel launches per mode, and plain-version calls on CUDA tensors; and
-# runs of graphs.Graph's conditional kernel and loop step kernel
-# (csrc/conditional.cu).  A caller zeroes them (reset_counts) before a run
-# and reads them after it (counts()).
-COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0, "graph_if": 0, "graph_while": 0}
+# Kernel launches per mode, and plain-version calls on CUDA tensors; runs
+# of graphs.Graph's conditional kernel and loop step kernel
+# (csrc/conditional.cu); and the calls of the flat sweep and the beam
+# sweep and the steps of the beam sweep's ordered loops (ops/intersect.py,
+# ops/beam.py; counted on the device of their rays, captured or not, by
+# count_on_device).  A caller zeroes them (reset_counts) before a run and
+# reads them after it (counts()).
+COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0, "graph_if": 0, "graph_while": 0,
+          "flat_sweep": 0, "beam_sweep": 0, "beam_step": 0}
+# The counts of the sweeps, whichever the accel.
+SWEEP_MODES = ("nearest", "any_hit", "flat_sweep", "beam_sweep", "beam_step")
 
 # The kernel reads ray i's origin at o[3 * i + 2] with a 32-bit int: a
 # launch of this many rays or more would overflow it.
@@ -50,8 +56,9 @@ MAX_LAUNCH_RAYS = (2 ** 31 - 1) // 3
 # A launch recorded into a captured CUDA graph counts on the device, in
 # the graph, where it runs: at each replay, and in a conditional body only
 # when the body runs.  Per device, [nearest, any-hit, conditional kernel,
-# loop step kernel].
-_MODES = ("nearest", "any_hit", "graph_if", "graph_while")
+# loop step kernel, flat sweeps, beam sweeps, beam steps].
+_MODES = ("nearest", "any_hit", "graph_if", "graph_while", "flat_sweep", "beam_sweep",
+          "beam_step")
 _ON_DEVICE = {}
 
 
@@ -61,6 +68,12 @@ def device_counts(device: torch.device) -> torch.Tensor:
     if device not in _ON_DEVICE:
         _ON_DEVICE[device] = torch.zeros(len(_MODES), dtype=torch.int64, device=device)
     return _ON_DEVICE[device]
+
+
+def count_on_device(device: torch.device, mode: str, n=1):
+    """Add n (an int or a 0-d int64 on `device`) to the count of `mode` on
+    `device`, without a read on the host."""
+    device_counts(device)[_MODES.index(mode)].add_(n)
 
 
 def reset_counts():
@@ -667,7 +680,7 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
     if rc != 0:
         raise RuntimeError(f"sweep kernel ({mode}) launch failed: CUDA error {rc}")
     if R and torch.cuda.is_current_stream_capturing():
-        _ON_DEVICE[o.device][_MODES.index(mode)].add_(1)
+        count_on_device(o.device, mode)
     elif R:
         COUNTS[mode] += 1
     if any_hit:

@@ -329,8 +329,11 @@ def _as_rays(x, R, like):
 @torch.no_grad()
 def _flat_intersect(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
                     active=None, src_node=None, src_tri=None):
+    from .cuda_intersect import count_on_device
+
     R = o.shape[0]
     dev = o.device
+    count_on_device(dev, "flat_sweep")
     t_min = _as_rays(t_min, R, o)
     t_max = _as_rays(t_max, R, o)
     best_t = torch.full((R,), INF, dtype=o.dtype, device=dev)

@@ -31,7 +31,7 @@ always, a bounce round on k lanes when k >= ``cfg.remat_min_lanes``.  The
 round's sweep results are kept (``_Sweeps``); its hit detail, shading,
 light sum and compaction are replayed in backward from its queue and
 those results, and no sweep is launched again.  On the card with
-accel="cuda" and ``cfg.cuda_graphs`` a differentiable trace replays the
+``cfg.cuda_graphs`` (any accel) a differentiable trace replays the
 fit program of ``portrayer_tpu_torch/fit.py`` instead: the same rounds,
 forward and backward, as captured CUDA graphs.
 """
@@ -476,7 +476,7 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
     spp_contiguous > 0 asserts pix0 == repeat(arange(P), spp).  The live
     count is read on the host once per bounce round, to pick its slice.
     Under autograd the rounds run checkpointed; on the card with
-    accel="cuda" and cfg.cuda_graphs, the captured fit program
+    cfg.cuda_graphs (cfg.captures), the captured fit program
     (``portrayer_tpu_torch/fit.py``) runs them."""
     if _records(st, o0, d0, w0, bg) and cfg.captures:
         from .. import fit

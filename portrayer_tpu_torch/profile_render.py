@@ -26,6 +26,10 @@ number of kernel launches, the sweep kernels' share, and the kernels that
 take the most time.  ``--out`` receives the summary as JSON and the trace
 (gzipped Chrome trace format).
 
+``--accel beam|flat`` profiles the render (or the fit) through that sweep
+instead of the kernel, captured the same way (the beam sweep's ordered
+walks WHILE nodes of the chunk's graph).
+
 ``--one-shard SPP`` profiles the whole frame at SPP instead, traced in
 one ``trace`` call through ``parallel.render_frame_distributed`` at world
 size 1 (one chunk), to set against the tiled render's chunks.
@@ -138,7 +142,7 @@ def _traced(fn):
 
 
 def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
-                eager=False) -> dict:
+                eager=False, accel="cuda") -> dict:
     """Profile a fit step of SceneSpec `spec` on CUDA device 0 (see the
     module docstring); writes the summary and trace under `out`."""
     from . import RenderConfig, flatten_scene, render, rng
@@ -150,7 +154,8 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
         raise SystemExit("profile_render: no CUDA device")
     dev = torch.device("cuda", 0)
     w, h = size or spec.size
-    cfg = RenderConfig(device=dev, queue_caps=spec.queue_caps, cuda_graphs=not eager)
+    cfg = RenderConfig(device=dev, queue_caps=spec.queue_caps, cuda_graphs=not eager,
+                       accel=accel)
     st = flatten_scene(spec.scene, dev)
     o, d, pix, bg, w0 = render._tile_rays(
         rng.PRNGKey(23), Camera(spec.camera, (w, h), dev), 0, 0, 0, cfg=cfg,
@@ -184,7 +189,7 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
     summary["backward"] = summarize_trace(after(events, "fit_backward"), traced_ms, 1)
     summary.update(
         scene=spec.name, card=torch.cuda.get_device_name(dev), size=(w, h), spp=spp,
-        captured=not eager, first_wall_ms=first_ms, untraced_wall_ms=walls,
+        accel=accel, captured=not eager, first_wall_ms=first_ms, untraced_wall_ms=walls,
         untraced_wall_ms_median=statistics.median(walls), live_per_round=live,
         host_syncs=syncs[0], peak_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         peak_reserved_gib=torch.cuda.max_memory_reserved(dev) / 2**30)
@@ -196,7 +201,8 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
     _write(out, raw, summary)
     s, b = summary, summary["backward"]
     print(f"[profile fit] {spec.name} {w}x{h} x {spp} spp ({w * h * spp} rays in one trace), "
-          f"{'captured' if not eager else 'op by op'}, on {s['card']}: first step "
+          f"{'captured' if not eager else 'op by op'}, accel {accel!r}, on {s['card']}: first "
+          f"step "
           f"{first_ms:.3f} ms, untraced {', '.join(f'{x:.3f}' for x in walls)} ms; live rays "
           f"per round {live}; host reads of the live counts {syncs[0]} a step; peak "
           f"allocated {s['peak_allocated_gib']:.3f} GiB, reserved "
@@ -216,7 +222,7 @@ def profile_fit(spec, out=os.path.join("out", "profile"), size=None, spp=1,
 
 
 def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
-            eager=False) -> dict:
+            eager=False, accel="cuda") -> dict:
     """Profile the render of SceneSpec `spec` on CUDA device 0 (see the
     module docstring); writes the summary and trace under `out`."""
     from . import RenderConfig, flatten_scene, parallel, render_u8
@@ -227,7 +233,7 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
     w, h = spec.size
     spp = one_shard_spp or SPP
     cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=131072,
-                       queue_caps=spec.queue_caps, cuda_graphs=not eager)
+                       queue_caps=spec.queue_caps, cuda_graphs=not eager, accel=accel)
     th, tw = cfg.tile
     stats = []
     if one_shard_spp:
@@ -263,7 +269,7 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
         torch.distributed.destroy_process_group()
     summary = summarize_trace(json.loads(raw), traced_ms, chunks)
     summary.update(
-        scene=spec.name, card=torch.cuda.get_device_name(dev), spp=spp,
+        scene=spec.name, card=torch.cuda.get_device_name(dev), spp=spp, accel=accel,
         one_shard=bool(one_shard_spp), rows=(y0, region[1][1]),
         untraced_wall_ms=walls, untraced_wall_ms_median=statistics.median(walls),
         untraced_ms_per_chunk=statistics.median(walls) / chunks,
@@ -290,7 +296,7 @@ def profile(spec, out=os.path.join("out", "profile"), one_shard_spp=None,
     else:
         print(f"[profile] {spec.name} rows {y0}..{region[1][1]}, {tiles} tiles x {spp} spp = "
               f"{chunks} chunks of {th * tw * min(spp, cfg.max_rays_per_launch // (th * tw))} "
-              f"rays on {s['card']}")
+              f"rays on {s['card']}, accel {accel!r}")
     if s["captured"]:
         print(f"[profile] captured chunk program: first render {first_ms:.3f} ms, "
               f"{s['graphs']} graph(s) with {s['bodies']} conditional bodies and {s['loops']} "
@@ -327,11 +333,13 @@ def main(argv=None):
     ap.add_argument("--fit", type=int, default=None, metavar="SPP",
                     help="a fit step of the whole frame at SPP (see the module docstring)")
     ap.add_argument("--size", default=None, metavar="WxH", help="the fit's frame size")
+    ap.add_argument("--accel", default="cuda", choices=("cuda", "beam", "flat"))
     args = ap.parse_args(argv)
     if args.fit:
         size = tuple(int(x) for x in args.size.split("x")) if args.size else None
-        return profile_fit(scenes.load(args.scene), args.out, size, args.fit, args.eager)
-    return profile(scenes.load(args.scene), args.out, args.one_shard, args.eager)
+        return profile_fit(scenes.load(args.scene), args.out, size, args.fit, args.eager,
+                           args.accel)
+    return profile(scenes.load(args.scene), args.out, args.one_shard, args.eager, args.accel)
 
 
 if __name__ == "__main__":

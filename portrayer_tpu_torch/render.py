@@ -14,16 +14,19 @@ A chunk is a fixed-shape program on the device (``_ChunkProgram``), as
 the JAX package's ``_render_image`` is one jitted program: its tile
 origin, sample offset and chunk index come from a frame-wide table on the
 device, read through a counter that the program advances, and its keys,
-rays, background and trace stay on the device.  On the card with
-accel="cuda" the render captures the program once as one CUDA graph and
-replays it for every chunk: round 0, then the bounce rounds, each as one
-conditional body per head slice of its queue, the slice picked on the
-device from the live count (``graphs.switch``, the JAX package's
-``lax.switch``), so a chunk reads nothing on the host.  The rounds of the
+rays, background and trace stay on the device.  On the card, through
+any of the three sweeps, the render captures the program once as one
+CUDA graph and replays it for every chunk: round 0, then the bounce
+rounds, each as one conditional body per head slice of its queue, the
+slice picked on the device from the live count (``graphs.switch``, the
+JAX package's ``lax.switch``), so a chunk reads nothing on the host.  The rounds of the
 tail of equal capacity, the last round aside, share one loop body
 (``graphs.loop``, a WHILE node, the JAX package's ``lax.scan``) that runs
-the round whose index a device counter holds.  Anywhere else the
-same program runs op by op, its rounds unrolled, and reads each bounce
+the round whose index a device counter holds.  With accel="beam" each
+ordered sweep is a WHILE node too, nested in a slice's body, and in the
+tail loop's body in turn (the JAX package's ``lax.while_loop`` inside its
+``lax.switch`` inside its ``lax.scan``).  Anywhere else the same program
+runs op by op, its rounds unrolled, and reads each bounce
 round's pick on the host.  A `reporter` ticks once per tile,
 when the host has issued its work (the device runs behind by the work
 still queued).
@@ -257,8 +260,8 @@ class _ChunkProgram:
         """One chunk op by op, then each bounce round's step at each of its
         slice shapes, a looped one at the device index r (building the
         kernel, the sweep's chunk groups and every branch's first use, as
-        the capture records them all); its sweep launches are kept in
-        warm_launches."""
+        the capture records them all); its sweep launches, flat and beam
+        sweeps and beam steps are kept in warm_launches."""
         before = cuda_intersect.counts()
         self.cursor.zero_()
         self._trace()
@@ -267,7 +270,7 @@ class _ChunkProgram:
                 self.r.fill_(rd.r)
             self.bounce(self.r if rd.looped else rd.r, rd.cap, k, rd.next_cap, rd.last)
         after = cuda_intersect.counts()
-        self.warm_launches = {m: after[m] - before[m] for m in ("nearest", "any_hit")}
+        self.warm_launches = {m: after[m] - before[m] for m in cuda_intersect.SWEEP_MODES}
         self.warm = True
 
     def start(self, rows: np.ndarray):
@@ -288,10 +291,10 @@ _MAX_PROGRAMS = 2
 
 
 def _program(st, cam, cfg, background, settings, size, **shape):
-    """The chunk program of this render: on the card with accel="cuda"
-    (and cuda_graphs) a capturing one, cached on the tables by
-    configuration, camera, frame size, background and chunk shape;
-    otherwise a fresh one that runs op by op."""
+    """The chunk program of this render: on the card with cuda_graphs
+    (cfg.captures, any accel and dtype) a capturing one, cached on the
+    tables by configuration, camera, frame size, background and chunk
+    shape; otherwise a fresh one that runs op by op."""
     if not cfg.captures:
         return _ChunkProgram(st, cam, cfg, background, capture=False, **shape)
     key = (cfg, background, tuple(size), tuple(sorted(shape.items())),

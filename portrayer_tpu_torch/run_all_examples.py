@@ -10,7 +10,10 @@ smoke renders at a low sample count, one PNG per scene and
 
 Each scene renders at `scale` x its published size (at least 16 pixels a
 side) on the card unless ``--device cpu``; SAMPLES sets the default
-sample count, 2 as in CI.  Scenes that load meshes or images read them
+sample count, 2 as in CI.  On the card every ``--accel`` replays the
+captured chunk program (the beam sweep's ordered walks WHILE nodes in
+it); each scene's line shows its graphs, conditional bodies, loops and
+host syncs (0 captured).  Scenes that load meshes or images read them
 from PORTRAYER_ASSETS (``scenes.common.asset``); a missing file raises
 FileNotFoundError naming it.
 """
@@ -34,7 +37,8 @@ def render_all(names, out, samples=2, scale=1.0, accel="cuda", tile=128, device=
                on_scene=None) -> dict:
     """Render each scene of `names` into `out`/<name>.png and write
     `out`/timings.json.  Returns {name: {"secs", "Mrays/s", "size",
-    "launches" (sweep kernel launches per mode), "graphs", "bodies",
+    "launches" (sweep kernel launches per mode, flat and beam sweep calls
+    and beam steps), "graphs", "bodies",
     "loops", "replays" (captured chunk graphs, their conditional bodies,
     their loops and their replays), "syncs" (host reads of the chunks),
     "dropped_w"}}; "secs"
@@ -64,7 +68,7 @@ def render_all(names, out, samples=2, scale=1.0, accel="cuda", tile=128, device=
         rays = w * h * samples
         results[name] = {
             "secs": dt, "Mrays/s": rays / dt / 1e6, "size": [w, h],
-            "launches": {k: after[k] - before[k] for k in ("nearest", "any_hit")},
+            "launches": {k: after[k] - before[k] for k in cuda_intersect.SWEEP_MODES},
             "graphs": sum(len(p.graphs) for p in progs),
             "bodies": sum(g.bodies for p in progs for g in p.graphs.values()),
             "loops": sum(g.loops for p in progs for g in p.graphs.values()),
@@ -72,7 +76,10 @@ def render_all(names, out, samples=2, scale=1.0, accel="cuda", tile=128, device=
             "syncs": sum(s.syncs for s in stats),
             "dropped_w": sum(s.dropped_w for s in stats) / max(len(stats), 1),
         }
-        print(f"{name:34s} {w}x{h}  {dt:8.2f}s  {rays / dt / 1e6:7.3f} Mrays/s", flush=True)
+        r = results[name]
+        print(f"{name:34s} {w}x{h}  {dt:8.2f}s  {rays / dt / 1e6:7.3f} Mrays/s  "
+              f"graphs {r['graphs']} bodies {r['bodies']} loops {r['loops']} host syncs "
+              f"{r['syncs']}", flush=True)
         if on_scene is not None:
             on_scene(name, spec, st, cfg, results[name])
 

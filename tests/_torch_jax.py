@@ -528,6 +528,54 @@ class HostReads:
         return run
 
 
+class DryWrites:
+    """A dispatch mode under which an op that writes a tensor made before
+    the mode was entered does nothing (it returns the tensors it would
+    have written): what runs under it changes no buffer.  Ops on tensors
+    made under it run, so that what a dry run computes is what a real run
+    would compute from the same buffers."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        fresh = set()  # storages made under the mode
+
+        def ptr(t):
+            return t.untyped_storage().data_ptr()
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                import torch
+
+                kwargs = kwargs or {}
+                schema = func._schema
+                written = []
+                for i, a in enumerate(schema.arguments):
+                    if a.alias_info is None or not a.alias_info.is_write:
+                        continue
+                    x = kwargs.get(a.name) if (a.kwarg_only or i >= len(args)) else args[i]
+                    if isinstance(x, torch.Tensor):
+                        written.append(x)
+                if any(ptr(x) not in fresh for x in written if x.numel()):
+                    return written[0] if len(written) == 1 else tuple(written)
+                out = func(*args, **kwargs)
+                # A view of a tensor made before is not made here.
+                made = [r.alias_info is None for r in schema.returns]
+                for x, m in zip(out if isinstance(out, (tuple, list)) else (out,), made):
+                    if m and isinstance(x, torch.Tensor):
+                        fresh.add(ptr(x))
+                return out
+
+        self.mode = _Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
 class StandInGraph:
     """portrayer_tpu_torch.graphs.Graph without a card: it records its step
     and runs it at each replay under the HostReads `reads`.  Its switch is
@@ -536,12 +584,18 @@ class StandInGraph:
     its loop is the stand-in WHILE node: it reads its condition (live > 0
     and index < end) on the host with the read excused before each
     iteration, runs the body and adds one to index, as the step kernel
-    does.  `bodies` counts the branches the first replay records, a
-    loop's in its first iteration only, and `loops` the loops it meets.
-    The card records a loop's body once even when it runs no iteration:
-    such a loop in the first replay runs its body once more, dry, its
-    switches counting their branches and running none (the programs'
-    loop bodies change nothing outside their switches then)."""
+    does.  Loops nest in switches in loops, as on the card.
+
+    `bodies` counts the branches that the first replay records and
+    `loops` the loops, nested ones too: the card records every branch of
+    a switch and the body of every loop once, whether it runs or not.  So
+    the first replay counts a loop's body in its first iteration only,
+    and runs a body that the card records but does not run here (the
+    branches a switch does not take, the body of a loop that does no
+    iteration) dry: under DryWrites, which lets no op write a buffer made
+    before it, once, its switches counting their branches and its loops
+    their bodies, each of them dry too.  Nothing runs that would change a
+    result."""
 
     reads = None
 
@@ -553,31 +607,51 @@ class StandInGraph:
         self.recording = False
         self.dry = False
 
+    def _dry(self, fn):
+        """Run fn dry (see the class docstring); only while recording."""
+        if self.dry:
+            fn()
+            return
+        self.dry = True
+        try:
+            with DryWrites():
+                fn()
+        finally:
+            self.dry = False
+
     def switch(self, sel, branches):
         if self.recording:
             self.bodies += sum(fn is not None for fn in branches)
         if self.dry:
+            for fn in branches:
+                if fn is not None:
+                    fn()
             return
         i = self.reads.excused(int)(sel)
+        if self.recording:
+            for k, fn in enumerate(branches):
+                if fn is not None and k != i:
+                    self._dry(fn)
         if branches[i] is not None:
             branches[i]()
 
     def loop(self, index, end, live, body):
         recording = self.recording
         self.loops += recording
+        if self.dry:
+            body()
+            return
         go = self.reads.excused(lambda: bool((live > 0) & (index < end)))
         ran = False
-        while go():
-            body()
-            index.add_(1)
-            ran, self.recording = True, False
-        if recording and not ran:
-            self.dry = True
-            try:
+        try:
+            while go():
                 body()
-            finally:
-                self.dry = False
-        self.recording = recording
+                index.add_(1)
+                ran, self.recording = True, False
+        finally:
+            self.recording = recording
+        if recording and not ran:
+            self._dry(body)
 
     def replay(self):
         from portrayer_tpu_torch import graphs
@@ -610,12 +684,33 @@ def recorded_bodies(pl, divs) -> int:
     return sum(n(r) for r in range(1, start)) + n(D) + (n(start) if start < D else 0)
 
 
-def recorded_loops(pl) -> int:
+def recorded_loops(pl, divs=None, per_round: int = 0) -> int:
     """The loops that a captured program on the plan `pl` records: one
-    when the tail of equal capacity holds a round besides the last."""
+    when the tail of equal capacity holds a round besides the last; and,
+    where each round's sweeps hold `per_round` loops (the beam sweep's,
+    beam_loops a sweep), those of round 0 and of every conditional body
+    (recorded_bodies(pl, divs): one round at one slice each)."""
     from portrayer_tpu_torch.ops.trace import tail_start
 
-    return int(pl.max_depth > 0 and tail_start(pl) < pl.max_depth)
+    tail = int(pl.max_depth > 0 and tail_start(pl) < pl.max_depth)
+    if not per_round:
+        return tail
+    return tail + per_round * (1 + recorded_bodies(pl, divs))
+
+
+def beam_loops(st, cfg) -> int:
+    """The loops of one nearest-hit query on tables `st` under `cfg`,
+    counted from the scene's groups: with accel="beam" on a scene of at
+    least beam_min_prims nodes + mesh pairs, one ordered sweep per
+    analytic group that has nodes and one over the mesh pairs; else
+    none."""
+    from portrayer_tpu_torch.scene.flatten import MESH
+
+    if cfg.accel != "beam" or st.n_nodes + st.n_pairs < cfg.beam_min_prims:
+        return 0
+    analytic = sum(kind != MESH and count > 0 for kind, _, count in st.groups)
+    meshes = any(kind == MESH and count > 0 for kind, _, count in st.groups) and st.n_pairs > 0
+    return analytic + int(meshes)
 
 
 def stand_in_graphs(monkeypatch):

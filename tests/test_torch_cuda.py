@@ -25,7 +25,10 @@ on the host, and a capture that meets a host read raises.  The captured
 fit (fit.py) gives the op-by-op trace's gradients within 1e-4 of their
 largest entry (index_add's atomics), reads no live count on the host,
 launches no sweep in its backward, and a second step on replaced tables
-replays its graphs without a new capture.
+replays its graphs without a new capture.  Through the beam sweep the
+captured render nests the sweep's loops three deep and equals its eager
+loop within 1e-6, and the float64 check mode's captured render equals its
+op-by-op render within 1e-6.
 
 Gates: the JAX package's kernel gates (tests/test_pallas.py) for the
 nearest mode, with its torus gate (tests/test_torus.py) on torus hits,
@@ -441,6 +444,70 @@ def test_captured_render_matches_the_eager_chunk_loop(dev, name, size, region):
     assert counts["plain_on_cuda"] == ref_counts["plain_on_cuda"] == 0
     if st.any_reflective:
         assert sum(s.syncs for s in ref_stats) > 0 and counts["graph_if"] > 0
+
+
+def _captured_and_eager(dev, name, size, cfg):
+    """render_linear of `name` at `size` under cfg captured and op by op
+    (cuda_graphs=False), on one set of tables: ((image, stats, counts) of
+    each, the program)."""
+    import dataclasses
+
+    spec = scenes.load(name)
+    st = flatten_scene(spec.scene, dev, dtype=cfg.dtype)
+    runs = []
+    for graphs in (True, False):
+        stats = []
+        cuda_intersect.reset_counts()
+        img = T.render_linear(st, spec.camera, size, spec.background,
+                              dataclasses.replace(cfg, cuda_graphs=graphs), stats=stats)
+        runs.append((img, stats, cuda_intersect.counts()))
+    (prog,) = st.chunk_programs.values()
+    return runs, prog
+
+
+def test_captured_beam_render_nests_its_loops(dev):
+    """glossy-reflection at 256x256 x 4 spp with accel="beam" and
+    beam_min_prims=0: every round's sweeps take the beam, whose ordered
+    walks are WHILE nodes in round 0, in each slice body of the last
+    round and in each slice body of the tail loop's round (a WHILE in an
+    IF in a WHILE: loops nested three deep).  The captured render against
+    the eager chunk loop within 1e-6 (index_add's float atomics), the
+    same live rays per round, 0 host syncs a chunk, the bodies from the
+    plan and the loops from the plan and the scene's groups, and the
+    beam's steps counted on the device the eager loop's plus the
+    warm-up's."""
+    from _torch_jax import beam_loops
+
+    cfg = RenderConfig(device=dev, samples=4, max_rays_per_launch=131072, accel="beam",
+                       beam_min_prims=0)
+    ((img, stats, counts), (ref, ref_stats, ref_counts)), prog = _captured_and_eager(
+        dev, "glossy-reflection", (256, 256), cfg)
+    np.testing.assert_allclose(img, ref, rtol=0, atol=1e-6)
+    assert [s.live.tolist() for s in stats] == [s.live.tolist() for s in ref_stats]
+    assert all(s.syncs == 0 for s in stats) and sum(s.syncs for s in ref_stats) > 0
+    g = prog.graphs["chunk"]
+    divs = cfg.queue_slice_divs
+    assert any(rd.looped for rd in prog.rounds)
+    assert g.bodies == recorded_bodies(prog.pl, divs)
+    assert g.loops == recorded_loops(prog.pl, divs, 2 * beam_loops(prog.st, cfg))
+    for mode in ("flat_sweep", "beam_sweep", "beam_step"):
+        assert counts[mode] == ref_counts[mode] + prog.warm_launches[mode], mode
+    assert ref_counts["beam_step"] > 0 and counts["nearest"] == counts["any_hit"] == 0
+    assert int(sum(s.live for s in stats)[2]) > 0  # rays alive in the tail loop's rounds
+
+
+def test_captured_float64_render_matches_op_by_op(dev):
+    """The float64 check mode (accel="flat") through the captured chunk
+    program: glossy-reflection at 96x64 x 2 spp (bounce rounds, the tail
+    loop), float64 buffers, within 1e-6 of its op-by-op render, 0 host
+    syncs a chunk."""
+    cfg = RenderConfig(device=dev, samples=2, accel="flat", dtype=torch.float64)
+    ((img, stats, _), (ref, ref_stats, _)), prog = _captured_and_eager(
+        dev, "glossy-reflection", (96, 64), cfg)
+    assert prog.tile_acc.dtype == torch.float64 and list(prog.graphs) == ["chunk"]
+    np.testing.assert_allclose(img, ref, rtol=0, atol=1e-6)
+    assert [s.live.tolist() for s in stats] == [s.live.tolist() for s in ref_stats]
+    assert all(s.syncs == 0 for s in stats) and sum(s.syncs for s in ref_stats) > 0
 
 
 def test_a_capture_that_meets_a_host_read_raises(dev, tmp_path):
