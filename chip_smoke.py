@@ -31,7 +31,13 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    against the host pick, for every branch, and both their times; and the
    step kernel of ``graphs.loop``'s WHILE node (the same source) against
    the host loop, for loops of 0 to LOOP_END iterations, and both their
-   times (the two kernels' own device times are taken last, in phase 8);
+   times (the two kernels' own device times are taken last, in phase 8).
+   big-scene and procedural-meshes again on tables packed with
+   ``packing="morton"`` (MORTON_SCENES): the same rays held (0 rays apart)
+   and timed beside the SAH rows, with the group and chunk tests a ray.
+   ``ops.shade_hits`` on big-scene's camera rays (its three lights, one
+   any-hit launch, counted) against its plain version on CPU tensors: 0
+   occlusion verdicts apart, colours within SHADE_HITS_TOL;
 3. renders of simple (64x64), big-scene (160x82), torus-showcase (64x64),
    single-triangle (160x120) and four-shapes (256x68) against the
    committed self-goldens (on torus-showcase, the pixels of
@@ -66,7 +72,10 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    SWEEP_PATHS gives, each with the same three renders and gates, the
    flat and beam sweeps and beam steps counted on the device in place of
    kernel launches (none), peak reserved memory, and 0 u8 pixels apart
-   from the eager loop; glossy-reflection's beam path again under
+   from the eager loop; procedural-meshes at 960x540 x MORTON_SPP on
+   Morton tables, the same three renders and gates, its linear image held
+   against the render on SAH tables under IMAGE_GATE; glossy-reflection's
+   beam path again under
    deterministic algorithms, 0 pixels apart; then simple at
    256x256, glossy-reflection, procedural-meshes and normal-mapping-numpy
    (240x136) at 4 spp through ``render_linear``, held against the flat
@@ -95,7 +104,13 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    host reads captured; the same glossy-reflection fit through the flat
    sweep and through the beam (beam_min_prims=0; SWEEP_FITS), with their
    flat and beam sweeps and beam steps counted on the device, none in a
-   backward; then big-scene
+   backward; the glossy-reflection fit with remat_min_lanes=EXEMPT_LANES
+   (its slices of 30,720 and 116,736 lanes keep their autograd
+   temporaries in residual slots, their backward replays nothing) beside
+   remat_min_lanes 0, captured: seconds a step, peak memory, 0 host reads,
+   no sweep in a backward, captured against op by op under deterministic
+   algorithms (0 gradient entries apart), and in phase 8 the kernels of a
+   cached step's backward of each, which must fall; then big-scene
    at 1980x1020 and 1 spp,
    mat_diffuse, backward per chunk of 131,072 rays, captured, beside one
    pass op by op;
@@ -134,9 +149,10 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    its plain version under phase 2's gates on the first chunk of camera
    rays, the middle tile's chunk and their shadow rays (0 rays apart);
 8. the sweep kernel alone on the device (torch.profiler) at each launch
-   shape of phase 2, and the conditional and step kernels alone in
-   replays of phase 2's graphs; last, so that the profiler cannot weigh
-   on the wall times of phases 4 to 7.
+   shape of phase 2, the conditional and step kernels alone in replays
+   of phase 2's graphs, and the kernels of the exempt fit's backward
+   against remat_min_lanes 0 (phase 5); last, so that the profiler cannot
+   weigh on the wall times of phases 4 to 7.
 
 The last two lines are a JSON object of per-kernel numbers (the sweep's
 two modes, the conditional kernel and the loop's step kernel) and the
@@ -225,6 +241,27 @@ BOUNCE_FIT_KEY = 23
 # remat_min_lanes above every round's lanes: bounce-round checkpointing off.
 REMAT_OFF = 1 << 40
 LAUNCH_RAYS = 131072
+# Scenes whose tables phase 2 also packs with packing="morton" (the JAX
+# package's other order), held and timed beside their SAH rows; phase 4
+# renders procedural-meshes on Morton tables at MORTON_SPP, held against
+# the same render on SAH tables under IMAGE_GATE.
+MORTON_SCENES = ("big-scene", "procedural-meshes")
+MORTON_SPP = 1
+# tests/test_torch_render.py's image gate: at most this share of pixels
+# beyond the first bound, none beyond the second.
+IMAGE_GATE = (0.01, 1e-4, 2e-2)
+# The fit with small rounds exempt from the replay: glossy-reflection's
+# BOUNCE_FITS frame at remat_min_lanes EXEMPT_LANES; its slices of 30,720
+# and 116,736 lanes keep their autograd temporaries, those of 465,920 are
+# replayed.
+EXEMPT_LANES = 116737
+# shade_hits on big-scene's camera rays (its 3 lights): colours against
+# its plain version (CPU tensors) within SHADE_HITS_TOL, the atol of
+# tests/test_torch_shade.py's shading gate: the card and the CPU round
+# powf and sqrtf apart by an ulp, and big-scene's specular term is
+# x^100, which makes that 2.15e-6 (an H100, 700 W).
+SHADE_HITS_RAYS = 131072
+SHADE_HITS_TOL = 1e-5
 # Timed launches of the plain version per turn (it loops over the chunks in
 # Python: 577 of them on procedural-meshes).
 PLAIN_ITERS = 3
@@ -546,7 +583,8 @@ def _scene_cases():
     from _torch_jax import ellipsoids, glass_sphere
 
     cases = []
-    # The timed scenes draw at least LAUNCH_RAYS camera rays.
+    # The timed scenes draw at least LAUNCH_RAYS camera rays.  Each case:
+    # (name, rays, scene, camera settings, size, packing).
     for name, n_rays in (("big-scene", 262144), ("simple", 65536), ("torus-showcase", 131072),
                          ("glossy-reflection", 131072), ("primitives-simple", 65536),
                          ("single-triangle", 131072), ("four-shapes", 131072)):
@@ -557,7 +595,9 @@ def _scene_cases():
     for name in ("procedural-meshes", "normal-mapping-numpy", "soft-shadows-icosphere"):
         spec = _inline(name)
         cases.append((name, 131072, spec.scene, spec.camera, spec.size))
-    return cases
+    cases = [case + ("sah",) for case in cases]
+    # The same rays on Morton tables.
+    return cases + [case[:5] + ("morton",) for case in cases if case[0] in MORTON_SCENES]
 
 
 def phase_kernels(dev):
@@ -577,9 +617,11 @@ def phase_kernels(dev):
     def check(label, o, d, t_min, st, kw, torus):
         return _hold(label, o, d, t_min, st, cfg, kw, torus, err, diffs)
 
-    for name, n_rays, scene, camset, size in _scene_cases():
+    for base, n_rays, scene, camset, size, packing in _scene_cases():
+        name = base if packing == "sah" else f"{base} ({packing})"
+        before = dict(diffs)
         w, h = size
-        st = flatten_scene(scene, dev)
+        st = flatten_scene(scene, dev, packing=packing)
         torus = _torus_ids(st)
         branches.update(PACKED_KIND_NAMES[k] for k, _, _ in st.packed.kind_ranges)
         cam = Camera(camset, size, dev)
@@ -606,8 +648,11 @@ def phase_kernels(dev):
                 line += (f"; {bo.shape[0]} round-{r} child rays, {bhit.hit.float().mean():.3f} "
                          f"hit, {int(sact.sum())} of their shadow rays")
         print(line + "; kernel and plain version agree", flush=True)
+        if packing != "sah" and diffs != before:
+            raise AssertionError(f"{name}: kernel and plain version apart on Morton tables: "
+                                 f"{diffs} rays differing (before {before})")
 
-        if name in TIMED:
+        if base in TIMED:
             ro, rd = _render_order_rays(cam, size, cfg)
             rsrc = src[:LAUNCH_RAYS]
             rnear = check(f"{name} render-order camera", ro, rd, cfg.epsilon, st,
@@ -618,6 +663,9 @@ def phase_kernels(dev):
             print(f"[2 kernels] {name}: {LAUNCH_RAYS} camera rays in render order, "
                   f"{rnear.hit.float().mean():.3f} hit; {int(sact.sum())} shadow rays; "
                   f"kernel and plain version agree", flush=True)
+            if packing != "sah" and diffs != before:
+                raise AssertionError(f"{name}: kernel and plain version apart on Morton "
+                                     f"tables in render order: {diffs} (before {before})")
             sets = {"uniform": _launch_shapes(o, d, near, st, cfg),
                     "render order": _launch_shapes(ro, rd, rnear, st, cfg)}
             timing[name] = _time_launches(name, sets, st, cfg)
@@ -918,7 +966,7 @@ def phase_goldens(dev):
 
 
 def _main_path(dev, spec, path_counts, accel="cuda", spp=FULL_FRAME_SPP, size=None,
-               extra=None):
+               extra=None, packing="sah"):
     """One main path: `spec` (a SceneSpec or a registry name) at its size
     (or `size`) and `spp` through Image.render on its tables, which
     captures the chunk program as one CUDA graph (its bounce rounds'
@@ -930,7 +978,8 @@ def _main_path(dev, spec, path_counts, accel="cuda", spp=FULL_FRAME_SPP, size=No
     launches, flat and beam sweeps, beam steps), the first as often plus
     its warm-up; the captured linear image is held against the eager one
     within CAPTURED_TOL, and with accel "flat" or "beam" the u8 frames
-    are 0 pixels apart.  `extra`: the RenderConfig's other settings."""
+    are 0 pixels apart.  `extra`: the RenderConfig's other settings;
+    `packing`: the packed table's order (flatten_scene)."""
     import dataclasses
     import numpy as np
     import torch
@@ -946,12 +995,14 @@ def _main_path(dev, spec, path_counts, accel="cuda", spp=FULL_FRAME_SPP, size=No
     name = spec.name
     label = name if accel == "cuda" else f"{name} {accel}" + "".join(
         f" {k}={v}" for k, v in extra.items())
+    if packing != "sah":
+        label += f" packing={packing}"
     w, h = spec.size
     cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=LAUNCH_RAYS,
                        queue_caps=spec.queue_caps, accel=accel, **extra)
     eager = dataclasses.replace(cfg, cuda_graphs=False)
     t0 = time.perf_counter()
-    st = flatten_scene(spec.scene, dev)
+    st = flatten_scene(spec.scene, dev, packing=packing)
     flatten_s = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"{label.replace(' ', '_')}.png")
@@ -1051,7 +1102,39 @@ def _main_path(dev, spec, path_counts, accel="cuda", spp=FULL_FRAME_SPP, size=No
           f"{dropped_w:.3g}; linear image against the eager loop's: max |diff| {diff:.3g}, "
           f"u8 pixels apart {u8_off}; PNG {os.path.relpath(path, ROOT)} round-trips",
           flush=True)
-    return dict(spec=spec, cfg=cfg, bodies=bodies, loops=loops, label=label)
+    return dict(spec=spec, cfg=cfg, bodies=bodies, loops=loops, label=label, lin=lin,
+                syncs=syncs, chunks=chunks)
+
+
+def _image_gate(got, ref):
+    """(share of pixels beyond IMAGE_GATE[1], max |diff|), raising past
+    IMAGE_GATE (tests/test_torch_render.py's assert_images_close)."""
+    import numpy as np
+
+    share, near, far = IMAGE_GATE
+    diff = np.abs(got - ref).max(axis=-1)
+    beyond, worst = float((diff > near).mean()), float(diff.max())
+    if not (np.isfinite(got).all() and beyond < share and worst < far):
+        raise AssertionError(f"image gate: {beyond:.4%} of pixels beyond {near}, max "
+                             f"{worst:.3g} (limits {share:.0%} and {far})")
+    return beyond, worst
+
+
+def _morton_path(dev, spec, path_counts):
+    """The main path `spec` through the captured render on Morton tables
+    at MORTON_SPP (_main_path: 0 host syncs a chunk), its linear image held
+    against the same render on SAH tables under IMAGE_GATE."""
+    from portrayer_tpu_torch import flatten_scene, render_linear
+
+    main = _main_path(dev, spec, path_counts, spp=MORTON_SPP, packing="morton")
+    spec, cfg = main["spec"], main["cfg"]
+    sah = render_linear(flatten_scene(spec.scene, dev), spec.camera, spec.size,
+                        spec.background, cfg)
+    beyond, worst = _image_gate(main["lin"], sah)
+    print(f"[4 morton] {main['label']} {spec.size[0]}x{spec.size[1]} x {MORTON_SPP} spp: "
+          f"against the render on SAH tables {beyond:.4%} of pixels beyond "
+          f"{IMAGE_GATE[1]}, max |diff| {worst:.3g}; host syncs {main['syncs']} over "
+          f"{main['chunks']} captured chunks", flush=True)
 
 
 def _deterministic(fn):
@@ -1480,10 +1563,183 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs, accel="cu
                              f"{det[0]['stats'].syncs}")
 
 
+def _exempt_fit(dev, path_counts):
+    """The fit of BOUNCE_FITS[0] with remat_min_lanes=EXEMPT_LANES beside
+    remat_min_lanes=0, both captured, in this call: a first step (warm-up
+    and capture) and two cached steps of each, their seconds, peak
+    allocated and reserved memory, host reads (0) and sweeps in the
+    backward (none); captured against op by op at EXEMPT_LANES under
+    _deterministic (losses equal, 0 gradient entries apart).  Returns a
+    function that counts the kernels of a cached step's backward of each
+    under torch.profiler (phase 8 runs it, last)."""
+    import dataclasses
+    import gc
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, render, rng, scenes
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops import cuda_intersect
+    from portrayer_tpu_torch.ops.trace import trace
+    from portrayer_tpu_torch.parallel import DIFF_FIELDS
+
+    name, size, spp, fields = BOUNCE_FITS[0]
+    spec = scenes.load(name)
+    w, h = size or spec.size
+    base = RenderConfig(device=dev, queue_caps=spec.queue_caps)
+    cfgs = {0: base, EXEMPT_LANES: dataclasses.replace(base, remat_min_lanes=EXEMPT_LANES)}
+    o, d, pix, bg, w0 = render._tile_rays(
+        rng.PRNGKey(BOUNCE_FIT_KEY), Camera(spec.camera, (w, h), dev), 0, 0, 0, cfg=base,
+        background=spec.background, tile_h=h, tile_w=w, spp=spp, samples=spp)
+    key = rng.PRNGKey(BOUNCE_FIT_KEY + 1)
+    tables = {m: flatten_scene(spec.scene, dev) for m in cfgs}
+    with torch.no_grad():
+        target = trace(key, o, d, pix, bg, w * h, tables[0], base, w0=w0,
+                       spp_contiguous=spp) / spp
+
+    def step(st, c):
+        leaves = {f: (getattr(st, f) * (FIT_START if f in fields else 1.0)).detach()
+                  .requires_grad_() for f in DIFF_FIELDS}
+        gc.collect()
+        torch.cuda.empty_cache()
+        _sync(dev)
+        _reset_peak(dev)
+        cuda_intersect.reset_counts()
+        t0 = time.perf_counter()
+        acc, stats = trace(key, o, d, pix, bg, w * h, st.replace(**leaves), c, w0=w0,
+                           spp_contiguous=spp, with_stats=True)
+        loss = torch.mean((acc / spp - target) ** 2)
+        _sync(dev)
+        fwd = cuda_intersect.counts()
+        cuda_intersect.reset_counts()
+        with torch.profiler.record_function("fit_backward"):
+            loss.backward()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        bwd = cuda_intersect.counts()
+        swept = sum(bwd[m] for m in cuda_intersect.SWEEP_MODES)
+        if swept or bwd["plain_on_cuda"] or fwd["plain_on_cuda"] or stats.dropped_w:
+            raise AssertionError(f"exempt fit: forward {fwd}, backward {bwd}, dropped "
+                                 f"{stats.dropped_w}")
+        return dict(loss=float(loss.detach()), grads={f: x.grad for f, x in leaves.items()},
+                    stats=stats, secs=secs, fwd=fwd, bwd=bwd, peak=_peak_gib(dev),
+                    reserved=torch.cuda.max_memory_reserved(dev) / 2**30)
+
+    runs = {m: [step(tables[m], c) for _ in range(3)] for m, c in cfgs.items()}
+    progs = {m: next(iter(tables[m].packed.fit_programs.values())) for m in cfgs}
+    prog = progs[EXEMPT_LANES]
+    exempt = sorted(prog.exempt, key=str)
+    if not exempt or progs[0].exempt:
+        raise AssertionError(f"exempt fit: exempt bodies {exempt} (remat_min_lanes 0: "
+                             f"{sorted(progs[0].exempt, key=str)})")
+    for m, steps in runs.items():
+        if any(s["stats"].syncs for s in steps):
+            raise AssertionError(f"exempt fit, remat_min_lanes={m}: host reads "
+                                 f"{[s['stats'].syncs for s in steps]}")
+    last = runs[EXEMPT_LANES][-1]
+    path_counts[f"fit {name} remat_min_lanes={EXEMPT_LANES}, captured step"] = {
+        k: last["fwd"][k] + last["bwd"][k] for k in last["fwd"]}
+    res_bytes = sum(n for sp_name, _, _, _, n in prog.state.spans if sp_name[0] == "res")
+    res_bytes += sum(r.numel() for r in prog.res.rows.values())
+
+    def both():
+        fresh = flatten_scene(spec.scene, dev)
+        c = cfgs[EXEMPT_LANES]
+        return [step(fresh, c), step(fresh, c), step(fresh, dataclasses.replace(
+            c, cuda_graphs=False))]
+
+    _, det, eager = _deterministic(both)
+    apart = sum(int((det["grads"][f] != eager["grads"][f]).sum()) for f in DIFF_FIELDS)
+    entries = sum(det["grads"][f].numel() for f in DIFF_FIELDS)
+    f3 = lambda steps: [f"{s['secs']:.3f}" for s in steps]
+    gib = lambda s: f"{s['peak']:.3f} / {s['reserved']:.3f}"
+    print(f"[5 exempt fit] {name} {w}x{h} x {spp} spp, remat_min_lanes {EXEMPT_LANES}: "
+          f"exempt bodies {exempt} (the slices of fewer lanes keep their autograd "
+          f"temporaries: {res_bytes / 2**30:.3f} GiB of residual slots); seconds a step "
+          f"captured {f3(runs[EXEMPT_LANES])} (the first with the warm-up and a capture of "
+          f"{prog.capture_s:.3f} s), remat_min_lanes 0 {f3(runs[0])} (capture "
+          f"{progs[0].capture_s:.3f} s); peak memory of a cached step, GiB allocated / "
+          f"reserved: {gib(last)} against {gib(runs[0][-1])}; MSE {last['loss']:.6g} and "
+          f"{runs[0][-1]['loss']:.6g}; host reads a captured step "
+          f"{last['stats'].syncs} and {runs[0][-1]['stats'].syncs}; sweep launches in a "
+          f"backward {sum(last['bwd'][m] for m in cuda_intersect.SWEEP_MODES)} and "
+          f"{sum(runs[0][-1]['bwd'][m] for m in cuda_intersect.SWEEP_MODES)}; under "
+          f"deterministic algorithms captured against op by op: loss {det['loss']!r} and "
+          f"{eager['loss']!r}, {apart} of {entries} gradient entries apart, host reads "
+          f"captured {det['stats'].syncs}", flush=True)
+    if apart or det["loss"] != eager["loss"] or det["stats"].syncs:
+        raise AssertionError(f"exempt fit: captured against op by op {apart} gradient "
+                             f"entries apart, losses {det['loss']!r} and {eager['loss']!r}")
+
+    def backward_kernels():
+        """Kernels of a cached step's backward at each remat_min_lanes
+        (torch.profiler, which sees a graph replay's kernels)."""
+        from portrayer_tpu_torch import profile_render as pr
+
+        out = {}
+        for m, c in cfgs.items():
+            ms, raw = pr._traced(lambda: step(tables[m], c))
+            out[m] = pr.summarize_trace(pr.after(json.loads(raw), "fit_backward"), ms, 1)
+        k0, k1 = out[0]["kernel_launches"], out[EXEMPT_LANES]["kernel_launches"]
+        print(f"[8 exempt fit] {name}: kernels in a cached captured step's backward "
+              f"{k1} with remat_min_lanes {EXEMPT_LANES} against {k0} with 0; device "
+              f"{out[EXEMPT_LANES]['device_ms']:.3f} against {out[0]['device_ms']:.3f} ms; sweep "
+              f"kernels {out[EXEMPT_LANES]['sweep_launches']} and {out[0]['sweep_launches']}",
+              flush=True)
+        if not k1 < k0 or out[EXEMPT_LANES]["sweep_launches"]:
+            raise AssertionError(f"exempt fit: backward kernels {k1} against {k0}, sweeps "
+                                 f"{out[EXEMPT_LANES]['sweep_launches']}")
+
+    return backward_kernels
+
+
+def _shade_hits(dev, path_counts):
+    """ops.shade_hits on big-scene's SHADE_HITS_RAYS camera rays (its three
+    lights), on the card (one any-hit launch through the kernel, counted)
+    against its plain version (the same inputs as CPU tensors): 0
+    occlusion verdicts apart, colours within SHADE_HITS_TOL."""
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, rng, scenes
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops import cuda_intersect, shade
+    from portrayer_tpu_torch.ops.intersect import Hit, HitDetail, hit_detail, intersect_scene
+
+    spec = scenes.load("big-scene")
+    w, h = spec.size
+    cfg, cpu = RenderConfig(device=dev), RenderConfig(device="cpu")
+    st, st_cpu = flatten_scene(spec.scene, dev), flatten_scene(spec.scene, "cpu")
+    u = rng.uniform(rng.PRNGKey(7), (SHADE_HITS_RAYS, 2), dev)
+    o, d = Camera(spec.camera, spec.size, dev).rays_at(u[:, 0] * w, u[:, 1] * h)
+    hit = intersect_scene(o, d, cfg.epsilon, float("inf"), st, cfg)
+    det = hit_detail(o, d, hit, st, cfg, cfg.epsilon)
+    verdicts = []
+    real = shade.occluded
+    shade.occluded = lambda *a, **k: verdicts.append(real(*a, **k)) or verdicts[-1]
+    try:
+        cuda_intersect.reset_counts()
+        colour, _, _ = shade.shade_hits(d, hit, det, st, cfg, rng.PRNGKey(0), hit.hit)
+        torch.cuda.synchronize()
+        counts = cuda_intersect.counts()
+        host = lambda x: Hit(*(t.cpu() for t in x)) if isinstance(x, Hit) else HitDetail(
+            *(t.cpu() for t in x))
+        ref, _, _ = shade.shade_hits(d.cpu(), host(hit), host(det), st_cpu, cpu,
+                                     rng.PRNGKey(0), hit.hit.cpu())
+    finally:
+        shade.occluded = real
+    path_counts["shade_hits big-scene"] = counts
+    apart = int((verdicts[0].cpu() != verdicts[1]).sum())
+    diff = float((colour.cpu() - ref).abs().max())
+    print(f"[2 shade_hits] big-scene, {SHADE_HITS_RAYS} camera rays, {st.n_lights} lights: "
+          f"any-hit launches {counts['any_hit']} ({verdicts[0].numel()} shadow rays, "
+          f"{int(verdicts[0].sum())} occluded); against its plain version (CPU tensors) "
+          f"{apart} verdicts apart, colours max |diff| {diff:.3g}", flush=True)
+    if counts["any_hit"] != 1 or counts["plain_on_cuda"] or apart or not diff <= SHADE_HITS_TOL:
+        raise AssertionError(f"shade_hits: launches {counts}, {apart} verdicts apart, "
+                             f"colours {diff:.3g} apart")
+
+
 def phase_gradients(dev, path_counts, err, diffs):
     """Kernel against plain version under autograd on two tiles, then the
     full-width fits (see the module docstring); err and diffs as in phase
-    2."""
+    2.  Returns the exempt fit's phase-8 count (_exempt_fit)."""
     import dataclasses
     import gc
     import torch
@@ -1519,6 +1775,7 @@ def phase_gradients(dev, path_counts, err, diffs):
     name, size, spp, fields = BOUNCE_FITS[0]
     for accel, extra in SWEEP_FITS:
         _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs, accel, extra)
+    backward_kernels = _exempt_fit(dev, path_counts)
 
     spec = scenes.load("big-scene")
     cfg = RenderConfig(device=dev, samples=1, tile=FIT_TILE, max_rays_per_launch=LAUNCH_RAYS)
@@ -1567,6 +1824,7 @@ def phase_gradients(dev, path_counts, err, diffs):
           f"{counts['any_hit']}; largest relative error of mat_diffuse after {FIT_STEPS} steps "
           f"{err:.3g}; one pass op by op {eager_secs:.3f} s (MSE {eager_loss:.6g}, peak "
           f"{eager_peak:.3f} GiB)", flush=True)
+    return backward_kernels
 
 
 # ---------------------------------------------------------------------------
@@ -2174,16 +2432,18 @@ def main():
 
     phase_card(dev)
     err, diffs, timing, branches = phase_kernels(dev)
+    path_counts = {}
+    _shade_hits(dev, path_counts)
     conditional, cond_replay = phase_conditional(dev)
     loop, loop_replay = phase_loop(dev)
     phase_goldens(dev)
-    path_counts = {}
     mesh, textured = _inline("procedural-meshes"), _inline("normal-mapping-numpy")
     for spec in ("big-scene", "torus-showcase", "glossy-reflection", mesh, "single-triangle",
                  textured, _inline("soft-shadows-icosphere"), "four-shapes"):
         main_path = _main_path(dev, spec, path_counts)
         if spec in DETERMINISTIC_PATHS:
             _looped_against_eager(dev, main_path)
+    _morton_path(dev, mesh, path_counts)
     for name, size, accel, extra, spp in SWEEP_PATHS:
         spec = mesh if name == "procedural-meshes" else name
         main_path = _main_path(dev, spec, path_counts, accel, spp, size, extra)
@@ -2193,13 +2453,14 @@ def main():
     _linear_vs_flat(dev, "glossy-reflection", GLOSSY_LINEAR_SPP)
     _linear_vs_flat(dev, mesh, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
     _linear_vs_flat(dev, textured, MESH_LINEAR_SPP, MESH_LINEAR_SIZE)
-    phase_gradients(dev, path_counts, err, diffs)
+    backward_kernels = phase_gradients(dev, path_counts, err, diffs)
     phase_multi_device(dev, path_counts, err, diffs)
     phase_checks(dev)
     phase_scenes(dev, path_counts, err, diffs)
     phase_device_times(timing, RenderConfig(device=dev))
     _graph_kernel_ms(conditional, cond_replay, "set_if_equal", "graphs.switch")
     _graph_kernel_ms(loop, loop_replay, "while_step", "graphs.loop")
+    backward_kernels()
 
     kernels = []
     for mode in ("nearest", "any_hit"):

@@ -8,8 +8,8 @@ of the tail of equal capacity, the last round aside, as one loop (a CUDA
 graph WHILE node, the JAX package's ``lax.scan``), which records the
 same ops as the unrolled rounds in a fraction of the capture time, and
 op by op the rounds are a Python loop.  ``remat_min_lanes`` has the JAX
-package's meaning: which rounds of a differentiable trace run
-checkpointed.  ``device`` and ``accel`` choose where and through which
+package's meaning, op by op and captured: which rounds of a
+differentiable trace run checkpointed.  ``device`` and ``accel`` choose where and through which
 sweep the port runs, ``dtype`` in which precision, ``cuda_graphs``
 whether a render or a fit on the card replays captured CUDA graphs,
 through any of the three sweeps (the beam sweep's ordered walk a WHILE
@@ -104,9 +104,14 @@ class RenderConfig:
     # lanes (its head slice) run checkpointed: the round's sweep results
     # are kept and its shading is replayed in backward instead of keeping
     # its temporaries (the JAX package's jax.checkpoint saving only the
-    # sweep outputs).  0 (default) = every round.  The captured fit
-    # (cuda_graphs on the card) checkpoints every round and refuses
-    # anything else.
+    # sweep outputs).  A round on fewer lanes keeps its temporaries and
+    # its backward replays nothing: op by op under autograd as usual, in
+    # the captured fit (cuda_graphs on the card, fit.py) in residual slots
+    # of the program's state slab.  0 (default) = every round.  The JAX
+    # package's reason for the default: at 262k lanes the shading
+    # temporaries go past HBM, and exempting small rounds went 10 GB past
+    # it on castle (un-rematerialised texture gathers inside its tail scan
+    # made XLA stack the u8 atlas per iteration).
     remat_min_lanes: int = 0
 
     # Pixels per render tile (height, width).

@@ -39,9 +39,25 @@ so the program reads them from static buffers that each call fills, and
 it is cached on the tables' packed table, which ``replace`` keeps.  The
 all-reduces of ``parallel.train_step`` stay outside.
 
-The captured fit checkpoints every round: ``cfg.remat_min_lanes`` > 0
-(rounds that keep their autograd temporaries) raises here; the op-by-op
-trace (``cuda_graphs=False``) honours it.
+``cfg.remat_min_lanes`` exempts the slices of fewer lanes from the
+replay, as the JAX package runs a round of k < remat_min_lanes lanes
+without ``jax.checkpoint`` (its trace.py ``_run`` against ``_run_ckpt``).
+k is static in a slice's body, so whether it is exempt is too.  An exempt
+body runs its forward under autograd, from parameter leaves that the
+program owns (static, like its other buffers), with
+``saved_tensors_hooks`` whose pack copies each tensor autograd saves into
+the body's row of residuals and whose unpack hands back a view of it: an
+unrolled round's row is a slot of the state slab; the tail loop's is a
+static row that each run of the body stores into a stacked slot of the
+slab at the device round index, and that the backward loads back from
+there before the body's vjp (one launch each way).
+The autograd graph that a body's forward records while the forward is
+captured is kept: its nodes are the same for every round of that body,
+only the slot's contents change.  The backward's body of an exempt slice
+takes the vector-Jacobian product on that graph (``retain_graph``), so it
+replays no forward op, as ``torch.cuda.make_graphed_callables`` pairs a
+captured forward with a captured backward.  The slots' sizes are measured
+in the warm-up, which runs op by op before the capture.
 """
 
 from __future__ import annotations
@@ -68,6 +84,8 @@ _HIT = ("t", "node", "tri", "hit")
 _RAY_INPUTS = ("o0", "d0", "w0", "bg")
 # Fit programs kept per packed table (PackedPrims.fit_programs).
 _MAX_PROGRAMS = 2
+# The slot of an exempt body's residuals in the state slab.
+_RES = "res"
 
 
 class _Slab:
@@ -89,6 +107,20 @@ class _Slab:
                 for name, dtype, shape, a, n in self.spans}
 
 
+def _written(buf, x):
+    """buf <- x through an alias of buf, under autograd: the alias is the
+    output whose history an exempt body's backward differentiates (buf
+    itself records nothing)."""
+    alias = buf.detach()
+    alias.copy_(x)
+    return alias
+
+
+def _shape(rd, k: int) -> tuple:
+    """The static shape of round rd's body on k lanes (round_shapes)."""
+    return (rd.cap, k, rd.next_cap, rd.last, rd.looped)
+
+
 def _kept_fields(sweeps: _Sweeps) -> dict:
     """{field: tensor} of a round's kept sweep results: its nearest hits
     and, with lights, its occlusion bits."""
@@ -102,6 +134,107 @@ def _kept_fields(sweeps: _Sweeps) -> dict:
 def _kept(views) -> _Sweeps:
     """A round's sweeps that read its results from its slot's views."""
     return _Sweeps([Hit(*(views[f] for f in _HIT)), views["occ"]])
+
+
+class _NoGradSweeps(_Sweeps):
+    """Sweeps launched outside autograd: an exempt body's forward records
+    the round, and its sweeps return results without a graph."""
+
+    def __call__(self, launch):
+        with torch.no_grad():
+            return super().__call__(launch)
+
+
+def _layout(saves) -> tuple:
+    """(spans (dtype, shape, byte offset, bytes) of the saves that are not
+    constants, None for those that are; total bytes), each span aligned
+    to 16 bytes as in _Slab."""
+    spans, at = [], 0
+    for dtype, shape, const in saves:
+        if const:
+            spans.append(None)
+            continue
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        spans.append((dtype, shape, at, n))
+        at += -(-n // 16) * 16
+    return spans, at
+
+
+class _Residuals:
+    """Where the tensors that autograd saves in exempt bodies live.  Each
+    exempt body (an unrolled round's index and its k, or "tail" and k) has
+    a row of bytes that holds its saves one after the other: for an
+    unrolled body, its slot (_RES, body) of the state slab; for the tail's
+    loop, a static row, whose contents the forward stores into the slab's
+    stacked slot [looped rounds, bytes] at the device round index after
+    each run of the body and the backward loads back before its vjp (one
+    launch each way), so that a save is always read as a view.  ``shapes``
+    holds each body shape's saves measured in the warm-up.  The store
+    holds no graph, so the hooks that close over it make no cycle with the
+    program."""
+
+    def __init__(self, device):
+        self.device = device
+        self.state = None
+        self.shapes = {}    # {body shape: [(dtype, shape, constant)]}
+        self.views = {}     # {body: [a view of its row per save, None for a constant]}
+        self.rows = {}      # {looped body: its static row}
+        self.tail0 = None   # the first looped round
+
+    def bind(self, state, bodies: dict):
+        """Bind the exempt bodies ({body: saves}) to the slab `state`."""
+        self.state = state
+        for body, saves in bodies.items():
+            spans, n = _layout(saves)
+            if body[0] == "tail":
+                row = self.rows[body] = torch.zeros((n,), dtype=torch.uint8, device=self.device)
+            else:
+                row = state.views[(_RES, body)]
+            self.views[body] = [None if sp is None else
+                                row[sp[2]:sp[2] + sp[3]].view(sp[0]).view(sp[1]) for sp in spans]
+
+    def _index(self, ridx):
+        return (ridx - self.tail0).reshape(1)
+
+    def store(self, body, ridx):
+        """After a looped body's forward: its row into the slab at ridx."""
+        if body in self.rows:
+            self.state.views[(_RES, body)].index_copy_(0, self._index(ridx), self.rows[body][None])
+
+    def load(self, body, ridx):
+        """Before a looped body's backward: its row from the slab at ridx."""
+        if body in self.rows:
+            torch.index_select(self.state.views[(_RES, body)], 0, self._index(ridx),
+                               out=self.rows[body][None])
+
+    def hooks(self, body, measure=None):
+        """(pack, unpack) for the forward of `body`; with `measure` (a
+        list), pack records each save's (dtype, shape, constant) there
+        instead of storing it.  A constant is a tensor off the program's
+        device (a number wrapped on the host, the same every run): it is
+        kept as it is."""
+        counter = iter(range(1 << 30))
+
+        def pack(x):
+            i = next(counter)
+            const = x.device != self.device
+            if measure is not None:
+                # Nothing is kept: a graph that held its outputs here
+                # would hold itself.
+                measure.append((x.dtype, tuple(x.shape), const))
+                return None
+            if const:
+                return x
+            self.views[body][i].copy_(x)
+            return (body, i)
+
+        return pack, self.unpack
+
+    def unpack(self, packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        body, i = packed
+        return self.views[body][i]
 
 
 class _FitProgram:
@@ -121,6 +254,9 @@ class _FitProgram:
         self.L = st.n_lights
         self.params = {f: getattr(st, f).detach().clone() for f in fields}
         self.st = st.replace(**self.params)
+        self.res = _Residuals(dev)
+        self.res.tail0 = self.looped[0].r if self.looped else None
+        self.exempt = {}    # {body: (outputs, inputs) of its recorded graph}
         f32 = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
         i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
         i64 = lambda *shape: torch.zeros(shape, dtype=torch.int64, device=dev)
@@ -174,7 +310,31 @@ class _FitProgram:
                       ((slot, "occ"), torch.bool, lead + (self.L * n,))]
             specs += [((slot, f), x.dtype, lead + (n,) + tuple(x.shape[1:]))
                       for f, x in zip(_Queue._fields, queue)]
+        # The exempt bodies' residual rows, once the warm-up has measured them.
+        for body, saves in self._exempt_bodies().items():
+            lead = (len(self.looped),) if body[0] == "tail" else ()
+            specs.append(((_RES, body), torch.uint8, lead + (_layout(saves)[1],)))
         return _Slab(specs, dev)
+
+    def _exempt_bodies(self) -> dict:
+        """{body: its saves} of every exempt body whose saves are measured."""
+        out = {}
+        for rd in self.rounds:
+            for k in rd.sizes:
+                saves = self.res.shapes.get(_shape(rd, k))
+                if self._exempt(k) and saves is not None:
+                    out[self._body(rd, k)] = saves
+        return out
+
+    def _exempt(self, k: int) -> bool:
+        """Whether a bounce round's slice of k lanes keeps its autograd
+        temporaries (k < remat_min_lanes), the JAX package's rule."""
+        return k < self.cfg.remat_min_lanes
+
+    @staticmethod
+    def _body(rd, k: int):
+        """The name of round rd's body on k lanes: its index, or "tail"."""
+        return ("tail" if rd.looped else rd.r, k)
 
     def _lanes(self, f, k: int) -> int:
         return self.L * k if f == "occ" else k
@@ -262,6 +422,7 @@ class _FitProgram:
         sel = slice_sel(self.n_live, rd.sizes)
         set_at_round(self.state.views["sel"], ridx, sel)
         return graphs.switch(sel, [None] + [
+            functools.partial(self.bounce_exempt, ridx, rd, k) if self._exempt(k) else
             functools.partial(self.bounce, ridx, rd.cap, k, rd.next_cap, rd.last)
             for k in rd.sizes])
 
@@ -311,6 +472,48 @@ class _FitProgram:
             self._queue_out(q2, next_cap, n_live, ridx + 1)
             self.state.views["dropped"].add_(dropped)
 
+    def bounce_exempt(self, ridx, rd, k: int, measure=None):
+        """Bounce round ridx (as in bounce) on k lanes, exempt from the
+        replay: its forward recorded by autograd from leaves that alias the
+        static parameters and inputs (made here, so that their autograd
+        nodes belong to the stream this body runs on), each saved tensor
+        packed into the body's residual row (or, with `measure`, its shape
+        recorded there), its results written to the static buffers through
+        aliases whose history the backward differentiates.  The graph
+        recorded while the forward is captured is kept (self.exempt);
+        before the capture, the last one."""
+        body = self._body(rd, k)
+        leaves = {f: p.detach().requires_grad_() for f, p in self.params.items()}
+        bg = self.inputs["bg"]
+        if "bg" in self.ray_grads:
+            bg = leaves["bg"] = bg.detach().requires_grad_()
+        q = _Queue(*(x[:k] for x in self.queues[rd.cap]))
+        qv = {f: (getattr(q, f).detach().requires_grad_() if f in _DIFF_QUEUE else getattr(q, f))
+              for f in _Queue._fields}
+        outs = []
+        pack, unpack = self.res.hooks(body, measure)
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            st = self.st.replace(**{f: leaves[f] for f in self.fields})
+            acc, q2, dropped, n_live = bounce_round(
+                at_round(self.state.views["keys"], ridx), _Queue(**qv), self.acc, bg, st,
+                self.cfg, k, rd.next_cap, rd.last, sweeps=_NoGradSweeps())
+            outs.append((_written(self.acc, acc), "acc"))
+            if not rd.last:
+                bufs = self.queues[rd.next_cap]
+                outs += [(_written(getattr(bufs, f), getattr(q2, f)), (rd.next_cap, f))
+                         for f in _DIFF_QUEUE]
+        if not rd.last:
+            with torch.no_grad():
+                self._queue_out(q2, rd.next_cap, n_live, ridx + 1)
+                self.state.views["dropped"].add_(dropped)
+        if measure is None:
+            self.res.store(body, ridx)
+            wrt = {**leaves, **{("q", f): qv[f] for f in _DIFF_QUEUE}}
+            if self.warm:
+                self.exempt.setdefault(body, (outs, wrt))
+            else:
+                self.exempt[body] = (outs, wrt)
+
     # -- backward ------------------------------------------------------------
 
     def _backward(self):
@@ -333,6 +536,7 @@ class _FitProgram:
 
     def _backward_round(self, ridx, rd):
         graphs.switch(at_round(self.state.views["sel"], ridx), [None] + [
+            functools.partial(self.exempt_grad, ridx, rd, k) if self._exempt(k) else
             functools.partial(self.bounce_grad, ridx, rd.cap, k, rd.next_cap, rd.last)
             for k in rd.sizes])
 
@@ -346,17 +550,18 @@ class _FitProgram:
         leaves.update((n, ins[n]) for n in self.ray_grads)
         return self.st.replace(**{f: leaves[f] for f in self.fields}), leaves, ins
 
-    def _vjp(self, outs, wrt: dict) -> dict:
+    def _vjp(self, outs, wrt: dict, retain: bool = False) -> dict:
         """{name: gradient or None} of the outputs (y, cotangent) that
         record, into the tensors of `wrt`; the parameters' and the ray
-        inputs' gradients are added to self.grads."""
+        inputs' gradients are added to self.grads.  `retain` keeps the
+        graph (an exempt body's, differentiated again at every call)."""
         outs = [(y, g) for y, g in outs if y is not None and y.requires_grad]
         names = list(wrt)
         if not outs:
             return dict.fromkeys(names)
         gs = dict(zip(names, torch.autograd.grad(
             [y for y, _ in outs], [wrt[n] for n in names], [g for _, g in outs],
-            allow_unused=True)))
+            allow_unused=True, retain_graph=retain)))
         for n, g in gs.items():
             if n in self.grads.views and g is not None:
                 self.grads.views[n].add_(g)
@@ -398,6 +603,11 @@ class _FitProgram:
             if not is_last:
                 outs += self._queue_cotangents(q2, next_cap)
             gs = self._vjp(outs, {**leaves, **{("q", f): qv[f] for f in _DIFF_QUEUE}})
+        self._queue_grads(gs, cap, k)
+
+    def _queue_grads(self, gs, cap: int, k: int):
+        """The cotangent of the capacity-cap queue a round ran on: its
+        gradients on the head k lanes, 0 on the rest."""
         for f in _DIFF_QUEUE:
             g, buf = gs[("q", f)], self.gq.views[(cap, f)]
             if g is None:
@@ -405,6 +615,17 @@ class _FitProgram:
             else:
                 buf[:k].copy_(g)
                 buf[k:].zero_()
+
+    def exempt_grad(self, ridx, rd, k: int):
+        """The backward of an exempt body at round ridx: the vector-Jacobian
+        product on the graph its forward recorded, whose saved tensors are
+        read from the body's residual slot at ridx; no forward op runs."""
+        body = self._body(rd, k)
+        outs, wrt = self.exempt[body]
+        self.res.load(body, ridx)
+        cot = {"acc": self.g_acc, **{n: self.gq.views[n] for _, n in outs if n != "acc"}}
+        gs = self._vjp([(y, cot[n]) for y, n in outs], wrt, retain=True)
+        self._queue_grads(gs, rd.cap, k)
 
     # -- a call --------------------------------------------------------------
 
@@ -430,14 +651,34 @@ class _FitProgram:
         the sweep's chunk groups, the allocator's blocks, autograd's
         threads and every branch's first use, as the captures record them
         all), all forgotten."""
+        self._measure()
         self.backward(self.forward(), self.zero_acc)
         for rd, k in round_shapes(self.pl, self.cfg.queue_slice_divs, loop=True):
             if rd.looped:
                 self.r.fill_(rd.r)
             ridx = self.r if rd.looped else rd.r
-            self.bounce(ridx, rd.cap, k, rd.next_cap, rd.last)
-            self.bounce_grad(ridx, rd.cap, k, rd.next_cap, rd.last)
+            if self._exempt(k):
+                self.bounce_exempt(ridx, rd, k)
+                self.exempt_grad(ridx, rd, k)
+            else:
+                self.bounce(ridx, rd.cap, k, rd.next_cap, rd.last)
+                self.bounce_grad(ridx, rd.cap, k, rd.next_cap, rd.last)
         self.warm = True
+        # The captures record the graphs the backward differentiates.
+        self.exempt = {}
+
+    def _measure(self):
+        """The tensors each exempt body shape saves, from one forward of
+        it; then the state slab with a residual slot for each."""
+        for rd, k in round_shapes(self.pl, self.cfg.queue_slice_divs, loop=True):
+            if self._exempt(k):
+                if rd.looped:
+                    self.r.fill_(rd.r)
+                saves = self.res.shapes[_shape(rd, k)] = []
+                self.bounce_exempt(self.r if rd.looped else rd.r, rd, k, measure=saves)
+        if self.res.shapes:
+            self.state = self._state_slab(self.st.device)
+        self.res.bind(self.state, self._exempt_bodies())
 
     def stats(self, state) -> TraceStats:
         """The TraceStats of the call that left `state`: one read."""
@@ -500,11 +741,6 @@ def trace_captured(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: R
     results), differentiable in the tables' fields that require grad and
     in the ray inputs that do.  With with_stats, the live counts and the
     dropped throughput are read once, after the forward."""
-    if cfg.remat_min_lanes > 0:
-        raise ValueError(
-            f"RenderConfig(remat_min_lanes={cfg.remat_min_lanes}): the captured fit "
-            "checkpoints every round; pass cuda_graphs=False to keep the temporaries of "
-            "small rounds")
     fields = grad_fields(st)
     xs = dict(zip(_RAY_INPUTS, (o0, d0, w0, bg)))
     ray_grads = tuple(n for n, x in xs.items() if x is not None and x.requires_grad)

@@ -1,12 +1,12 @@
-"""8-bit RGB PNG writer and reader on the standard library's zlib, and a
-baseline JPEG reader in numpy.
+"""8-bit RGB PNG writer and a PNG reader on the standard library's zlib,
+and a JPEG reader in numpy.
 
-The writer stores every row with filter type 0.  The reader accepts
-non-interlaced 8-bit greyscale, greyscale with alpha, RGB, RGBA and
-palette PNGs, undoes all five filter types (None, Sub, Up, Average,
-Paeth), which other encoders choose per row, and returns RGB as PIL's
-``convert("RGB")`` does: grey replicated, the palette expanded, alpha
-dropped.  Other bit depths and interlaced files raise ``ValueError``.
+The writer stores every row with filter type 0.  The reader accepts every
+colour type (greyscale, greyscale with alpha, RGB, RGBA, palette) at every
+bit depth the standard allows (1, 2, 4, 8, 16), interlaced (Adam7) or
+not, undoes all five filter types (None, Sub, Up, Average, Paeth), which
+other encoders choose per row, and returns RGB as PIL's ``convert("RGB")``
+does: grey replicated, the palette expanded, alpha dropped.
 ``decode_jpeg`` (below) gives the texels PIL gives a JPEG file;
 ``read_image`` reads either kind, told apart by the file's first bytes.
 """
@@ -53,13 +53,67 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-# Channels per pixel of each 8-bit colour type: grey, RGB, palette,
-# grey + alpha, RGBA.
+# Channels per pixel of each colour type: grey, RGB, palette, grey +
+# alpha, RGBA; and the bit depths the standard allows for each.
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (x0, y0, dx, dy).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """[h, stride] uint8: the rows of one (sub-)image, each a filter-type
+    byte and `stride` filtered bytes, unfiltered; bpp is the bytes of a
+    whole pixel (at least 1), the distance to the byte on the left."""
+    raw = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.int32)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:    # Sub: running sum along each byte of a pixel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:    # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):   # Average / Paeth: sequential over pixels
+            cur = np.zeros(stride, np.int32)
+            left = np.zeros(bpp, np.int32)
+            upleft = np.zeros(bpp, np.int32)
+            for x in range(stride // bpp):
+                sl = slice(x * bpp, (x + 1) * bpp)
+                up = prev[sl]
+                pred = (left + up) // 2 if ftype == 3 else _paeth(left, up, upleft)
+                cur[sl] = (line[sl] + pred) & 0xFF
+                left, upleft = cur[sl], up
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out.astype(np.uint8)
+
+
+def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """[h, w, c] int32 samples of unfiltered rows, MSB first."""
+    h = rows.shape[0]
+    n = w * c
+    if depth == 8:
+        return rows[:, :n].astype(np.int32).reshape(h, w, c)
+    if depth == 16:
+        x = rows[:, :2 * n].astype(np.int32)
+        return ((x[:, 0::2] << 8) | x[:, 1::2]).reshape(h, w, c)
+    bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(h, n, depth).astype(np.int32)
+    return (bits << np.arange(depth - 1, -1, -1, dtype=np.int32)).sum(axis=-1).reshape(h, w, c)
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes (8-bit, not interlaced) -> [H,W,3] uint8 RGB."""
+    """PNG bytes -> [H,W,3] uint8 RGB, as PIL's convert("RGB") gives them:
+    every colour type at every bit depth the standard allows, interlaced
+    (Adam7) or not.  Grey of 1, 2 and 4 bits is scaled to 0..255 (x255,
+    x85, x17), 16-bit grey clipped at 255 (PIL's I;16), the other 16-bit
+    kinds keep their high byte; the palette is expanded; alpha is
+    dropped."""
     if data[:8] != _SIG:
         raise ValueError("not a PNG file")
     pos, idat, hdr, plte = 8, [], None, None
@@ -79,43 +133,33 @@ def decode_png(data: bytes) -> np.ndarray:
     if hdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
-        raise ValueError(f"only 8-bit non-interlaced PNGs are read, got {hdr}")
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype] or interlace not in (0, 1):
+        raise ValueError(f"not a valid PNG kind (bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace})")
     if ctype == 3 and plte is None:
         raise ValueError("palette PNG without PLTE")
-    bpp = _CHANNELS[ctype]
-    stride = w * bpp
+    c = _CHANNELS[ctype]
+    bpp = max(1, c * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.int32)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:    # Sub: running sum along each channel
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
-        elif ftype == 2:    # Up
-            cur = (line + prev) & 0xFF
-        elif ftype in (3, 4):   # Average / Paeth: sequential over pixels
-            cur = np.zeros(stride, np.int32)
-            left = np.zeros(bpp, np.int32)
-            upleft = np.zeros(bpp, np.int32)
-            for x in range(w):
-                s = slice(x * bpp, (x + 1) * bpp)
-                up = prev[s]
-                pred = (left + up) // 2 if ftype == 3 else _paeth(left, up, upleft)
-                cur[s] = (line[s] + pred) & 0xFF
-                left, upleft = cur[s], up
-        else:
-            raise ValueError(f"bad PNG filter type {ftype}")
-        out[y] = cur
-        prev = cur
-    px = out.astype(np.uint8).reshape(h, w, bpp)
+    px = np.zeros((h, w, c), np.int32)
+    at = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * c * depth // 8)
+        rows = _unfilter(raw[at:at + ph * (stride + 1)], ph, stride, bpp)
+        at += ph * (stride + 1)
+        px[y0::dy, x0::dx] = _samples(rows, pw, c, depth)
     if ctype == 3:
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(plte)] = plte[:256]
         return pal[px[..., 0]]
+    if depth == 16:
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+    elif depth < 8:
+        px = px * (255 // ((1 << depth) - 1))
+    px = px.astype(np.uint8)
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
@@ -127,12 +171,15 @@ def read_png(path) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# JPEG: baseline and extended-sequential Huffman files, 8-bit, 1 or 3
-# components, sampling factors up to 2x2, restart markers.  The texels equal
-# what PIL (libjpeg-turbo) gives for convert("RGB"): the integer "islow"
-# IDCT (jidctint.c), fancy (triangle) chroma upsampling (jdsample.c) and
-# libjpeg's fixed-point YCbCr -> RGB (jdcolor.c).  Only the Huffman walk
-# runs per symbol; the rest is vectorised.
+# JPEG: baseline, extended-sequential and progressive Huffman files, 8-bit,
+# 1, 3 or 4 components, sampling factors up to 4 in either direction,
+# restart markers.  The texels equal what PIL (libjpeg-turbo) gives for
+# convert("RGB"): the integer "islow" IDCT (jidctint.c), fancy (triangle)
+# chroma upsampling where libjpeg has it and box replication elsewhere
+# (jdsample.c), libjpeg's fixed-point YCbCr -> RGB (jdcolor.c), and for
+# four components libjpeg's CMYK or YCCK -> CMYK, then PIL's: Adobe's
+# inverted samples (its "CMYK;I") and its CMYK -> RGB.  Only the Huffman
+# walk runs per symbol; the rest is vectorised.
 # ---------------------------------------------------------------------------
 
 # _ZIGZAG[k]: the natural (row-major) index of the k-th coefficient of a
@@ -233,6 +280,119 @@ def _decode_segment(win, bases, slots, pred, n_mcus, idx, val, name):
                     break
 
 
+def _receive(win, p, s):
+    """The s-bit value at bit p of a segment, sign-extended as JPEG codes
+    it (HUFF_EXTEND)."""
+    v = (win[p >> 3] >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+    return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+
+def _decode_progressive(win, bases, slots, pred, n_mcus, coef, ss, se, ah, al, name):
+    """Decode n_mcus MCUs of one restart interval of a progressive scan
+    (jdphuff.c): the DC first and refining scans, the AC first scans with
+    their EOB runs, and the AC refining scans, which correct the
+    coefficients already nonzero and place new ones of magnitude 1 << al.
+    coef: a list of every block's coefficients in zigzag order; bases,
+    slots and pred as in _decode_segment."""
+    p = 0
+    bad = f"{name}: corrupt JPEG data (bad Huffman code)"
+    if ss == 0:
+        for m in range(n_mcus):
+            for base, (ci, dc, _) in zip(bases[m], slots):
+                if ah:      # refining: one bit of every DC coefficient
+                    if (win[p >> 3] >> (31 - (p & 7))) & 1:
+                        coef[base] |= 1 << al
+                    p += 1
+                    continue
+                e = dc[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                if not e:
+                    raise ValueError(bad)
+                p += e >> 8
+                s = e & 255
+                if s:
+                    pred[ci] += _receive(win, p, s)
+                    p += s
+                coef[base] = pred[ci] << al
+        return
+    ac = slots[0][2]
+    if ac is None:
+        raise ValueError(f"{name}: AC scan without its Huffman table")
+    eobrun = 0
+    if not ah:
+        for m in range(n_mcus):
+            if eobrun:
+                eobrun -= 1
+                continue
+            base, k = bases[m][0], ss
+            while k <= se:
+                e = ac[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                if not e:
+                    raise ValueError(bad)
+                p += e >> 8
+                r, s = (e >> 4) & 15, e & 15
+                if s:
+                    k += r
+                    if k > 63:
+                        raise ValueError(f"{name}: corrupt JPEG data (coefficient past 63)")
+                    coef[base + k] = _receive(win, p, s) << al
+                    p += s
+                    k += 1
+                elif r == 15:
+                    k += 16
+                else:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[p >> 3] >> (32 - (p & 7) - r)) & ((1 << r) - 1)
+                        p += r
+                    eobrun -= 1
+                    break
+        return
+    p1, m1 = 1 << al, -1 << al
+    for m in range(n_mcus):
+        base, k = bases[m][0], ss
+        if not eobrun:
+            while k <= se:
+                e = ac[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                if not e:
+                    raise ValueError(bad)
+                p += e >> 8
+                r, s = (e >> 4) & 15, e & 15
+                if s:   # a new coefficient of magnitude p1, its sign a bit
+                    s = p1 if (win[p >> 3] >> (31 - (p & 7))) & 1 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[p >> 3] >> (32 - (p & 7) - r)) & ((1 << r) - 1)
+                        p += r
+                    break
+                # Correct the nonzero coefficients on the way to the r-th
+                # zero one (ZRL: 16 zeros), where s goes.
+                while k <= se:
+                    c = coef[base + k]
+                    if c:
+                        if (win[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                            coef[base + k] = c + (p1 if c >= 0 else m1)
+                        p += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s and k <= 63:
+                    coef[base + k] = s
+                k += 1
+        if eobrun:
+            while k <= se:
+                c = coef[base + k]
+                if c:
+                    if (win[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                        coef[base + k] = c + (p1 if c >= 0 else m1)
+                    p += 1
+                k += 1
+            eobrun -= 1
+
+
 def _idct_1d(x, shift):
     """jidctint.c's 8-point islow pass on x[0..7] (arrays, int64),
     descaled by `shift` bits."""
@@ -318,15 +478,27 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """PIL's convert("RGB") of CMYK samples (its cmyk2rgb):
+    (255 - k) - c (255 - k) / 255 per channel, rounded as its MULDIV255."""
+    nk = 255 - k.astype(np.int64)
+
+    def one(x):
+        t = x.astype(np.int64) * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+
+    return np.stack([one(c), one(m), one(y)], axis=-1).astype(np.uint8)
+
+
 def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
     """JPEG bytes -> [H,W,3] uint8 RGB, as PIL's convert("RGB") decodes
-    them.  Progressive, lossless, hierarchical, arithmetic-coded and
-    12-bit files raise ValueError naming `name` and the SOF marker."""
+    them.  Lossless, hierarchical, arithmetic-coded and 12-bit files
+    raise ValueError naming `name` and the SOF marker."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file")
     qt, dht, comps = {}, {}, None
     restart, adobe, jfif = 0, None, False
-    coef = None
+    coef, progressive = None, False
     pos = 2
     while True:
         while pos < len(data) and data[pos] != 0xFF:
@@ -345,32 +517,36 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
         seg = data[pos + 2:pos + n]
         pos += n
         if marker in _SOF_KINDS:
-            if marker not in (0xC0, 0xC1):
+            if marker not in (0xC0, 0xC1, 0xC2):
                 raise ValueError(f"{name}: SOF{marker - 0xC0} ({_SOF_KINDS[marker]}) JPEGs "
-                                 "are not read; only baseline and extended-sequential "
-                                 "Huffman files are")
+                                 "are not read; only baseline, extended-sequential and "
+                                 "progressive Huffman files are")
+            progressive = marker == 0xC2
             prec, height, width, nc = struct.unpack(">BHHB", seg[:6])
             if prec != 8:
                 raise ValueError(f"{name}: SOF{marker - 0xC0} with {prec}-bit samples; "
                                  "only 8-bit JPEGs are read")
-            if nc not in (1, 3):
-                raise ValueError(f"{name}: {nc} components; only 1 and 3 are read")
+            if nc not in (1, 3, 4):
+                raise ValueError(f"{name}: {nc} components; only 1, 3 and 4 are read")
             comps = []
             for i in range(nc):
                 cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
                 hs, vs = hv >> 4, hv & 15
-                if not (1 <= hs <= 2 and 1 <= vs <= 2):
-                    raise ValueError(f"{name}: sampling factors {hs}x{vs}; up to 2x2 are read")
+                if not (1 <= hs <= 4 and 1 <= vs <= 4):
+                    raise ValueError(f"{name}: sampling factors {hs}x{vs}; up to 4x4 are read")
                 comps.append({"id": cid, "h": hs, "v": vs, "tq": tq, "q": None})
             hmax = max(c["h"] for c in comps)
             vmax = max(c["v"] for c in comps)
+            if any(hmax % c["h"] or vmax % c["v"] for c in comps):
+                raise ValueError(f"{name}: fractional sampling ratios "
+                                 f"{[(c['h'], c['v']) for c in comps]} (libjpeg refuses them)")
             mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
             off = 0
             for c in comps:
                 c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
                 c["off"] = off
                 off += c["bw"] * c["bh"]
-            coef = np.zeros(off * 64, np.int32)
+            coef = [0] * (off * 64) if progressive else np.zeros(off * 64, np.int32)
         elif marker == 0xC4:   # DHT
             i = 0
             while i < len(seg):
@@ -408,19 +584,23 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
                 c = next(c for c in comps if c["id"] == cid)
                 if c["q"] is None:
                     c["q"] = qt[c["tq"]]
-                scan.append((comps.index(c), dht[(0, tables >> 4)], dht[(1, tables & 15)]))
+                scan.append((comps.index(c), dht.get((0, tables >> 4)),
+                             dht.get((1, tables & 15))))
+            ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
             end = _MARKER.search(data, pos)
             end = end.start() if end else len(data)
-            _decode_scan(data[pos:end], scan, comps, width, height, restart, coef, name)
+            _decode_scan(data[pos:end], scan, comps, width, height, restart, coef, name,
+                         (ss, se, ahal >> 4, ahal & 15) if progressive else None)
             pos = end
     if coef is None:
         raise ValueError(f"{name}: JPEG without a frame header")
-    return _reconstruct(coef, comps, width, height, adobe, jfif)
+    return _reconstruct(np.asarray(coef, np.int32), comps, width, height, adobe, jfif)
 
 
-def _decode_scan(entropy, scan, comps, width, height, restart, coef, name):
+def _decode_scan(entropy, scan, comps, width, height, restart, coef, name, spectral=None):
     """Huffman-decode one scan's entropy-coded bytes into `coef` (zigzag
-    order per block, all components one after the other)."""
+    order per block, all components one after the other); a progressive
+    scan's (Ss, Se, Ah, Al) in `spectral`, its coef a list."""
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
     if len(scan) == 1:   # non-interleaved: one block an MCU, the component's own grid
@@ -453,9 +633,14 @@ def _decode_scan(entropy, scan, comps, width, height, restart, coef, name):
             raise ValueError(f"{name}: JPEG scan ends before its last restart interval")
         pred = [0] * len(comps)
         win = _bit_windows(segments[i].replace(b"\xff\x00", b"\xff"))
-        _decode_segment(win, bases[start:start + per], slots, pred,
-                        min(per, n_mcus - start), idx, val, name)
-    coef[np.asarray(idx, np.int64)] = np.asarray(val, np.int32)
+        if spectral is not None:
+            _decode_progressive(win, bases[start:start + per], slots, pred,
+                                min(per, n_mcus - start), coef, *spectral, name)
+        else:
+            _decode_segment(win, bases[start:start + per], slots, pred,
+                            min(per, n_mcus - start), idx, val, name)
+    if spectral is None:
+        coef[np.asarray(idx, np.int64)] = np.asarray(val, np.int32)
 
 
 def _reconstruct(coef, comps, width, height, adobe, jfif):
@@ -476,6 +661,16 @@ def _reconstruct(coef, comps, width, height, adobe, jfif):
         planes.append(up[:height, :width])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=-1)
+    if len(planes) == 4:
+        # libjpeg: an Adobe marker's transform 0 is CMYK, any other YCCK
+        # (whose YCC part it turns to 255 - RGB); no marker, CMYK.  PIL
+        # reads the CMYK inverted, as Adobe writes it.
+        if adobe is not None and adobe != 0:
+            cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int64)
+        else:
+            cmy = np.stack(planes[:3], axis=-1).astype(np.int64)
+        return _cmyk_to_rgb(*(255 - cmy[..., i] for i in range(3)),
+                            255 - planes[3].astype(np.int64))
     # libjpeg's guess of the colour space (jdapimin.c default_decompress_parms).
     ids = tuple(c["id"] for c in comps)
     rgb = (not jfif and adobe == 0) or (not jfif and adobe is None and ids == (82, 71, 66))

@@ -63,6 +63,45 @@ def matvec3(m33, v):
 
 
 # ---------------------------------------------------------------------------
+# Quadratic solver: the roots crate's find_roots_quadratic (src/math.rs:
+# 107-114), roots sorted ascending, the linear equation when a == 0.
+# ---------------------------------------------------------------------------
+
+def quadratic_roots(a, b, c):
+    """(r0, r1), r0 <= r1, +inf where invalid; exact a == 0 falls back to
+    the linear equation and disc == 0 gives a double root."""
+    disc = b * b - 4.0 * a * c
+    sq = safe_sqrt(disc)
+    # Numerically stable: q = -(b + sign(b) sq) / 2; roots q/a and c/q.
+    sgn = torch.where(b >= 0.0, 1.0, -1.0)
+    q = -0.5 * (b + sgn * sq)
+    one = torch.ones_like(a)
+    inf = torch.full_like(a, torch.inf)
+    safe_a = torch.where(a == 0.0, one, a)
+    safe_q = torch.where(q == 0.0, one, q)
+    ra = torch.where(a == 0.0, inf, q / safe_a)
+    rb = torch.where(q == 0.0, -b / (2.0 * safe_a), c / safe_q)
+    r0 = torch.minimum(ra, rb)
+    r1 = torch.maximum(ra, rb)
+    safe_b = torch.where(b == 0.0, one, b)
+    lin = torch.where(b == 0.0, inf, -c / safe_b)
+    quad_ok = (a != 0.0) & (disc >= 0.0)
+    r0 = torch.where(a == 0.0, lin, torch.where(quad_ok, r0, inf))
+    r1 = torch.where(a == 0.0, inf, torch.where(quad_ok, r1, inf))
+    return r0, r1
+
+
+def smallest_root_in_range(a, b, c, t_min, t_max):
+    """Smallest quadratic root t with t_min <= t < t_max (Solutions::
+    find_in_range, src/math.rs:94-96): (t, valid)."""
+    r0, r1 = quadratic_roots(a, b, c)
+    ok0 = (r0 >= t_min) & (r0 < t_max)
+    ok1 = (r1 >= t_min) & (r1 < t_max)
+    t = torch.where(ok0, r0, torch.where(ok1, r1, torch.full_like(r1, torch.inf)))
+    return t, ok0 | ok1
+
+
+# ---------------------------------------------------------------------------
 # Quartic solver for the torus (the reference's Quartic over the roots
 # crate, src/math.rs:126-133): Ferrari through the resolvent cubic, then
 # Newton polish.  Integer powers are written as products, in the order of
@@ -251,6 +290,12 @@ def invert(m: np.ndarray) -> np.ndarray:
 def to_affine34(m: np.ndarray) -> np.ndarray:
     """Top 3x4 of a 4x4 affine."""
     return np.asarray(m, dtype=np.float64)[:3, :4]
+
+
+def normal_matrix(m: np.ndarray) -> np.ndarray:
+    """Inverse-transpose of the upper-left 3x3, the reference's
+    normal_trans (src/scene.rs:204)."""
+    return np.linalg.inv(m[:3, :3]).T
 
 
 def radians(deg: float) -> float:

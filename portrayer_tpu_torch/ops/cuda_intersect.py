@@ -479,13 +479,13 @@ class ChunkGroups(NamedTuple):
 
 
 def chunk_groups(pk) -> ChunkGroups:
-    """The groups of GROUP consecutive chunks (table order, the lowering's
-    SAH order) and the real lanes of each chunk, on the table's device,
-    with no host sync.  A group's box is the exact f32 min/max of its
-    members' boxes, so it contains them; the slab rule is monotone in the
-    box, so a group passes whenever one of its chunks does.  The kernel
-    reads them through ``PackedPrims.groups``, which derives them once per
-    table."""
+    """The groups of GROUP consecutive chunks (in table order: the SAH or
+    Morton order the lowering packed) and the real lanes of each chunk, on
+    the table's device, with no host sync.  A group's box is the exact f32
+    min/max of its members' boxes, so it contains them; the slab rule is
+    monotone in the box, so a group passes whenever one of its chunks
+    does.  The kernel reads them through ``PackedPrims.groups``, which
+    derives them once per table."""
     nc = pk.n_chunks
     pad = -nc % GROUP
     fill = lambda v: torch.full((pad, 3), v, dtype=pk.chunk_min.dtype, device=pk.chunk_min.device)

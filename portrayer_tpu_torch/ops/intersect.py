@@ -87,38 +87,6 @@ def _in_range(t, t_min, t_max):
     return (t >= t_min) & (t < t_max)
 
 
-def _quadratic_roots(a, b, c):
-    """(r0, r1), r0 <= r1, +inf where invalid; exact a == 0 falls back to
-    the linear equation (the roots crate, src/math.rs:107-114)."""
-    disc = b * b - 4.0 * a * c
-    sq = m3.safe_sqrt(disc)
-    sgn = torch.where(b >= 0.0, 1.0, -1.0)
-    q = -0.5 * (b + sgn * sq)
-    one = torch.ones_like(a)
-    inf = torch.full_like(a, INF)
-    safe_a = torch.where(a == 0.0, one, a)
-    safe_q = torch.where(q == 0.0, one, q)
-    ra = torch.where(a == 0.0, inf, q / safe_a)
-    rb = torch.where(q == 0.0, -b / (2.0 * safe_a), c / safe_q)
-    r0 = torch.minimum(ra, rb)
-    r1 = torch.maximum(ra, rb)
-    safe_b = torch.where(b == 0.0, one, b)
-    lin = torch.where(b == 0.0, inf, -c / safe_b)
-    quad_ok = (a != 0.0) & (disc >= 0.0)
-    r0 = torch.where(a == 0.0, lin, torch.where(quad_ok, r0, inf))
-    r1 = torch.where(a == 0.0, inf, torch.where(quad_ok, r1, inf))
-    return r0, r1
-
-
-def smallest_root_in_range(a, b, c, t_min, t_max):
-    """Smallest root with t_min <= t < t_max (src/math.rs:94-96): (t, ok)."""
-    r0, r1 = _quadratic_roots(a, b, c)
-    ok0 = (r0 >= t_min) & (r0 < t_max)
-    ok1 = (r1 >= t_min) & (r1 < t_max)
-    t = torch.where(ok0, r0, torch.where(ok1, r1, torch.full_like(r1, INF)))
-    return t, ok0 | ok1
-
-
 # ---------------------------------------------------------------------------
 # Candidate-t functions.  o, d: [..., 3] local rays; t_min/t_max
 # broadcastable.  Return t [...] with inf where invalid.
@@ -128,7 +96,7 @@ def sphere_candidate(o, d, t_min, t_max, eps, params=None):
     a = m3.dot(d, d)
     b = 2.0 * m3.dot(o, d)
     c = m3.dot(o, o) - 1.0
-    t, ok = smallest_root_in_range(a, b, c, t_min, t_max)
+    t, ok = m3.smallest_root_in_range(a, b, c, t_min, t_max)
     return torch.where(ok, t, INF)
 
 
@@ -179,7 +147,7 @@ def _cyl_parts(o, d, t_min, t_max):
     a = d[..., 0] ** 2 + d[..., 2] ** 2
     b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 2] * d[..., 2])
     c = o[..., 0] ** 2 + o[..., 2] ** 2 - R2
-    t_body, ok = smallest_root_in_range(a, b, c, t_min, t_max)
+    t_body, ok = m3.smallest_root_in_range(a, b, c, t_min, t_max)
     y = o[..., 1] + _finite(t_body) * d[..., 1]
     ok = ok & ~(y > 0.5) & ~(y < -0.5)
     t_body = torch.where(ok, t_body, INF)
@@ -213,7 +181,7 @@ def _cone_parts(o, d, t_min, t_max):
     a = 4.0 * dy * dy * r2 - 4.0 * h2 * (dx * dx + dz * dz)
     b = -8.0 * h2 * (dx * ox + dz * oz) - 4.0 * r2 * (dy * H - 2.0 * dy * oy)
     c = -4.0 * h2 * (ox * ox + oz * oz) + r2 * (h2 - 4.0 * H * oy + 4.0 * oy * oy)
-    t_body, ok = smallest_root_in_range(a, b, c, t_min, t_max)
+    t_body, ok = m3.smallest_root_in_range(a, b, c, t_min, t_max)
     y = oy + _finite(t_body) * dy
     ok = ok & ~(y > 0.5) & ~(y < -0.5)
     t_body = torch.where(ok, t_body, INF)

@@ -4,7 +4,10 @@ Ambient + per light [Lambert diffuse + Blinn-Phong specular with the 4x
 shininess compensation (material.rs:196-204)] / attenuation, with the
 occlusion deferred: ``shade_pre`` returns the per-light contributions,
 directions and shadow-need masks, and the trace loop resolves all lights'
-shadow rays in one any-hit launch.  An area light is sampled at one point
+shadow rays in one any-hit launch.  ``shade_hits`` is the one-shot form
+(``shade_pre``, one ``occluded`` launch over every light, ``apply_lights``)
+that the JAX package keeps for tests and tools; the trace loop does not use
+it.  An area light is sampled at one point
 of its parallelogram per lane (per-sample-id draws).  Image and
 procedural textures override the diffuse colour, a normal map the shading
 normal (in the primitive's local tangent frame, as the reference leaves
@@ -23,7 +26,7 @@ from .. import math3d as m3
 from .. import rng
 from ..config import RenderConfig
 from ..scene.flatten import SceneTables
-from .intersect import Hit, HitDetail, _vec
+from .intersect import Hit, HitDetail, _vec, occluded
 
 
 def _uniform(key, site: int, sid, n: int):
@@ -225,3 +228,28 @@ def shade_pre(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, k
                          refl_mult=torch.where(live, refl_mult, 0.0),
                          refr_dir=m3.normalize(refr_dir, eps=1e-30),
                          refr_mult=torch.where(live, refr_mult, 0.0))
+
+
+def shade_hits(d, hit: Hit, det: HitDetail, st: SceneTables, cfg: RenderConfig, key, active):
+    """(local colour [R,3], Children, t_eps [R]) with the occlusion resolved
+    here: one ``occluded`` launch over the L x R shadow rays (the lights
+    tiled along the batch; with ``accel="cuda"`` the any-hit kernel on the
+    card), then ``apply_lights``."""
+    pre, children = shade_pre(d, hit, det, st, cfg, key, active)
+    L, R = st.n_lights, d.shape[0]
+    if not L:
+        return torch.where(active[..., None], pre.base, 0.0), children, pre.t_eps
+    tile = lambda x: x.repeat((L,) + (1,) * (x.dim() - 1))
+    occ = occluded(tile(det.point), pre.shadow_dir.reshape(L * R, 3), tile(pre.t_eps),
+                   float("inf"), st, cfg, active=tile(active) & pre.shadow_need.reshape(L * R),
+                   src_node=tile(hit.node), src_tri=tile(hit.tri)).reshape(L, R)
+    return apply_lights(pre, occ, active), children, pre.t_eps
+
+
+def apply_lights(pre: ShadePre, occ, active):
+    """base + the sum over lights of the unoccluded light_contrib, 0 on
+    inactive lanes; occ [L,R] bool."""
+    color = pre.base
+    for li in range(pre.light_contrib.shape[0]):
+        color = color + (~occ[li])[..., None].to(color.dtype) * pre.light_contrib[li]
+    return torch.where(active[..., None], color, 0.0)

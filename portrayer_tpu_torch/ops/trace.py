@@ -39,6 +39,8 @@ forward and backward, as captured CUDA graphs.
 from __future__ import annotations
 
 import dataclasses
+import sys
+import types
 from typing import NamedTuple
 
 import torch
@@ -507,3 +509,14 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
     return acc, TraceStats(live=torch.tensor(lv, dtype=torch.int32),
                            dropped_w=float(dropped.detach()) / R0 if dropped is not None else 0.0,
                            syncs=len(live))
+
+
+class _CallableModule(types.ModuleType):
+    """This module, which calling runs its ``trace`` (``ops.trace(...)``,
+    the JAX package's export of the function under the module's name)."""
+
+    def __call__(self, *args, **kwargs):
+        return trace(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

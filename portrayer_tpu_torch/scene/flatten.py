@@ -207,6 +207,30 @@ class SceneTables:
 # Packing (numpy; same steps as the JAX package's _build_packed)
 # ---------------------------------------------------------------------------
 
+def _part1by2(x: np.ndarray) -> np.ndarray:
+    """Spread 10 bits to every third bit (the Morton interleave)."""
+    x = x.astype(np.uint32) & np.uint32(0x3FF)
+    x = (x | (x << 16)) & np.uint32(0x30000FF)
+    x = (x | (x << 8)) & np.uint32(0x300F00F)
+    x = (x | (x << 4)) & np.uint32(0x30C30C3)
+    x = (x | (x << 2)) & np.uint32(0x9249249)
+    return x
+
+
+def _morton_order(amin: np.ndarray, amax: np.ndarray) -> np.ndarray:
+    """Stable sort of boxes by the 30-bit Morton code of their centres,
+    each axis quantised to 10 bits over the centres' extent."""
+    if amin.shape[0] <= 1:
+        return np.arange(amin.shape[0])
+    c = 0.5 * (amin + amax)
+    lo = c.min(axis=0)
+    span = np.maximum(c.max(axis=0) - lo, 1e-30)
+    q = np.clip((c - lo) / span * 1023.0, 0.0, 1023.0).astype(np.uint32)
+    key = (_part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << np.uint32(1))
+           | (_part1by2(q[:, 2]) << np.uint32(2)))
+    return np.argsort(key, kind="stable")
+
+
 def _sah_chunk_order(amin: np.ndarray, amax: np.ndarray,
                      leaf: int = PACK_CHUNK) -> np.ndarray:
     """Spatial order by recursive SAH bisection at chunk granularity: the
@@ -274,9 +298,17 @@ def _axis_aligned(t3):
     return ok, rmax
 
 
+# The spatial orders a packed table's groups can be sorted in.
+PACKINGS = {"sah": _sah_chunk_order, "morton": _morton_order}
+
+
 def _build_packed(groups, trans, inv, aabb_min, aabb_max, prim_params,
-                  pair_node, pair_tri, pair_amin, pair_amax, pair_world):
-    """Packed chunk table (numpy) from the node and pair tables."""
+                  pair_node, pair_tri, pair_amin, pair_amax, pair_world, packing: str = "sah"):
+    """Packed chunk table (numpy) from the node and pair tables, each
+    group's boxes in the spatial order `packing` names."""
+    if packing not in PACKINGS:
+        raise ValueError(f"packing={packing!r}: expected one of {sorted(PACKINGS)}")
+    spatial_order = PACKINGS[packing]
     f_cols: List[np.ndarray] = []
     id_cols: List[np.ndarray] = []
     a_cols_min: List[np.ndarray] = []
@@ -319,7 +351,7 @@ def _build_packed(groups, trans, inv, aabb_min, aabb_max, prim_params,
         if kind == MESH:
             if len(pair_node) == 0:
                 continue
-            order = _sah_chunk_order(pair_amin, pair_amax)
+            order = spatial_order(pair_amin, pair_amax)
             pn, pt = pair_node[order], pair_tri[order]
             # Unit-triangle affine: rows map world points into the (beta,
             # gamma, w) frame where the triangle is beta, gamma >= 0,
@@ -341,7 +373,7 @@ def _build_packed(groups, trans, inv, aabb_min, aabb_max, prim_params,
             add_group(MESH, f, np.stack([pn, pt], axis=1), pair_amin[order], pair_amax[order])
             continue
         idx = np.arange(start, start + count)
-        sub_order = lambda ids: ids[_sah_chunk_order(aabb_min[ids], aabb_max[ids])]
+        sub_order = lambda ids: ids[spatial_order(aabb_min[ids], aabb_max[ids])]
         if kind == SPHERE:
             uni, s = _uniform_similarity(trans)
             spec = sub_order(idx[uni[idx]])
@@ -480,7 +512,7 @@ class _TriangleSoup:
         return out
 
 
-def _flatten_numpy(scene: Scene):
+def _flatten_numpy(scene: Scene, packing: str = "sah"):
     """The JAX package's lowering in numpy: ({field: array}, meta)."""
     flat: List[_FlatNode] = []
     soup = _TriangleSoup()
@@ -667,7 +699,7 @@ def _flatten_numpy(scene: Scene):
 
     packed, n_chunks, kind_ranges = _build_packed(
         groups, trans, inv, aabb_min, aabb_max, prim_params,
-        pair_node, pair_tri, pair_amin, pair_amax, pair_world)
+        pair_node, pair_tri, pair_amin, pair_amax, pair_world, packing)
     a.update({f"packed.{k}": v for k, v in packed.items()})
     meta = dict(
         groups=tuple(groups), kind_ranges=kind_ranges, n_chunks=n_chunks,
@@ -736,10 +768,14 @@ def tables_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
     )
 
 
-def flatten_scene(scene: Scene, device="cuda", dtype=torch.float32) -> SceneTables:
+def flatten_scene(scene: Scene, device="cuda", dtype=torch.float32,
+                  packing: str = "sah") -> SceneTables:
     """Lower `scene` to SceneTables on `device` (same tables as
-    ``portrayer_tpu.flatten_scene``), float tables in `dtype`."""
-    arrays, meta = _flatten_numpy(scene)
+    ``portrayer_tpu.flatten_scene``), float tables in `dtype`, the packed
+    table's groups in the spatial order `packing` names: "sah" (recursive
+    SAH bisection at chunk granularity) or "morton" (Morton codes of the
+    box centres)."""
+    arrays, meta = _flatten_numpy(scene, packing)
     return tables_from_numpy(arrays, meta, device, dtype)
 
 

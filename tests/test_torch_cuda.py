@@ -546,6 +546,21 @@ COLOURS = ("mat_diffuse", "mat_specular", "light_color", "ambient")
 
 @pytest.mark.parametrize("name", ["glossy-reflection", "glass-sphere"])
 def test_captured_fit_matches_the_op_by_op_trace(dev, name):
+    _captured_fit_against_op_by_op(dev, name, 0)
+
+
+@pytest.mark.parametrize("remat_min_lanes", [8193, 1 << 30])
+@pytest.mark.parametrize("name", ["glossy-reflection", "glass-sphere"])
+def test_captured_exempt_fit_matches_the_op_by_op_trace(dev, name, remat_min_lanes):
+    """The check below with the slices of fewer than remat_min_lanes lanes
+    exempt from the replay (their forward recorded by autograd, its saved
+    tensors in residual slots of the state slab, their backward the vjp
+    of that graph): some slices, or all."""
+    prog = _captured_fit_against_op_by_op(dev, name, remat_min_lanes)
+    assert prog.exempt and prog.res.shapes
+
+
+def _captured_fit_against_op_by_op(dev, name, remat_min_lanes):
     """A 64x64 tile at 4 spp of glossy-reflection (mirror and glossy
     bounces) and of the glass sphere (4x queues, refraction, total
     internal reflection): gradients of sum(acc^2) with respect to every
@@ -562,7 +577,7 @@ def test_captured_fit_matches_the_op_by_op_trace(dev, name):
 
     scene, camera, (w, h) = _scene(name)
     st = flatten_scene(scene, dev)
-    cfg = RenderConfig(device=dev)
+    cfg = RenderConfig(device=dev, remat_min_lanes=remat_min_lanes)
     o, d, pix, bg, w0 = render._tile_rays(
         rng.PRNGKey(4), Camera(camera, (w, h), dev), w // 2 - 32, h // 2 - 32, 0, cfg=cfg,
         background=render.default_background, tile_h=64, tile_w=64, spp=4, samples=4)
@@ -600,6 +615,7 @@ def test_captured_fit_matches_the_op_by_op_trace(dev, name):
     assert sorted(prog.graphs) == ["backward", "forward"]
     assert prog.graphs == graphs and prog.capture_s == capture_s
     assert prog.graphs["forward"].replays == replays["forward"] + 1
+    return prog
 
 
 def test_switch_on_the_card_takes_the_branch_of_sel(dev):

@@ -247,13 +247,14 @@ def test_checkpointing_holds_fewer_bytes(monkeypatch, capsys):
     assert 0 < ck < off / 4
 
 
-def test_remat_min_lanes_exempts_small_rounds(monkeypatch):
+def test_remat_min_lanes_exempts_small_rounds(monkeypatch, one_thread):
     """Round 0 always runs checkpointed; a bounce round on k lanes when k
     >= remat_min_lanes (k: the head slice it runs on, from its live
     count).  On the glass sphere with a 4x queue into round 1 and 1x
     after, every round on its whole queue, round 1 runs on 16,384 lanes
-    and rounds 2-10 on 4,096.  The captured fit refuses remat_min_lanes >
-    0."""
+    and rounds 2-10 on 4,096.  At each m the captured fit (stand-in graphs,
+    its slices of k < m lanes exempt from the replay) gives the op-by-op
+    trace's colours and gradients bit for bit."""
     js, o, d = _rays("glass-sphere")
     st = T.tables_from_numpy(*jax_arrays(js), "cpu")
     cfg = T.RenderConfig(device="cpu", accel="flat", queue_caps=(4.0, 1.0),
@@ -268,15 +269,24 @@ def test_remat_min_lanes_exempts_small_rounds(monkeypatch):
           for r in range(1, pl.max_depth + 1)]
     assert ks == [16384] + [4096] * 9 and stats.dropped_w == 0.0
     real = torch.utils.checkpoint.checkpoint
+    eager = {}
     for m in sorted(set(ks)) + [0, max(ks) + 1]:
         seen = []
         monkeypatch.setattr(torch.utils.checkpoint, "checkpoint",
                             lambda *a, **k: seen.append(1) or real(*a, **k))
-        _trace(st, o, d, dataclasses.replace(cfg, remat_min_lanes=m), fields=("mat_diffuse",))
+        eager[m] = _trace(st, o, d, dataclasses.replace(cfg, remat_min_lanes=m),
+                          fields=("mat_diffuse",))
         assert len(seen) == 1 + sum(k >= m for k in ks if k), (m, ks, len(seen))
-    with pytest.raises(ValueError, match="remat_min_lanes"):
-        _trace(st, o, d, T.RenderConfig(device="cpu", remat_min_lanes=1),
-               run=fit.trace_captured)
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", real)
+    reads = stand_in_graphs(monkeypatch)
+    for m, (acc, g) in eager.items():
+        acc2, g2 = _trace(st, o, d, dataclasses.replace(cfg, remat_min_lanes=m),
+                          fields=("mat_diffuse",), run=fit.trace_captured)
+        assert torch.equal(acc, acc2) and torch.equal(g["mat_diffuse"], g2["mat_diffuse"]), m
+        (prog,) = [p for p in st.packed.fit_programs.values() if p.cfg.remat_min_lanes == m]
+        assert prog.warm and len(prog.exempt) == len({prog._body(rd, k) for rd in prog.rounds
+                                                      for k in rd.sizes if k < m}), m
+    assert reads.seen == []
 
 
 # ---------------------------------------------------------------------------

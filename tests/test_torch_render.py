@@ -223,7 +223,9 @@ def test_port_imports_no_jax():
     tests/_torch_jax.py (both helper modules chip_smoke.py imports on the
     card), a gradient through trace, and the parallel, debug, reporter and
     beam modules (a one-rank train_step through the beam sweep, a checked
-    trace) leave JAX, flax, PIL and the JAX package out of sys.modules."""
+    trace), Morton packing, shade_hits, the quadratic solver and an
+    interlaced 16-bit PNG (written by tests/_torch_png.py) leave JAX, flax,
+    PIL and the JAX package out of sys.modules."""
     code = (
         "import os, sys, tempfile\n"
         "sys.path.insert(0, 'tests')\n"
@@ -261,6 +263,15 @@ def test_port_imports_no_jax():
         "                              torch.zeros(4, 3), st, cfg)\n"
         "err, _ = debug.checked_trace(rng.PRNGKey(0), o, d, pix, torch.zeros(4, 3), 4, st, cfg)\n"
         "err.throw()\n"
+        "from portrayer_tpu_torch import fit, image_io, math3d\n"
+        "from portrayer_tpu_torch.ops import shade_hits, hit_detail, intersect_scene\n"
+        "T.flatten_scene(scenes.load('big-scene').scene, 'cpu', packing='morton')\n"
+        "c = T.RenderConfig(device='cpu')\n"
+        "h = intersect_scene(o, d, 1e-5, float('inf'), st, c)\n"
+        "shade_hits(d, h, hit_detail(o, d, h, st, c, 1e-5), st, c, rng.PRNGKey(0), h.hit)\n"
+        "math3d.quadratic_roots(o[:, 0] + 1, o[:, 1], o[:, 2] - 1)\n"
+        "from _torch_png import png_bytes, random_samples\n"
+        "image_io.decode_png(png_bytes(random_samples(6, 16, 9, 7), 16, 6, interlace=1))\n"
         "bad = [m for m in ('jax', 'flax', 'PIL', 'portrayer_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -42,6 +42,7 @@ from portrayer_tpu_torch.ops import intersect as tx, shade as tshade, trace as t
 from portrayer_tpu_torch.scene import texture as ttexture
 
 from _torch_jax import INLINE, checker, colour_image, jax_arrays
+from _torch_png import png_bytes, random_samples
 
 # The module (portrayer_tpu.ops re-exports its function `trace`).
 jtrace = importlib.import_module("portrayer_tpu.ops.trace")
@@ -79,16 +80,6 @@ def test_png_colour_types_decode_as_pil_converts(mode):
     np.testing.assert_array_equal(got, ref)
 
 
-def _with_ihdr(data, **fields):
-    """`data` with IHDR fields (depth, ctype, interlace) replaced."""
-    w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB", data[16:29])
-    vals = dict(dict(depth=depth, ctype=ctype, interlace=interlace), **fields)
-    body = struct.pack(">IIBBBBB", w, h, vals["depth"], vals["ctype"], comp, filt,
-                       vals["interlace"])
-    crc = struct.pack(">I", zlib.crc32(b"IHDR" + body) & 0xFFFFFFFF)
-    return data[:16] + body + crc + data[33:]
-
-
 def _png_16bit():
     buf = io.BytesIO()
     PILImage.fromarray(np.arange(12, dtype=np.uint16).reshape(3, 4) * 5000).save(
@@ -104,6 +95,10 @@ def _png_1bit():
 
 @pytest.mark.parametrize("kind", ["16-bit", "1-bit", "interlaced"])
 def test_png_other_kinds_raise(kind):
+    """The kinds the reader refused before it read every kind are read as
+    PIL reads them: PIL's own 16-bit grey file (I;16, which convert("RGB")
+    clips at 255) and 1-bit file, and an Adam7-interlaced RGB file
+    (tests/_torch_png.py); the other kinds: tests/test_torch_png_kinds.py."""
     if kind == "16-bit":
         data = _png_16bit()
         assert struct.unpack(">B", data[24:25])[0] == 16
@@ -111,9 +106,12 @@ def test_png_other_kinds_raise(kind):
         data = _png_1bit()
         assert struct.unpack(">B", data[24:25])[0] == 1
     else:
-        data = _with_ihdr(image_io.encode_png(np.zeros((4, 4, 3), np.uint8)), interlace=1)
-    with pytest.raises(ValueError, match="8-bit non-interlaced"):
-        image_io.decode_png(data)
+        data = png_bytes(random_samples(2, 8, 11, 13), 8, 2, interlace=1)
+        assert data[28] == 1
+    ref = np.asarray(PILImage.open(io.BytesIO(data)).convert("RGB"))
+    got = image_io.decode_png(data)
+    assert got.dtype == np.uint8 and ref.max() > 0
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("name, writes", [("out.png", True), ("out.PNG", True),
