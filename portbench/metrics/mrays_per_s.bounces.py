@@ -1,0 +1,3 @@
+"""Primary-ray rate of a cell whose scene has bounce rounds (host clock)."""
+
+from harness.readings import mrays_per_s as read  # noqa: F401
