@@ -152,7 +152,10 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    shape of phase 2, the conditional and step kernels alone in replays
    of phase 2's graphs, and the kernels of the exempt fit's backward
    against remat_min_lanes 0 (phase 5); last, so that the profiler cannot
-   weigh on the wall times of phases 4 to 7.
+   weigh on the wall times of phases 4 to 7.  That count is printed, and
+   held to its bound in a process of its own that main runs before
+   phase 2 (exempt_backward_alone): after phases 2 to 7 the profiler may
+   see fewer of the kernels in the graph's conditional bodies.
 
 The last two lines are a JSON object of per-kernel numbers (the sweep's
 two modes, the conditional kernel and the loop's step kernel) and the
@@ -1571,7 +1574,8 @@ def _exempt_fit(dev, path_counts):
     backward (none); captured against op by op at EXEMPT_LANES under
     _deterministic (losses equal, 0 gradient entries apart).  Returns a
     function that counts the kernels of a cached step's backward of each
-    under torch.profiler (phase 8 runs it, last)."""
+    under torch.profiler (phase 8 runs it, last, and
+    exempt_backward_alone)."""
     import dataclasses
     import gc
     import torch
@@ -1669,26 +1673,60 @@ def _exempt_fit(dev, path_counts):
         raise AssertionError(f"exempt fit: captured against op by op {apart} gradient "
                              f"entries apart, losses {det['loss']!r} and {eager['loss']!r}")
 
-    def backward_kernels():
+    def backward_kernels(where: str, check: bool):
         """Kernels of a cached step's backward at each remat_min_lanes
-        (torch.profiler, which sees a graph replay's kernels)."""
+        under torch.profiler, which sees the kernels of a graph replay and
+        of its conditional bodies, though not after every history of the
+        process (main runs the held count in a process of its own); beside
+        them, what reads no trace: the device's runs of the conditional
+        kernel (graph_if) and of loop steps (graph_while) in that
+        backward, the step's seconds, and how far its loss and gradients
+        lie from the last cached step's above (the card's gradients vary
+        in their last bits).  With `check`, the exempt rounds must cut the
+        kernels."""
         from portrayer_tpu_torch import profile_render as pr
 
-        out = {}
+        out, ran = {}, {}
         for m, c in cfgs.items():
-            ms, raw = pr._traced(lambda: step(tables[m], c))
+            res = []
+            ms, raw = pr._traced(lambda: res.append(step(tables[m], c)))
             out[m] = pr.summarize_trace(pr.after(json.loads(raw), "fit_backward"), ms, 1)
+            ran[m] = {k: res[0]["bwd"][k] for k in ("graph_if", "graph_while")}
+            ran[m]["secs"] = round(res[0]["secs"], 4)
+            ref = runs[m][-1]
+            ran[m]["loss_apart"] = abs(res[0]["loss"] - ref["loss"])
+            ran[m]["grad_apart"] = max(float((res[0]["grads"][f] - ref["grads"][f]).abs().max())
+                                       for f in DIFF_FIELDS)
         k0, k1 = out[0]["kernel_launches"], out[EXEMPT_LANES]["kernel_launches"]
-        print(f"[8 exempt fit] {name}: kernels in a cached captured step's backward "
+        print(f"[8 exempt fit] {name}, {where}: kernels in a cached captured step's backward "
               f"{k1} with remat_min_lanes {EXEMPT_LANES} against {k0} with 0; device "
               f"{out[EXEMPT_LANES]['device_ms']:.3f} against {out[0]['device_ms']:.3f} ms; sweep "
-              f"kernels {out[EXEMPT_LANES]['sweep_launches']} and {out[0]['sweep_launches']}",
-              flush=True)
-        if not k1 < k0 or out[EXEMPT_LANES]["sweep_launches"]:
+              f"kernels {out[EXEMPT_LANES]['sweep_launches']} and {out[0]['sweep_launches']}; "
+              f"conditional kernel runs, loop steps (device counts), step seconds, loss and "
+              f"max |gradient| apart from the last cached step's "
+              f"{ran[EXEMPT_LANES]} and {ran[0]}", flush=True)
+        if check and (not k1 < k0 or out[EXEMPT_LANES]["sweep_launches"]):
             raise AssertionError(f"exempt fit: backward kernels {k1} against {k0}, sweeps "
                                  f"{out[EXEMPT_LANES]['sweep_launches']}")
 
     return backward_kernels
+
+
+def exempt_backward_alone() -> int:
+    """The held count of phase 8, run by main in a process of its own
+    (``python3 chip_smoke.py --exempt-backward-kernels``) before the other
+    phases: _exempt_fit built afresh, then its backward's kernels counted
+    and held to their bound.  The profiler's count of the kernels in a
+    graph's conditional bodies varies with what the process ran before
+    (the same backward, the same device counts); on the fit alone it is
+    the graph's."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _exempt_fit(torch.device("cuda", 0), {})("in a process of its own", check=True)
+    return 0
 
 
 def _shade_hits(dev, path_counts):
@@ -2431,6 +2469,12 @@ def main():
     dev = torch.device("cuda", 0)
 
     phase_card(dev)
+    sys.stdout.flush()
+    alone = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--exempt-backward-kernels"]).returncode
+    if alone:
+        raise AssertionError(f"exempt fit's backward kernels in a process of its own: exit "
+                             f"{alone}")
     err, diffs, timing, branches = phase_kernels(dev)
     path_counts = {}
     _shade_hits(dev, path_counts)
@@ -2460,7 +2504,7 @@ def main():
     phase_device_times(timing, RenderConfig(device=dev))
     _graph_kernel_ms(conditional, cond_replay, "set_if_equal", "graphs.switch")
     _graph_kernel_ms(loop, loop_replay, "while_step", "graphs.loop")
-    backward_kernels()
+    backward_kernels("after phases 2 to 7 in this process", check=False)
 
     kernels = []
     for mode in ("nearest", "any_hit"):
@@ -2506,4 +2550,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(exempt_backward_alone() if sys.argv[1:] == ["--exempt-backward-kernels"]
+             else main())

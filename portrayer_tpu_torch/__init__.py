@@ -31,9 +31,10 @@ graph WHILE node when captured); ``RenderConfig(dtype=torch.float64,
 accel="flat")`` is the float64 check mode.  On the card every accel and
 dtype renders and fits through captured CUDA graphs.
 ``render_bounding_volumes`` renders meshes as their boxes; the render entry points take a
-``reporter`` (``reporter.py``); ``debug`` holds ``checked_trace`` (the
-first op that makes a NaN), ``queue_overflow_fraction`` and
-``assert_image_finite``.
+``reporter`` (``reporter.py``) and ``spans`` (``spans.py``: the frame's
+host phases and each chunk's and bounce round's device span); ``debug``
+holds ``checked_trace`` (the first op that makes a NaN),
+``queue_overflow_fraction`` and ``assert_image_finite``.
 """
 
 from .config import (
@@ -45,6 +46,7 @@ from .config import (
 from .camera import Camera, CameraSettings
 from .render import Image, render_linear, render_u8, finalize, to_u8
 from .reporter import Reporter, RenderProgress, NullProgress
+from .spans import Spans
 from .scene import (
     Scene, SceneNode, Geometry, Sphere, Cube, Plane, Cylinder, Cone, Torus,
     Mesh, KDMesh, MeshData, Shading, Triangle, Material, Light, Falloff, Parallelogram,
@@ -59,7 +61,7 @@ __all__ = [
     "DIAMOND_REFRACTION_INDEX",
     "Camera", "CameraSettings",
     "Image", "render_linear", "render_u8", "finalize", "to_u8",
-    "Reporter", "RenderProgress", "NullProgress",
+    "Reporter", "RenderProgress", "NullProgress", "Spans",
     "Scene", "SceneNode", "Geometry",
     "Sphere", "Cube", "Plane", "Cylinder", "Cone", "Torus",
     "Mesh", "KDMesh", "MeshData", "Shading", "Triangle",

@@ -81,6 +81,8 @@ def _bind(lib):
     lib.cond_while_end.restype = i
     lib.cond_stream_create.argtypes = [p]
     lib.cond_stream_create.restype = i
+    lib.stamp_time.argtypes = [p, p, p, ll, ll, p]
+    lib.stamp_time.restype = i
     return lib
 
 

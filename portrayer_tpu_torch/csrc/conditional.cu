@@ -27,6 +27,11 @@
 // PyTorch's pool of streams, which hands its streams out in turn and
 // would in time hand out the stream a graph is being captured on.
 //
+// stamp_time records a one-thread kernel on `stream` (a node of the graph
+// when `stream` captures) that writes the device's %globaltimer, in ns, to
+// table[*row * n_cols + col (+ *col_at)]: the time at which the stream, or
+// a replay of the graph, reaches it.  The program's spans read it.
+//
 // Bound: each kernel reads and writes a few 8-byte words; the node's
 // launch latency, a few microseconds, is all its cost.
 
@@ -120,6 +125,20 @@ extern "C" int cond_while_end(cudaStream_t body, unsigned long long handle, long
   cudaGraph_t graph;
   cudaError_t ended = cudaStreamEndCapture(body, &graph);
   return e != cudaSuccess ? e : ended;
+}
+
+__global__ void stamp_now(long long* table, const long long* row, long long n_cols,
+                          long long col, const long long* col_at) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  long long c = col + (col_at != nullptr ? *col_at : 0);
+  table[*row * n_cols + c] = (long long)t;
+}
+
+extern "C" int stamp_time(cudaStream_t stream, long long* table, const long long* row,
+                          long long n_cols, long long col, const long long* col_at) {
+  stamp_now<<<1, 1, 0, stream>>>(table, row, n_cols, col, col_at);
+  return cudaGetLastError();
 }
 
 extern "C" int cond_stream_create(cudaStream_t* out) {

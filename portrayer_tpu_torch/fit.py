@@ -73,8 +73,8 @@ from . import graphs, rng
 from .config import RenderConfig
 from .ops.intersect import Hit
 from .ops.trace import (TraceStats, _Queue, _Sweeps, at_round, bounce_round, first_round,
-                        grad_fields, plan, primary_queue, round_shapes, rounds, set_at_round,
-                        slice_sel)
+                        grad_fields, launched_lanes, plan, primary_queue, round_shapes, rounds,
+                        set_at_round, slice_sel)
 from .scene.flatten import SceneTables, node_record, tri_record
 
 # The queue fields that carry a gradient from one round to the one before.
@@ -685,8 +685,9 @@ class _FitProgram:
         v = self.state.views_of(state)
         host = torch.cat([v["live"].double(), v["dropped"].double().reshape(1)]).cpu()
         D = self.pl.max_depth
-        return TraceStats(live=host[:D + 1].to(torch.int32),
-                          dropped_w=float(host[D + 1]) / self.R0 if D else 0.0, syncs=0)
+        live = host[:D + 1].to(torch.int32)
+        return TraceStats(live=live, dropped_w=float(host[D + 1]) / self.R0 if D else 0.0,
+                          syncs=0, lanes=launched_lanes(self.pl, self.cfg.queue_slice_divs, live))
 
 
 class _Fit(torch.autograd.Function):

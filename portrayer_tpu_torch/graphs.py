@@ -43,11 +43,16 @@ the graph.
 Launches of the sweep kernel, the conditional kernel and the step kernel
 in a body count on the device when the body runs
 (``cuda_intersect.counts``).
+
+``stamp(table, row, col)`` writes the time now into a table on the
+device where the stream, or a replay, reaches it: the spans of a render
+(``spans.py``) are read from such stamps inside the captured chunk.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -64,7 +69,7 @@ _STREAMS = {}
 
 def _check(rc: int, what: str):
     if rc != 0:
-        raise RuntimeError(f"CUDA graph conditional node: {what} failed (CUDA error {rc})")
+        raise RuntimeError(f"graphs: {what} failed (CUDA error {rc})")
 
 
 def _body_streams(lib, device) -> dict:
@@ -90,7 +95,8 @@ def _check_scalar(name, x):
 class Graph:
     """`fn` captured as one CUDA graph in memory pool `pool`; `bodies`
     counts the conditional (IF) bodies it recorded, `loops` its WHILE
-    nodes (nested ones too), `replays` its replays."""
+    nodes (nested ones too), `stamps` its stamp nodes (in bodies too),
+    `replays` its replays."""
 
     def __init__(self, fn, pool):
         global _capturing
@@ -99,6 +105,7 @@ class Graph:
         self.graph = torch.cuda.CUDAGraph()
         self.bodies = 0
         self.loops = 0
+        self.stamps = 0
         self.replays = 0
         self.open = []  # the slots of the bodies being recorded, outermost first
         self.streams = _body_streams(self.lib, self.device)
@@ -151,11 +158,11 @@ class Graph:
             if fn is None:
                 continue
             _check(self.lib.cond_if_begin(stream, sel.data_ptr(), i, self.if_count.data_ptr(),
-                                          body), "begin")
+                                          body), "conditional begin")
             try:
                 self._body(slot, fn)
             finally:
-                _check(self.lib.cond_if_end(body), "end")
+                _check(self.lib.cond_if_end(body), "conditional end")
             self.bodies += 1
 
     def loop(self, index, end: int, live, body):
@@ -218,3 +225,33 @@ def loop(index: torch.Tensor, end: int, live: torch.Tensor, body) -> int | None:
             return reads
         body()
         index.add_(1)
+
+
+def stamp(table: torch.Tensor, row: torch.Tensor, col, shift: int = 0):
+    """table[row, col + shift] = the time now, in ns (table [rows, cols]
+    int64, row a 0-d int64 tensor on its device, col an int or such a
+    tensor: both read where the stamp runs).  On the card a one-thread
+    kernel reads %globaltimer where the stream reaches it, and under a
+    Graph's capture it is a node of the graph, run at every replay; on the
+    CPU it writes time.perf_counter_ns() with one index_fill_.  Nothing is
+    read on the host."""
+    n_cols = table.shape[1]
+    if isinstance(col, int) and not 0 <= col + shift < n_cols:
+        raise ValueError(f"stamp: column {col + shift} outside [0, {n_cols})")
+    if not table.is_cuda:
+        index = row * n_cols + col + shift
+        table.view(-1).index_fill_(0, index.reshape(1), time.perf_counter_ns())
+        return
+    if table.dtype != torch.int64 or not table.is_contiguous():
+        raise ValueError(f"stamp: table must be contiguous int64, got {table.dtype}")
+    _check_scalar("stamp: row", row)
+    if isinstance(col, torch.Tensor):
+        _check_scalar("stamp: col", col)
+        col, col_at = shift, col.data_ptr()
+    else:
+        col, col_at = col + shift, None
+    lib = _build.load()
+    _check(lib.stamp_time(torch.cuda.current_stream().cuda_stream, table.data_ptr(),
+                          row.data_ptr(), n_cols, col, col_at), "stamp")
+    if _capturing is not None:
+        _capturing.stamps += 1

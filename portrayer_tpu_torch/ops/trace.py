@@ -73,10 +73,13 @@ class TraceStats(NamedTuple):
     """trace(..., with_stats=True): live [max_depth+1] int32 (on the host),
     the live rays entering each round; dropped_w, the live throughput ended
     by queue overflow as a fraction of the primary ray count; syncs, the
-    host syncs of the live-count reads."""
+    host syncs of the live-count reads; lanes [max_depth+1] int32 (on the
+    host), the lanes each round ran on (launched_lanes; 0 where it did not
+    run)."""
     live: torch.Tensor
     dropped_w: float
     syncs: int
+    lanes: torch.Tensor
 
 
 class _Shadow(NamedTuple):
@@ -363,6 +366,21 @@ def round_shapes(pl: Plan, divs, loop: bool = False):
                 yield rd, k
 
 
+def launched_lanes(pl: Plan, divs, live) -> torch.Tensor:
+    """TraceStats.lanes of traces on the plan `pl` from their live counts
+    (live [..., max_depth+1] on the host, live[..., r] entering round r):
+    round 0 ran on its cap[0] primary lanes, bounce round r on the slice
+    that slice_sel picks from live[..., r], 0 where it picks the dead
+    branch.  Host arithmetic on counts already read."""
+    live = torch.as_tensor(live, dtype=torch.int64)
+    lanes = torch.zeros_like(live)
+    lanes[..., 0] = pl.cap[0]
+    for rd in rounds(pl, divs):
+        slices = torch.tensor((0, *rd.sizes), dtype=torch.int64)
+        lanes[..., rd.r] = slices[slice_sel(live[..., rd.r], rd.sizes)]
+    return lanes.to(torch.int32)
+
+
 def bounce_rounds(pl: Plan, divs, read_live):
     """The bounce rounds of a trace run op by op: for each round, read_live()
     reads the live count entering it on the host (one read a round) and,
@@ -496,10 +514,12 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
         live.append(int(n_live))
         return live[-1]
 
+    lanes = [R0] + [0] * pl.max_depth
     for ridx, k, next_cap, last in bounce_rounds(pl, cfg.queue_slice_divs, read_live):
         acc, q, dr, n_live = bounce_round(rng.fold_in(key, ridx), q, acc, bg, st, cfg, k,
                                           next_cap, last)
         dropped = dropped if last else dropped + dr
+        lanes[ridx] = k
 
     if not with_stats:
         return acc
@@ -508,7 +528,7 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
     lv = (lv + [0] * pl.max_depth)[:pl.max_depth + 1]
     return acc, TraceStats(live=torch.tensor(lv, dtype=torch.int32),
                            dropped_w=float(dropped.detach()) / R0 if dropped is not None else 0.0,
-                           syncs=len(live))
+                           syncs=len(live), lanes=torch.tensor(lanes, dtype=torch.int32))
 
 
 class _CallableModule(types.ModuleType):

@@ -29,7 +29,10 @@ tail loop's body in turn (the JAX package's ``lax.while_loop`` inside its
 runs op by op, its rounds unrolled, and reads each bounce
 round's pick on the host.  A `reporter` ticks once per tile,
 when the host has issued its work (the device runs behind by the work
-still queued).
+still queued).  A ``spans.Spans`` passed as `spans` receives the frame's
+host phases and, from stamps that a program built for it writes on the
+device (inside the captured graph on the card), each chunk's and bounce
+round's device span, on the host's clock (``spans.py``).
 """
 
 from __future__ import annotations
@@ -43,12 +46,13 @@ import numpy as np
 import torch
 
 from . import graphs, rng
+from .spans import Spans, span
 from .camera import Camera, CameraSettings
 from .config import RenderConfig, GAMMA
 from .image_io import read_png, write_png
 from .ops import cuda_intersect
-from .ops.trace import (TraceStats, _Queue, at_round, bounce_round, first_round, plan,
-                        primary_queue, round_shapes, rounds, slice_sel)
+from .ops.trace import (TraceStats, _Queue, at_round, bounce_round, first_round,
+                        launched_lanes, plan, primary_queue, round_shapes, rounds, slice_sel)
 from .reporter import Reporter, NullProgress
 from .scene.flatten import SceneTables, flatten_scene
 from .scene.node import Scene, bounding_volume_scene
@@ -113,11 +117,14 @@ class _ChunkProgram:
     allocated outside the graph.  A capturing program runs the looped
     rounds (``rounds``) as one ``graphs.loop`` over the round index `r`,
     a device counter: its body is one round, whose key and live-table
-    column that index addresses."""
+    column that index addresses.  With `stamps`, each row's chunk writes
+    the device's time (graphs.stamp) into its row of `stamps`: at column 0
+    as it starts, 1 after round 0, 1 + r at the end of bounce round r (left
+    0 where it does not run) and max_depth + 2 at its end."""
 
     def __init__(self, st: SceneTables, cam: Camera, cfg: RenderConfig, background, *,
                  tile_h: int, tile_w: int, spp: int, samples: int, n_rows: int,
-                 capture: bool):
+                 capture: bool, stamps: bool = False):
         dev, dt = cfg.device, cfg.dtype
         self.st, self.cam, self.cfg, self.background = st, cam, cfg, background
         self.tile_h, self.tile_w, self.spp, self.samples = tile_h, tile_w, spp, samples
@@ -149,6 +156,16 @@ class _ChunkProgram:
         self.warm = False
         self.capture_s = 0.0
         self.warm_launches = {}
+        self.stamps = None
+        if stamps:
+            self.stamps = torch.zeros((n_rows, self.pl.max_depth + 3), **i64)
+            self.clock = torch.zeros((1, 1), **i64)  # the calibration stamp
+            self.clock_row = torch.zeros((), **i64)
+
+    def _stamp(self, col, shift: int = 0):
+        """stamps[row, col + shift] = the device's time, with stamps."""
+        if self.stamps is not None:
+            graphs.stamp(self.stamps, self.row, col, shift)
 
     def _fold_keys(self, n: int):
         """The keys of rows [0, n), all at once: the chunk key
@@ -171,6 +188,7 @@ class _ChunkProgram:
         row = self.rows.index_select(0, self.cursor.reshape(1))[0]
         self.row.copy_(self.cursor)
         self.cursor.add_(1)
+        self._stamp(0)
         o, d, pix, bg, w0 = _tile_rays(
             None, self.cam, row[0], row[1], row[2], cfg=self.cfg, background=self.background,
             tile_h=self.tile_h, tile_w=self.tile_w, spp=self.spp, samples=self.samples,
@@ -180,6 +198,7 @@ class _ChunkProgram:
         acc, q, dropped, n_live = first_round(
             self._row_key(1), primary_queue(o, d, pix, w0, self.cfg), bg, self.P, self.st,
             self.cfg, self.pl, self.spp)
+        self._stamp(1)
         if q is None:
             self.tile_acc.add_(acc)
             return
@@ -209,6 +228,7 @@ class _ChunkProgram:
         self.acc.copy_(acc)
         if not is_last:
             self._queue_out(q, next_cap, dropped, n_live, ridx + 1)
+        self._stamp(ridx, 1)
 
     def _switch(self, ridx, rd) -> int | None:
         """Round rd (at index ridx) on the slice picked from the live count
@@ -223,8 +243,14 @@ class _ChunkProgram:
         the looped ones through graphs.loop.  Returns the host reads of
         the picks and of the loop's condition (0 under capture)."""
         self.head()
-        if self.pl.max_depth == 0:
-            return 0
+        reads = 0
+        if self.pl.max_depth:
+            reads = self._bounces()
+            self.tile_acc.add_(self.acc)
+        self._stamp(self.pl.max_depth + 2)
+        return reads
+
+    def _bounces(self) -> int:
         reads = 0
         looped = [rd for rd in self.rounds if rd.looped]
         for rd in self.rounds:
@@ -240,19 +266,19 @@ class _ChunkProgram:
                 reads += 1
                 if taken == 0:
                     break
-        self.tile_acc.add_(self.acc)
         return reads
 
-    def chunk(self) -> int:
+    def chunk(self, spans: Optional[Spans] = None) -> int:
         """Trace the next row's chunk into tile_acc; returns the host reads
-        it took: 0 when it replays the captured chunk."""
+        it took: 0 when it replays the captured chunk.  The capture is the
+        span "capture" in `spans`."""
         if not (self.capture and self.warm):
             return self._trace()
         g = self.graphs.get("chunk")
         if g is None:
-            t0 = time.perf_counter()
-            g = self.graphs["chunk"] = graphs.Graph(self._trace, self.pool)
-            self.capture_s += time.perf_counter() - t0
+            with span(spans, "capture", clock=True) as timed:
+                g = self.graphs["chunk"] = graphs.Graph(self._trace, self.pool)
+            self.capture_s += timed.seconds
         g.replay()
         return 0
 
@@ -273,17 +299,40 @@ class _ChunkProgram:
         self.warm_launches = {m: after[m] - before[m] for m in cuda_intersect.SWEEP_MODES}
         self.warm = True
 
-    def start(self, rows: np.ndarray):
+    def start(self, rows: np.ndarray, spans: Optional[Spans] = None):
         """Load a frame's rows; a capturing program first warms up
-        (_warm_up) and forgets what that did."""
+        (_warm_up, the span "warm_up" in `spans`) and forgets what that
+        did."""
         self.rows[:rows.shape[0]].copy_(torch.from_numpy(rows))
         self._fold_keys(rows.shape[0])
         if self.capture and not self.warm:
-            self._warm_up()
+            with span(spans, "warm_up"):
+                self._warm_up()
         self.cursor.zero_()
         self.tile_acc.zero_()
         self.live.zero_()
         self.dropped.zero_()
+        if self.stamps is not None:
+            self.stamps.zero_()
+
+    def clock_offset(self) -> tuple:
+        """(offset, uncertainty) in ns of the device's stamps against
+        time.perf_counter_ns, with the device idle: a stamp between two
+        host times, the offset the stamp less their midpoint and the
+        uncertainty half their distance; the tightest of eight (one takes
+        ~15 us on the card, a few up to ~80)."""
+        cuda = self.clock.is_cuda
+        best = None
+        for _ in range(8):
+            t_a = time.perf_counter_ns()
+            graphs.stamp(self.clock, self.clock_row, 0)
+            if cuda:
+                torch.cuda.synchronize(self.clock.device)
+            t_b = time.perf_counter_ns()
+            half = (t_b - t_a) // 2
+            if best is None or half < best[1]:
+                best = int(self.clock[0, 0]) - (t_a + half), half
+        return best
 
 
 # Chunk programs kept per tables (SceneTables.chunk_programs).
@@ -293,8 +342,8 @@ _MAX_PROGRAMS = 2
 def _program(st, cam, cfg, background, settings, size, **shape):
     """The chunk program of this render: on the card with cuda_graphs
     (cfg.captures, any accel and dtype) a capturing one, cached on the
-    tables by configuration, camera, frame size, background and chunk
-    shape; otherwise a fresh one that runs op by op."""
+    tables by configuration, camera, frame size, background, chunk shape
+    and whether it stamps; otherwise a fresh one that runs op by op."""
     if not cfg.captures:
         return _ChunkProgram(st, cam, cfg, background, capture=False, **shape)
     key = (cfg, background, tuple(size), tuple(sorted(shape.items())),
@@ -310,51 +359,87 @@ def _program(st, cam, cfg, background, settings, size, **shape):
     return prog
 
 
-def _render_tiles(prog: _ChunkProgram, grid, *, n_chunks, as_u8, stats=None, reporter=None):
-    """Render every tile of `grid` ((x0, y0) origins) through `prog`:
-    [T, th, tw, 3] mean radiance, or with as_u8 the gamma-encoded u8
-    tiles, on the device.  `reporter` ticks once per tile; a list `stats`
-    receives each chunk's TraceStats, read once for the frame."""
+def _render_tiles(prog: _ChunkProgram, grid, *, n_chunks, as_u8, syncs, spans=None,
+                  reporter=None):
+    """Render every tile of `grid` ((x0, y0) origins) through `prog`, whose
+    rows the caller has started: [T, th, tw, 3] mean radiance, or with
+    as_u8 the gamma-encoded u8 tiles, on the device.  `syncs` receives each
+    chunk's host reads, `spans` one "tile" span a tile; `reporter` ticks
+    once per tile."""
     cfg = prog.cfg
-    spp = prog.spp
-    rows = np.array([(x0, y0, ci * spp, ci) for x0, y0 in grid for ci in range(n_chunks)],
-                    dtype=np.int64).reshape(-1, 4)
-    prog.start(rows)
-    syncs = []
     out = []
     n = torch.full((), float(prog.samples), dtype=cfg.dtype, device=cfg.device)
-    for _ in grid:
-        for _ in range(n_chunks):
-            syncs.append(prog.chunk())
-        mean = (prog.tile_acc / n).reshape(prog.tile_h, prog.tile_w, 3)
-        prog.tile_acc.zero_()
-        if as_u8:
-            enc = torch.clamp(torch.clamp(mean, min=0.0) ** (1.0 / GAMMA), 0.0, 1.0)
-            mean = (enc * 255.0).to(torch.uint8)
-        out.append(mean)
-        if reporter is not None:
-            reporter.tick()
-    if stats is not None:
-        live = prog.live[:len(rows)].cpu()
-        dropped = prog.dropped[:len(rows)].cpu().tolist()
-        R0 = prog.P * spp
-        stats.extend(TraceStats(live=live[i], dropped_w=dropped[i] / R0, syncs=syncs[i])
-                     for i in range(len(rows)))
+    for x0, y0 in grid:
+        with span(spans, "tile", origin=[x0, y0]):
+            for _ in range(n_chunks):
+                syncs.append(prog.chunk(spans))
+            mean = (prog.tile_acc / n).reshape(prog.tile_h, prog.tile_w, 3)
+            prog.tile_acc.zero_()
+            if as_u8:
+                enc = torch.clamp(torch.clamp(mean, min=0.0) ** (1.0 / GAMMA), 0.0, 1.0)
+                mean = (enc * 255.0).to(torch.uint8)
+            out.append(mean)
+            if reporter is not None:
+                reporter.tick()
     return torch.stack(out)
 
 
+def _read_counts(prog: _ChunkProgram, rows: np.ndarray, syncs, stats, spans, frame):
+    """After the frame (outside its span, so that the frame's time holds
+    none of this): each row's TraceStats into the list `stats`, and with
+    `spans` the device spans of each chunk and of its rounds that ran,
+    under the span `frame`, on the host's clock."""
+    n = len(rows)
+    live = prog.live[:n].cpu()
+    lanes = launched_lanes(prog.pl, prog.cfg.queue_slice_divs, live)
+    if stats is not None:
+        dropped = prog.dropped[:n].cpu().tolist()
+        R0 = prog.P * prog.spp
+        stats.extend(TraceStats(live=live[i], dropped_w=dropped[i] / R0, syncs=syncs[i],
+                                lanes=lanes[i]) for i in range(n))
+    if spans is None:
+        return
+    stamps = prog.stamps[:n].cpu().tolist()
+    offset, unc = prog.clock_offset()
+    frame.set(clock_offset_ns=offset, clock_unc_ns=unc)
+    D = prog.pl.max_depth
+    k_min = [prog.P * prog.spp] + [rd.sizes[0] for rd in prog.rounds]
+    for i, ((x0, y0, _, ci), t, lv, ks) in enumerate(zip(rows.tolist(), stamps, live.tolist(),
+                                                         lanes.tolist())):
+        t = [v - offset for v in t]
+        chunk = spans.add("chunk", t[0], t[D + 2], frame.rec.id, row=i, tile=[x0, y0],
+                          chunk=ci)
+        for r, k in enumerate(ks):
+            if k:
+                spans.add(f"round {r}", t[r], t[r + 1], chunk.id, r=r, k=k, k_min=k_min[r],
+                          live=lv[r])
+
+
 def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8,
-                   stats=None, reporter=None):
+                   stats=None, reporter=None, spans=None):
+    with span(spans, "frame") as frame:
+        out, prog, rows, syncs = _render_frame(scene_or_tables, camera, size, background, cfg,
+                                               region, as_u8, reporter, spans, frame)
+    if stats is not None or spans is not None:
+        _read_counts(prog, rows, syncs, stats, spans, frame)
+    return out
+
+
+def _render_frame(scene_or_tables, camera, size, background, cfg, region, as_u8, reporter,
+                  spans, frame):
+    """The frame's host phases under the span `frame`: (image on the host,
+    program, rows, host reads of each chunk)."""
     if cfg is None:
         cfg = RenderConfig()
     width, height = size
     if isinstance(scene_or_tables, SceneTables):
         st = scene_or_tables
     else:
-        scene = scene_or_tables
-        if cfg.render_bounding_volumes:
-            scene = bounding_volume_scene(scene)
-        st = flatten_scene(scene, cfg.device, dtype=cfg.dtype)
+        with span(spans, "tables"):
+            scene = scene_or_tables
+            if cfg.render_bounding_volumes:
+                scene = bounding_volume_scene(scene)
+            st = flatten_scene(scene, cfg.device, dtype=cfg.dtype)
     cam = Camera(camera, (width, height), cfg.device, cfg.dtype)
     samples = cfg.resolved_samples()
 
@@ -377,22 +462,36 @@ def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8
                     or ty0 + tile_h - 1 < y_lo):
                 continue
             grid.append((tx0, ty0))
+    rows = np.array([(x0, y0, ci * spp_chunk, ci) for x0, y0 in grid for ci in range(n_chunks)],
+                    dtype=np.int64).reshape(-1, 4)
+    frame.set(width=width, height=height, spp=samples, tiles=len(grid), chunks=len(rows),
+              rays=(min(x_hi, width - 1) - x_lo + 1) * (min(y_hi, height - 1) - y_lo + 1)
+              * samples)
 
     n_tiles = -(-height // tile_h) * -(-width // tile_w)
-    prog = _program(st, cam, cfg, background, camera, size, tile_h=tile_h, tile_w=tile_w,
-                    spp=spp_chunk, samples=samples, n_rows=n_tiles * n_chunks)
+    with span(spans, "program"):
+        prog = _program(st, cam, cfg, background, camera, size, tile_h=tile_h, tile_w=tile_w,
+                        spp=spp_chunk, samples=samples, n_rows=n_tiles * n_chunks,
+                        stamps=spans is not None)
+    with span(spans, "start"):
+        prog.start(rows, spans)
     reporter = reporter or NullProgress(0)
     reporter.start(total=len(grid))
-    tiles = _render_tiles(prog, grid, n_chunks=n_chunks, as_u8=as_u8, stats=stats,
-                          reporter=reporter).cpu().numpy()
-    out_dtype = np.uint8 if as_u8 else np.float64
-    out = np.zeros((height, width, 3), dtype=out_dtype)
-    for (tx0, ty0), tile in zip(grid, tiles):
-        ylim = min(ty0 + tile_h, height)
-        xlim = min(tx0 + tile_w, width)
-        out[ty0:ylim, tx0:xlim] = tile[: ylim - ty0, : xlim - tx0]
+    syncs = []
+    with span(spans, "issue"):
+        tiles = _render_tiles(prog, grid, n_chunks=n_chunks, as_u8=as_u8, syncs=syncs,
+                              spans=spans, reporter=reporter)
+    with span(spans, "readback"):
+        tiles = tiles.cpu().numpy()
+    with span(spans, "assemble"):
+        out_dtype = np.uint8 if as_u8 else np.float64
+        out = np.zeros((height, width, 3), dtype=out_dtype)
+        for (tx0, ty0), tile in zip(grid, tiles):
+            ylim = min(ty0 + tile_h, height)
+            xlim = min(tx0 + tile_w, width)
+            out[ty0:ylim, tx0:xlim] = tile[: ylim - ty0, : xlim - tx0]
     reporter.finish()
-    return out
+    return out, prog, rows, syncs
 
 
 def render_linear(scene_or_tables, camera: CameraSettings, size: Tuple[int, int],
@@ -400,15 +499,16 @@ def render_linear(scene_or_tables, camera: CameraSettings, size: Tuple[int, int]
                   cfg: Optional[RenderConfig] = None,
                   region: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None,
                   stats: Optional[list] = None,
-                  reporter: Optional[Reporter] = None) -> np.ndarray:
+                  reporter: Optional[Reporter] = None,
+                  spans: Optional[Spans] = None) -> np.ndarray:
     """The linear mean-radiance image [H,W,3] (float64 on the host).
 
     `region` = ((x1,y1),(x2,y2)) inclusive slice to render (others zero).
     A list `stats` receives the TraceStats of every (tile x sample-chunk),
     read from the device once for the frame.  `reporter` (reporter.py)
-    ticks once per tile."""
+    ticks once per tile.  A `spans.Spans` receives the frame's spans."""
     return _render_common(scene_or_tables, camera, size, background, cfg, region,
-                          as_u8=False, stats=stats, reporter=reporter)
+                          as_u8=False, stats=stats, reporter=reporter, spans=spans)
 
 
 def render_u8(scene_or_tables, camera: CameraSettings, size: Tuple[int, int],
@@ -416,11 +516,13 @@ def render_u8(scene_or_tables, camera: CameraSettings, size: Tuple[int, int],
               cfg: Optional[RenderConfig] = None,
               region: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None,
               stats: Optional[list] = None,
-              reporter: Optional[Reporter] = None) -> np.ndarray:
+              reporter: Optional[Reporter] = None,
+              spans: Optional[Spans] = None) -> np.ndarray:
     """The gamma-encoded u8 image [H,W,3] (render.rs:143-147), finalised on
-    the device.  `region`, `stats` and `reporter` as in render_linear."""
+    the device.  `region`, `stats`, `reporter` and `spans` as in
+    render_linear."""
     return _render_common(scene_or_tables, camera, size, background, cfg, region,
-                          as_u8=True, stats=stats, reporter=reporter)
+                          as_u8=True, stats=stats, reporter=reporter, spans=spans)
 
 
 def finalize(linear: np.ndarray) -> np.ndarray:
@@ -451,9 +553,9 @@ class Image:
     def render(self, scene: Scene, camera: CameraSettings,
                background: Callable = default_background,
                cfg: Optional[RenderConfig] = None, region=None, stats=None,
-               reporter: Optional[Reporter] = None):
+               reporter: Optional[Reporter] = None, spans: Optional[Spans] = None):
         u8 = render_u8(scene, camera, (self.width, self.height), background, cfg,
-                       region=region, stats=stats, reporter=reporter)
+                       region=region, stats=stats, reporter=reporter, spans=spans)
         if region is None:
             self.buffer = u8
         else:

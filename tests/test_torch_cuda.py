@@ -724,3 +724,37 @@ def test_graphs_keep_their_body_streams_apart_from_the_capture_stream(dev):
         g = graphs.Graph(step, torch.cuda.graph_pool_handle())
         g.replay()
         assert out.tolist() == [3, 3, 3] and int(index) == 3
+
+
+@pytest.mark.parametrize("name", ["big-scene", "glossy-reflection"])
+def test_stamped_render_matches_the_unstamped_one(dev, name):
+    """A render with spans=Spans() captures a program of its own whose
+    chunk graph holds the stamps (two in the head, one in each conditional
+    body, one at its end) and renders the u8 frame of the unstamped
+    program bit for bit; the unstamped capture holds no stamp node.  Each
+    chunk's stamps rise with their columns, its round spans lie inside its
+    span, and the clock's calibration is within 50 us."""
+    spec = scenes.load(name)
+    st = flatten_scene(spec.scene, dev)
+    cfg = RenderConfig(device=dev, samples=16, max_rays_per_launch=131072,
+                       queue_caps=spec.queue_caps)
+    args = (st, spec.camera, (256, 128), spec.background, cfg)
+    plain = T.render_u8(*args)
+    spans = T.Spans()
+    np.testing.assert_array_equal(T.render_u8(*args, spans=spans), plain)
+    unstamped, stamped = st.chunk_programs.values()
+    assert unstamped.stamps is None and unstamped.graphs["chunk"].stamps == 0
+    assert stamped.graphs["chunk"].stamps == 3 + recorded_bodies(stamped.pl,
+                                                                 cfg.queue_slice_divs)
+    chunks = [s for s in spans.records if s.name == "chunk"]
+    table = stamped.stamps[:len(chunks)].cpu()
+    for row in table:
+        ran = row[row != 0]
+        assert row[0] != 0 and row[-1] != 0 and bool((ran[1:] >= ran[:-1]).all()), row
+    by_id = {s.id: s for s in spans.records}
+    rounds = [s for s in spans.records if s.name.startswith("round ")]
+    assert rounds and all(by_id[r.parent].t0_ns <= r.t0_ns <= r.t1_ns <= by_id[r.parent].t1_ns
+                          for r in rounds)
+    (frame,) = [s for s in spans.records if s.name == "frame"]
+    assert 0 <= frame.attrs["clock_unc_ns"] < 50_000
+    assert all(frame.t0_ns <= c.t0_ns <= c.t1_ns <= frame.t1_ns for c in chunks)

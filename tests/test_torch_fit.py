@@ -332,6 +332,7 @@ def _assert_equal(a, b):
     (acc, g, stats), (acc2, g2, stats2) = a, b
     assert torch.equal(acc, acc2)
     assert stats.live.tolist() == stats2.live.tolist() and stats.dropped_w == stats2.dropped_w
+    assert stats.lanes.tolist() == stats2.lanes.tolist()
     for f in DIFF_FIELDS:
         assert torch.equal(g[f], g2[f]), f
 
