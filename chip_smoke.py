@@ -31,7 +31,12 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    against the host pick, for every branch, and both their times; and the
    step kernel of ``graphs.loop``'s WHILE node (the same source) against
    the host loop, for loops of 0 to LOOP_END iterations, and both their
-   times (the two kernels' own device times are taken last, in phase 8).
+   times (the two kernels' own device times are taken last, in phase 8);
+   then the threefry kernel (``csrc/threefry.cu``: rng.draw_lanes, the
+   glossy draw) against its plain version at 8,192 and 131,072 lanes, bit
+   for bit, both timed beside its bound, and the threefry launches of a
+   captured glossy-reflection chunk by entry point with its plain calls on
+   CUDA tensors (0), read with rng.counts().
    big-scene and procedural-meshes again on tables packed with
    ``packing="morton"`` (MORTON_SCENES): the same rays held (0 rays apart)
    and timed beside the SAH rows, with the group and chunk tests a ray.
@@ -150,15 +155,17 @@ phases, each printing its own lines; any failure raises and exits non-zero:
    rays, the middle tile's chunk and their shadow rays (0 rays apart);
 8. the sweep kernel alone on the device (torch.profiler) at each launch
    shape of phase 2, the conditional and step kernels alone in replays
-   of phase 2's graphs, and the kernels of the exempt fit's backward
-   against remat_min_lanes 0 (phase 5); last, so that the profiler cannot
+   of phase 2's graphs, the threefry kernel at phase 2's lane counts,
+   and the kernels of the exempt fit's backward against
+   remat_min_lanes 0 (phase 5); last, so that the profiler cannot
    weigh on the wall times of phases 4 to 7.  That count is printed, and
    held to its bound in a process of its own that main runs before
    phase 2 (exempt_backward_alone): after phases 2 to 7 the profiler may
    see fewer of the kernels in the graph's conditional bodies.
 
 The last two lines are a JSON object of per-kernel numbers (the sweep's
-two modes, the conditional kernel and the loop's step kernel) and the
+two modes, the conditional kernel, the loop's step kernel and the
+threefry kernel) and the
 ``{"ok": true, ...}`` line.  Without a CUDA device it exits 1 at once.
 Nothing here imports JAX.
 """
@@ -189,6 +196,23 @@ COND_ITERS = 200
 # count or by the end, against the host loop; it is timed on LOOP_END.
 LOOP_REPLACES = "portrayer_tpu/ops/trace.py:456"
 LOOP_END = 9
+# The threefry kernel (rng.py's draws on the card) and the JAX package's
+# per-lane draws it takes the place of (jax.random, which XLA fuses; not a
+# TPU kernel): each entry point against its plain version at the main
+# path's shapes, THREEFRY_ITERS calls each: draw_lanes at the bounce
+# rounds' smallest and largest slices, uniform at a chunk's jitter of
+# JITTER_RAYS rays, fold_in at render._fold_keys' three broadcasts over a
+# frame of FOLD_ROWS rows and FOLD_ROUNDS rounds (glossy-reflection's); the
+# captured glossy chunk whose draws it counts is GLOSSY_TILE at THREEFRY_SPP.
+THREEFRY_SOURCE = "portrayer_tpu_torch/csrc/threefry.cu"
+THREEFRY_REPLACES = "portrayer_tpu/ops/shade.py:38"
+THREEFRY_LANES = (8192, 131072)
+JITTER_RAYS = 131072
+FOLD_ROWS = 416
+FOLD_ROUNDS = 11
+THREEFRY_ITERS = 20
+GLOSSY_TILE = ((384, 128), (511, 255))
+THREEFRY_SPP = 8
 FULL_FRAME_SPP = 16
 # Main paths whose captured render (its tail one loop) is also held
 # against the eager loop (every round unrolled) bit for bit, under
@@ -283,6 +307,13 @@ TORUS_JIT_PIXELS = (535, 678, 743, 985, 1199, 1239, 1816, 1993, 2029, 2055, 2180
 # and HBM bandwidth.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# 32-bit integer operations a second: 132 SMs x 64 INT32 lanes x 1.98 GHz.
+PEAK_INT32 = 132 * 64 * 1.98e9
+# A threefry2x32 hash (csrc/threefry.cu) in the card's instructions: 5
+# rounds of 4 x (add, funnel shift, xor) and 2 key adds (x2's key word and
+# round constant join in one IADD3), 2 adds before them, and k1 ^ k2 ^ C
+# in one LOP3.
+HASH_OPS = 73
 # f32 operations per (ray, primitive) of each branch, counted in sweep.cu
 # for a ray without a source surface: add, sub, mul, div, sqrt,
 # min/max/clamp and expf/logf/cosf count one each; negation, fabs, compares
@@ -799,6 +830,111 @@ def phase_loop(dev):
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}, g.replay
 
 
+def _threefry_bound_ms(hashes, ops, nbytes):
+    """Least time of a threefry launch: the larger of its 32-bit integer
+    operations (`hashes` hashes of HASH_OPS each, and `ops` more) over
+    PEAK_INT32 and its `nbytes` over PEAK_BYTES.  Returns (ms, "operations"
+    or "bytes")."""
+    t_ops = (hashes * HASH_OPS + ops) / PEAK_INT32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def phase_threefry(dev):
+    """The threefry kernel (csrc/threefry.cu) against its plain version, at
+    the shapes the main path gives each entry point, under keys on the
+    card, bit for bit, and both their times (CUDA events over
+    THREEFRY_ITERS calls) beside the bound:
+    - rng.draw_lanes (shade.py's glossy draw, site 2000, two draws a lane)
+      on THREEFRY_LANES lanes of sample ids up to 2^27;
+    - rng.uniform, a chunk's jitter (render._tile_rays): [JITTER_RAYS, 2];
+    - rng.fold_in at render._fold_keys' broadcasts over a [FOLD_ROWS, 4]
+      int64 row table: a key [2] by a row column (strided), keys
+      [FOLD_ROWS, 2] by a row column, and keys [FOLD_ROWS, 1, 2] by rounds
+      [1, FOLD_ROUNDS];
+    then glossy-reflection's GLOSSY_TILE at THREEFRY_SPP spp (one chunk of
+    131,072 rays) rendered captured, and again from its cached graph,
+    whose replay's draws rng.counts() reads on the device: launches per
+    entry point, and 0 plain calls on CUDA tensors.  Returns the kernel's
+    line fields and, per call, the kernel and the call that phase 8
+    times."""
+    import functools
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, render_linear, rng, scenes
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    words = lambda *shape: torch.randint(0, 2**32, shape, dtype=torch.int64, device=dev,
+                                         generator=g)
+    key = words(2)
+    cases = []
+    for lanes in THREEFRY_LANES:
+        sid = torch.randint(0, 2**27 + 1, (lanes,), dtype=torch.int32, device=dev, generator=g)
+        cases.append((f"draw_lanes on {lanes} lanes, 2 draws a lane", "draw_lanes",
+                      functools.partial(rng.draw_lanes, key, 2000, sid, 2),
+                      functools.partial(rng.draw_lanes_plain, key, 2000, sid, 2),
+                      (lanes * 3 + 1, lanes * 2 * 3, _bytes(key, sid) + lanes * 2 * 4)))
+    n = JITTER_RAYS * 2
+    cases.append((f"uniform ({JITTER_RAYS}, 2), a chunk's jitter", "uniform",
+                   functools.partial(rng.uniform, key, (JITTER_RAYS, 2), dev),
+                   functools.partial(rng.uniform_plain, key, (JITTER_RAYS, 2), dev),
+                   (n, n * 3, _bytes(key) + n * 4)))
+    rows = torch.randint(0, 2**31, (FOLD_ROWS, 4), dtype=torch.int64, device=dev, generator=g)
+    keys = words(FOLD_ROWS, 2)
+    rounds = torch.arange(FOLD_ROUNDS, device=dev)
+    for label, k, data in (
+            (f"fold_in key [2] by rows[:, 0] [{FOLD_ROWS}]", key, rows[:, 0]),
+            (f"fold_in keys [{FOLD_ROWS}, 2] by rows[:, 1]", keys, rows[:, 1]),
+            (f"fold_in keys [{FOLD_ROWS}, 1, 2] by rounds [1, {FOLD_ROUNDS}]",
+             keys[:, None, :], rounds[None, :])):
+        out = rng.fold_in_plain(k, data).shape[:-1].numel()
+        cases.append((label, "fold_in", functools.partial(rng.fold_in, k, data),
+                      functools.partial(rng.fold_in_plain, k, data),
+                      (out, 0, _bytes(k, data) + out * 16)))
+
+    fields, calls = {"by_call": {}}, {}
+    for label, entry, kernel, plain, (hashes, ops, nbytes) in cases:
+        got, want = kernel(), plain()
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        apart = int((got != want).sum()) if got.shape == want.shape else got.numel()
+        ms, plain_ms = _time_ms(kernel, THREEFRY_ITERS), _time_ms(plain, THREEFRY_ITERS)
+        bound, by = _threefry_bound_ms(hashes, ops, nbytes)
+        print(f"[2 threefry] {label}: {apart} words apart from the plain version; a call "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events over {THREEFRY_ITERS}); "
+              f"bound {bound:.3g} ms ({by}: {hashes} hashes, {nbytes} bytes)", flush=True)
+        if apart:
+            raise AssertionError(f"threefry: {label}, {apart} words apart")
+        fields["by_call"][label] = {"entry": entry, "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound, "bound_by": by, "words_apart": apart}
+        calls[label] = (f"{entry}_kernel", kernel)
+
+    spec = scenes.load("glossy-reflection")
+    st = flatten_scene(spec.scene, dev)
+    cfg = RenderConfig(device=dev, samples=THREEFRY_SPP, max_rays_per_launch=131072,
+                       queue_caps=spec.queue_caps)
+    args = (st, spec.camera, spec.size, spec.background, cfg)
+    render_linear(*args, region=GLOSSY_TILE)
+    rng.reset_counts()
+    stats = []
+    render_linear(*args, region=GLOSSY_TILE, stats=stats)
+    counts = rng.counts()
+    (prog,) = st.chunk_programs.values()
+    rounds = sum(int(k > 0) for k in stats[0].lanes.tolist()[1:])
+    print(f"[2 threefry] glossy-reflection's tile {GLOSSY_TILE} x {THREEFRY_SPP} spp from its "
+          f"cached graph ({len(stats)} chunk, {prog.graphs['chunk'].replays} replays in all, "
+          f"{rounds} bounce rounds ran): threefry launches "
+          f"{', '.join(f'{k} {counts[k]}' for k in rng.KERNELS)}; plain calls on CUDA "
+          f"tensors {counts['plain_on_cuda']}", flush=True)
+    if counts["plain_on_cuda"] or not counts["draw_lanes"] or counts["uniform"] != len(stats):
+        raise AssertionError(f"threefry: a captured glossy chunk drew {counts}")
+    fields["glossy_chunk_launches"] = {k: counts[k] for k in rng.KERNELS}
+    return fields, calls
+
+
 def _graph_kernel_ms(fields, replay, kernel, label):
     """Set fields["ms"] to the device time of one run of the graph kernel
     `kernel` (conditional.cu) in `replay`'s graph (_device_ms, its own
@@ -1033,6 +1169,7 @@ def _main_path(dev, spec, path_counts, accel="cuda", spp=FULL_FRAME_SPP, size=No
                              f"alone: {counts}")
     if counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{label}: plain version ran on CUDA tensors: {counts}")
+    _check_draws(label, counts, st)
     chunks = len(stats)  # every chunk traces the same number of rays
     if list(graphs) != ["chunk"] or graphs["chunk"].replays != chunks:
         raise AssertionError(f"{label}: graphs {list(graphs)}, {replays} replays for {chunks} "
@@ -1215,7 +1352,6 @@ def _linear_vs_flat(dev, spec, spp, size=None):
     import numpy as np
     import torch
     from portrayer_tpu_torch import RenderConfig, render_linear, scenes
-    from portrayer_tpu_torch.ops import cuda_intersect
 
     if isinstance(spec, str):
         spec = scenes.load(spec)
@@ -1223,14 +1359,15 @@ def _linear_vs_flat(dev, spec, spp, size=None):
     w, h = size or spec.size
     args = (spec.scene, spec.camera, (w, h), spec.background)
     torch.cuda.synchronize()
-    cuda_intersect.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     ours = render_linear(*args, RenderConfig(device=dev, samples=spp))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = cuda_intersect.counts()
+    counts = _counts()
     if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{name} did not run through the kernels alone: {counts}")
+    _check_draws(name, counts)
     t0 = time.perf_counter()
     flat = render_linear(*args, RenderConfig(device=dev, samples=spp, accel="flat",
                                              cuda_graphs=False))
@@ -1430,22 +1567,25 @@ def _bounce_fit(dev, name, size, spp, fields, path_counts, err, diffs, accel="cu
             torch.cuda.empty_cache()
         _sync(dev)
         _reset_peak(dev)
-        cuda_intersect.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         acc, stats = trace(key, o, d, pix, bg, P, st.replace(**leaves), c, w0=w0,
                            spp_contiguous=spp, with_stats=True)
         loss = torch.mean((acc / spp - target) ** 2)
         _sync(dev)
-        fwd = cuda_intersect.counts()
-        cuda_intersect.reset_counts()
+        fwd = _counts()
+        _reset_counts()
         loss.backward()
         _sync(dev)
         secs = time.perf_counter() - t0
-        bwd = cuda_intersect.counts()
+        bwd = _counts()
         if not held and (any(bwd[m] for m in cuda_intersect.SWEEP_MODES) or bwd["plain_on_cuda"]
                          or fwd["plain_on_cuda"]):
             raise AssertionError(f"fit {label}: forward {fwd}, backward {bwd} (the backward "
                                  f"swept, or the plain version ran on the card)")
+        if not held:
+            _check_draws(f"fit {label} forward", fwd, st)
+            _check_draws(f"fit {label} backward", bwd)
         if stats.dropped_w != 0.0:
             raise AssertionError(f"fit {label}: queue overflow dropped {stats.dropped_w:.3g}")
         return dict(loss=float(loss.detach()), grads={f: x.grad for f, x in leaves.items()},
@@ -1606,23 +1746,25 @@ def _exempt_fit(dev, path_counts):
         torch.cuda.empty_cache()
         _sync(dev)
         _reset_peak(dev)
-        cuda_intersect.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         acc, stats = trace(key, o, d, pix, bg, w * h, st.replace(**leaves), c, w0=w0,
                            spp_contiguous=spp, with_stats=True)
         loss = torch.mean((acc / spp - target) ** 2)
         _sync(dev)
-        fwd = cuda_intersect.counts()
-        cuda_intersect.reset_counts()
+        fwd = _counts()
+        _reset_counts()
         with torch.profiler.record_function("fit_backward"):
             loss.backward()
         _sync(dev)
         secs = time.perf_counter() - t0
-        bwd = cuda_intersect.counts()
+        bwd = _counts()
         swept = sum(bwd[m] for m in cuda_intersect.SWEEP_MODES)
         if swept or bwd["plain_on_cuda"] or fwd["plain_on_cuda"] or stats.dropped_w:
             raise AssertionError(f"exempt fit: forward {fwd}, backward {bwd}, dropped "
                                  f"{stats.dropped_w}")
+        _check_draws("exempt fit forward", fwd, st)
+        _check_draws("exempt fit backward", bwd)
         return dict(loss=float(loss.detach()), grads={f: x.grad for f, x in leaves.items()},
                     stats=stats, secs=secs, fwd=fwd, bwd=bwd, peak=_peak_gib(dev),
                     reserved=torch.cuda.max_memory_reserved(dev) / 2**30)
@@ -1737,7 +1879,7 @@ def _shade_hits(dev, path_counts):
     import torch
     from portrayer_tpu_torch import RenderConfig, flatten_scene, rng, scenes
     from portrayer_tpu_torch.camera import Camera
-    from portrayer_tpu_torch.ops import cuda_intersect, shade
+    from portrayer_tpu_torch.ops import shade
     from portrayer_tpu_torch.ops.intersect import Hit, HitDetail, hit_detail, intersect_scene
 
     spec = scenes.load("big-scene")
@@ -1752,10 +1894,10 @@ def _shade_hits(dev, path_counts):
     real = shade.occluded
     shade.occluded = lambda *a, **k: verdicts.append(real(*a, **k)) or verdicts[-1]
     try:
-        cuda_intersect.reset_counts()
+        _reset_counts()
         colour, _, _ = shade.shade_hits(d, hit, det, st, cfg, rng.PRNGKey(0), hit.hit)
         torch.cuda.synchronize()
-        counts = cuda_intersect.counts()
+        counts = _counts()
         host = lambda x: Hit(*(t.cpu() for t in x)) if isinstance(x, Hit) else HitDetail(
             *(t.cpu() for t in x))
         ref, _, _ = shade.shade_hits(d.cpu(), host(hit), host(det), st_cpu, cpu,
@@ -1772,6 +1914,7 @@ def _shade_hits(dev, path_counts):
     if counts["any_hit"] != 1 or counts["plain_on_cuda"] or apart or not diff <= SHADE_HITS_TOL:
         raise AssertionError(f"shade_hits: launches {counts}, {apart} verdicts apart, "
                              f"colours {diff:.3g} apart")
+    _check_draws("shade_hits", counts, st)
 
 
 def phase_gradients(dev, path_counts, err, diffs):
@@ -1826,7 +1969,7 @@ def phase_gradients(dev, path_counts, err, diffs):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    cuda_intersect.reset_counts()
+    _reset_counts()
     for step in range(FIT_STEPS + 1):
         x.grad = None
         t0 = time.perf_counter()
@@ -1839,13 +1982,14 @@ def phase_gradients(dev, path_counts, err, diffs):
         if step < FIT_STEPS:
             with torch.no_grad():
                 x -= FIT_STEP * g / g.abs().max()
-    counts = cuda_intersect.counts()
+    counts = _counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     path_counts["fit big-scene, captured"] = counts
     if any(b >= a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"fit: the loss did not fall at every step: {losses}")
     if counts["nearest"] == 0 or counts["any_hit"] == 0 or counts["plain_on_cuda"]:
         raise AssertionError(f"fit did not run through the kernels alone: {counts}")
+    _check_draws("fit big-scene, captured", counts, st)
     (prog,) = st.packed.fit_programs.values()
     # Beside it, one pass op by op at the fitted values.
     x.grad = None
@@ -1921,25 +2065,68 @@ def _train_rays(dev, spec, size):
                       cam.dtype, dev)[:3]
 
 
-def _timed(dev, fn):
-    """(result, seconds, kernel launch counts, peak GiB) of fn(), the counts
-    zeroed just before it."""
+def _reset_counts():
+    """Zero the sweep module's and the threefry kernel's launch counts."""
+    from portrayer_tpu_torch import rng
     from portrayer_tpu_torch.ops import cuda_intersect
 
+    cuda_intersect.reset_counts()
+    rng.reset_counts()
+
+
+def _counts() -> dict:
+    """The launch counts since _reset_counts: cuda_intersect.counts(), and
+    rng.counts() under threefry_<name> (the threefry kernel's launches per
+    entry point, and threefry_plain_on_cuda)."""
+    from portrayer_tpu_torch import rng
+    from portrayer_tpu_torch.ops import cuda_intersect
+
+    return {**cuda_intersect.counts(),
+            **{f"threefry_{k}": n for k, n in rng.counts().items()}}
+
+
+def _restore_counts(saved):
+    """Set the counts back to `saved` (_counts()), what ran since left out."""
+    from portrayer_tpu_torch import rng
+    from portrayer_tpu_torch.ops import cuda_intersect
+
+    _reset_counts()
+    cuda_intersect.COUNTS.update({k: saved[k] for k in cuda_intersect.COUNTS})
+    rng.COUNTS.update({k: saved[f"threefry_{k}"] for k in rng.COUNTS})
+
+
+def _check_draws(label, counts, st=None):
+    """Every threefry draw went through the kernel (0 plain calls on CUDA
+    tensors), and on the tables `st` of a scene that draws per lane (a
+    glossy material or an area light) draw_lanes ran."""
+    if counts["threefry_plain_on_cuda"]:
+        raise AssertionError(f"{label}: a threefry draw ran its plain version on the card: "
+                             f"{counts}")
+    if (st is not None and (st.any_glossy or any(st.area_flags))
+            and not counts["threefry_draw_lanes"]):
+        raise AssertionError(f"{label}: the scene draws per lane, but draw_lanes never ran: "
+                             f"{counts}")
+
+
+def _timed(dev, fn):
+    """(result, seconds, kernel launch counts (_counts), peak GiB) of fn(),
+    the counts zeroed just before it."""
     _sync(dev)
     _reset_peak(dev)
-    cuda_intersect.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     out = fn()
     _sync(dev)
     secs = time.perf_counter() - t0
-    return out, secs, cuda_intersect.counts(), _peak_gib(dev)
+    return out, secs, _counts(), _peak_gib(dev)
 
 
-def _check_counts(label, counts, dev):
+def _check_counts(label, counts, dev, st=None):
     if dev.type == "cuda" and (counts["nearest"] == 0 or counts["any_hit"] == 0
                                or counts["plain_on_cuda"]):
         raise AssertionError(f"{label} did not run through both kernel modes alone: {counts}")
+    if dev.type == "cuda":
+        _check_draws(label, counts, st)
 
 
 def _allreduce_ms(dev, n_pixels, group=None):
@@ -1979,7 +2166,7 @@ def _md_run(dev, mesh, size, spp, spec, st, bg, target, label):
                                                   spec.background, cfg)
     cold = _timed(dev, render)[1]
     img, secs, counts, peak = _timed(dev, render)
-    _check_counts(f"{label} render_frame_distributed", counts, dev)
+    _check_counts(f"{label} render_frame_distributed", counts, dev, st)
     if img.shape != (h, w, 3) or not np.isfinite(img).all() or img.max() <= 0.0:
         raise AssertionError(f"{label}: the frame is empty, misshapen or not finite")
     ar_ms = _allreduce_ms(dev, w * h, mesh.get_group())
@@ -2371,7 +2558,6 @@ def phase_scenes(dev, path_counts, err, diffs):
     import numpy as np
     from portrayer_tpu_torch import render_linear, scenes
     from portrayer_tpu_torch.camera import Camera
-    from portrayer_tpu_torch.ops import cuda_intersect
     from portrayer_tpu_torch.run_all_examples import render_all
     from _torch_assets import write_standins
 
@@ -2379,7 +2565,7 @@ def phase_scenes(dev, path_counts, err, diffs):
     lines = []
 
     def check(name, spec, st, cfg, res):
-        saved = cuda_intersect.counts()
+        saved = _counts()
         lin = render_linear(st, spec.camera, tuple(res["size"]), spec.background, cfg)
         finite = bool(np.isfinite(lin).all())
         if not finite or lin.shape != (res["size"][1], res["size"][0], 3):
@@ -2401,8 +2587,7 @@ def phase_scenes(dev, path_counts, err, diffs):
         if apart:
             raise AssertionError(f"{name}: {apart} rays apart between the kernel and its plain "
                                  "version")
-        cuda_intersect.reset_counts()
-        cuda_intersect.COUNTS.update(saved)
+        _restore_counts(saved)
         w, h = res["size"]
         lines.append(
             f"[7 scenes] {name} (stand-in assets) {w}x{h} x {STANDIN_SPP} spp: first render "
@@ -2426,11 +2611,11 @@ def phase_scenes(dev, path_counts, err, diffs):
         os.environ["PORTRAYER_ASSETS"] = tmp
         try:
             _sync(dev)
-            cuda_intersect.reset_counts()
+            _reset_counts()
             render_all(names, os.path.join(OUT_DIR, "scenes"), samples=STANDIN_SPP,
                        accel="cuda", device=dev, on_scene=check)
             _sync(dev)
-            counts = cuda_intersect.counts()
+            counts = _counts()
         finally:
             if old is None:
                 os.environ.pop("PORTRAYER_ASSETS")
@@ -2439,6 +2624,7 @@ def phase_scenes(dev, path_counts, err, diffs):
     if len(lines) != len(names) or counts["plain_on_cuda"]:
         raise AssertionError(f"stand-in scenes: {len(lines)} of {len(names)} rendered, "
                              f"counts {counts}")
+    _check_draws("stand-in scenes", counts)
     path_counts["stand-in scenes"] = counts
     print(f"[7 scenes] {len(names)} scene programs on stand-in assets in "
           f"{time.perf_counter() - t0:.3f} s; launches nearest {counts['nearest']} any-hit "
@@ -2462,7 +2648,7 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e})", file=sys.stderr)
         return 1
-    from portrayer_tpu_torch import RenderConfig
+    from portrayer_tpu_torch import RenderConfig, rng
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2480,6 +2666,7 @@ def main():
     _shade_hits(dev, path_counts)
     conditional, cond_replay = phase_conditional(dev)
     loop, loop_replay = phase_loop(dev)
+    threefry, threefry_calls = phase_threefry(dev)
     phase_goldens(dev)
     mesh, textured = _inline("procedural-meshes"), _inline("normal-mapping-numpy")
     for spec in ("big-scene", "torus-showcase", "glossy-reflection", mesh, "single-triangle",
@@ -2504,6 +2691,10 @@ def main():
     phase_device_times(timing, RenderConfig(device=dev))
     _graph_kernel_ms(conditional, cond_replay, "set_if_equal", "graphs.switch")
     _graph_kernel_ms(loop, loop_replay, "while_step", "graphs.loop")
+    for label, (kernel, call) in threefry_calls.items():
+        ms = _device_ms(call, THREEFRY_ITERS, kernel)
+        threefry["by_call"][label]["device_ms"] = ms
+        print(f"[8 device] threefry {label}: {_fmt(ms)} a call on the device", flush=True)
     backward_kernels("after phases 2 to 7 in this process", check=False)
 
     kernels = []
@@ -2539,6 +2730,15 @@ def main():
         "launches": sum(c["graph_while"] for c in path_counts.values()),
         "launches_by_path": {p: c["graph_while"] for p, c in path_counts.items()},
         **loop})
+    drawn = lambda c: sum(c[f"threefry_{k}"] for k in rng.KERNELS)
+    kernels.append({
+        "name": "threefry", "route": "cuda", "source": THREEFRY_SOURCE,
+        "replaces": THREEFRY_REPLACES, "library_ms": None,
+        "launches": sum(drawn(c) for c in path_counts.values()),
+        "launches_by_path": {p: drawn(c) for p, c in path_counts.items()},
+        "launches_by_entry": {k: sum(c[f"threefry_{k}"] for c in path_counts.values())
+                              for k in rng.KERNELS},
+        **threefry})
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")

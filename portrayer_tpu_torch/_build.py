@@ -83,6 +83,13 @@ def _bind(lib):
     lib.cond_stream_create.restype = i
     lib.stamp_time.argtypes = [p, p, p, ll, ll, p]
     lib.stamp_time.restype = i
+    u, lls = ctypes.c_uint, ctypes.POINTER(ll)
+    lib.threefry_fold_in.argtypes = [p, ll, u, u, p, i, u, i, lls, lls, lls, ll, p, p, p]
+    lib.threefry_fold_in.restype = i
+    lib.threefry_uniform.argtypes = [p, ll, u, u, ll, ll, p, p, p]
+    lib.threefry_uniform.restype = i
+    lib.threefry_draw_lanes.argtypes = [p, ll, u, u, u, p, i, ll, ll, i, p, p, p]
+    lib.threefry_draw_lanes.restype = i
     return lib
 
 

@@ -52,11 +52,12 @@ device where the stream, or a replay, reaches it: the spans of a render
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 
 import torch
 
-from . import _build
+from . import _build, counters
 from .ops import cuda_intersect
 
 # The Graph being captured, whose switch and loop record bodies.
@@ -110,7 +111,9 @@ class Graph:
         self.open = []  # the slots of the bodies being recorded, outermost first
         self.streams = _body_streams(self.lib, self.device)
         self.pools = {slot: torch.cuda.graph_pool_handle() for slot in _SLOTS}
-        # Made before the capture that adds to them.
+        # Every kernel module's counters, made before the capture that adds
+        # to them.
+        counters.make_all(self.device)
         counts = cuda_intersect.device_counts(self.device)
         self.if_count = counts[cuda_intersect._MODES.index("graph_if"):]
         self.while_count = counts[cuda_intersect._MODES.index("graph_while"):]
@@ -119,10 +122,17 @@ class Graph:
                 torch._C._cuda_beginAllocateCurrentStreamToPool(self.device.index,
                                                                 self.pools[slot])
         _capturing = self
+        # No garbage collection while capturing: a dead program's graph,
+        # kept by a reference cycle, freed then would reset its CUDA graph,
+        # a call that ends this capture.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 fn()
         finally:
+            if collecting:
+                gc.enable()
             _capturing = None
             for body_pool in self.pools.values():
                 torch._C._cuda_endAllocateToPool(self.device.index, body_pool)

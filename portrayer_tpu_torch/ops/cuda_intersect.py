@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import counters
 from ..config import RenderConfig
 from ..scene.flatten import (
     SceneTables, PACK_CHUNK, SPHERE, PLANE, CUBE, CYLINDER, CONE, MESH, TORUS,
@@ -43,54 +44,24 @@ GROUP = 32
 # sweep and the steps of the beam sweep's ordered loops (ops/intersect.py,
 # ops/beam.py; counted on the device of their rays, captured or not, by
 # count_on_device).  A caller zeroes them (reset_counts) before a run and
-# reads them after it (counts()).
-COUNTS = {"nearest": 0, "any_hit": 0, "plain_on_cuda": 0, "graph_if": 0, "graph_while": 0,
-          "flat_sweep": 0, "beam_sweep": 0, "beam_step": 0}
+# reads them after it (counts()).  A launch recorded into a captured CUDA
+# graph counts on the device, in the graph, where it runs: per device,
+# [nearest, any-hit, conditional kernel, loop step kernel, flat sweeps,
+# beam sweeps, beam steps].
+_MODES = ("nearest", "any_hit", "graph_if", "graph_while", "flat_sweep", "beam_sweep",
+          "beam_step")
+_COUNTERS = counters.Group(_MODES, host_only=("plain_on_cuda",))
+COUNTS = _COUNTERS.host
+device_counts = _COUNTERS.on
+count_on_device = _COUNTERS.add_on_device
+reset_counts = _COUNTERS.reset
+counts = _COUNTERS.read
 # The counts of the sweeps, whichever the accel.
 SWEEP_MODES = ("nearest", "any_hit", "flat_sweep", "beam_sweep", "beam_step")
 
 # The kernel reads ray i's origin at o[3 * i + 2] with a 32-bit int: a
 # launch of this many rays or more would overflow it.
 MAX_LAUNCH_RAYS = (2 ** 31 - 1) // 3
-
-# A launch recorded into a captured CUDA graph counts on the device, in
-# the graph, where it runs: at each replay, and in a conditional body only
-# when the body runs.  Per device, [nearest, any-hit, conditional kernel,
-# loop step kernel, flat sweeps, beam sweeps, beam steps].
-_MODES = ("nearest", "any_hit", "graph_if", "graph_while", "flat_sweep", "beam_sweep",
-          "beam_step")
-_ON_DEVICE = {}
-
-
-def device_counts(device: torch.device) -> torch.Tensor:
-    """The launch counters of `device`, made at first call (outside every
-    capture: graphs.Graph calls it before it captures)."""
-    if device not in _ON_DEVICE:
-        _ON_DEVICE[device] = torch.zeros(len(_MODES), dtype=torch.int64, device=device)
-    return _ON_DEVICE[device]
-
-
-def count_on_device(device: torch.device, mode: str, n=1):
-    """Add n (an int or a 0-d int64 on `device`) to the count of `mode` on
-    `device`, without a read on the host."""
-    device_counts(device)[_MODES.index(mode)].add_(n)
-
-
-def reset_counts():
-    for k in COUNTS:
-        COUNTS[k] = 0
-    for t in _ON_DEVICE.values():
-        t.zero_()
-
-
-def counts() -> dict:
-    """The launches since reset_counts, those of captured graphs read from
-    the device (one read a device) and moved into COUNTS."""
-    for t in _ON_DEVICE.values():
-        for mode, n in zip(_MODES, t.tolist()):
-            COUNTS[mode] += n
-        t.zero_()
-    return dict(COUNTS)
 
 
 def _f32(x: float) -> float:

@@ -32,8 +32,9 @@ from .intersect import Hit, HitDetail, _vec, occluded
 def _uniform(key, site: int, sid, n: int):
     """[R, n] f32 uniforms keyed per (site, sample id): a lane's draws do
     not depend on the batch it is in, so slicing a queue to its live head
-    or compacting it moves no pixel (shade.py ``_uniform``)."""
-    return rng.uniform_lanes(rng.fold_in(rng.fold_in(key, site), sid), n)
+    or compacting it moves no pixel (shade.py ``_uniform``); on the card one
+    launch of the threefry kernel (rng.draw_lanes)."""
+    return rng.draw_lanes(key, site, sid, n)
 
 
 def sample_atlas(data, meta, tex_ix, uv, srgb: bool = True):

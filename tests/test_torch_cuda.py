@@ -21,7 +21,9 @@ sweeps_apart).  graphs.switch under a capture runs the branch that sel
 names on the device, as the host pick does.  The render replaying its
 captured chunk graph (its bounce rounds' slices conditional bodies)
 equals the same chunk program run op by op within 1e-6 and reads nothing
-on the host, and a capture that meets a host read raises.  The captured
+on the host, a capture that meets a host read raises, and a dead graph
+that a reference cycle keeps is not collected during another capture
+(its reset would end that capture).  The captured
 fit (fit.py) gives the op-by-op trace's gradients within 1e-4 of their
 largest entry (index_add's atomics), reads no live count on the host,
 launches no sweep in its backward, and a second step on replaced tables
@@ -724,6 +726,40 @@ def test_graphs_keep_their_body_streams_apart_from_the_capture_stream(dev):
         g = graphs.Graph(step, torch.cuda.graph_pool_handle())
         g.replay()
         assert out.tolist() == [3, 3, 3] and int(index) == 3
+
+
+def test_a_capture_is_not_ended_by_collecting_a_dead_graph(dev):
+    """A dead graph that a reference cycle keeps is not collected while
+    another graph captures (its CUDA graph's reset would end that
+    capture): the captured step asks for a collection at each allocation,
+    and the capture still succeeds and replays."""
+    import gc
+    from portrayer_tpu_torch import graphs
+
+    x = torch.zeros(4, device=dev)
+
+    class Cycle:
+        pass
+
+    dead = Cycle()
+    dead.me = dead
+    dead.graph = graphs.Graph(lambda: x.add_(1.0), torch.cuda.graph_pool_handle())
+    del dead
+    thresholds = gc.get_threshold()
+
+    def step():
+        gc.set_threshold(1, 1, 1)
+        try:
+            [[i] for i in range(2000)]
+        finally:
+            gc.set_threshold(*thresholds)
+        x.mul_(2.0)
+
+    g = graphs.Graph(step, torch.cuda.graph_pool_handle())
+    gc.collect()
+    x.fill_(1.0)
+    g.replay()
+    assert x.tolist() == [2.0] * 4
 
 
 @pytest.mark.parametrize("name", ["big-scene", "glossy-reflection"])

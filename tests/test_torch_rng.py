@@ -38,10 +38,13 @@ def test_uniform_bit_equal(R):
     assert (ut >= 0).all() and (ut < 1).all()
 
 
-@pytest.mark.parametrize("site, n", [(2000, 2), (1002, 3)])
+@pytest.mark.parametrize("site, n", [(2000, 2), (1002, 3), (1000, 1), (2003, 2), (1001, 3)])
 def test_per_lane_draws_bit_equal_to_shade_uniform(site, n):
     """fold_in over a tensor of sample ids, then per-lane uniforms: bit-equal
-    to the JAX package's shade._uniform (vmap(fold_in), vmap(uniform))."""
+    to the JAX package's shade._uniform (vmap(fold_in), vmap(uniform)) and
+    to that composition written out in jax.random; rng.draw_lanes, which
+    shade._uniform calls, is uniform_lanes(fold_in(fold_in(key, site), sid),
+    n) on the CPU, with int32 or int64 sample ids."""
     from portrayer_tpu.ops.shade import _uniform as jax_uniform
     from portrayer_tpu_torch.ops.shade import _uniform
 
@@ -53,6 +56,30 @@ def test_per_lane_draws_bit_equal_to_shade_uniform(site, n):
     ut = _uniform(kt, site, torch.from_numpy(sid), n)
     assert ut.dtype == torch.float32 and tuple(ut.shape) == (777, n)
     np.testing.assert_array_equal(uj.view(np.uint32), ut.numpy().view(np.uint32))
+    lanes = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(jax.random.fold_in(kj, site),
+                                                             jnp.asarray(sid))
+    composed = jax.vmap(lambda k: jax.random.uniform(k, (n,), jnp.float32))(lanes)
+    np.testing.assert_array_equal(np.asarray(composed).view(np.uint32), uj.view(np.uint32))
+    plain = rng.uniform_lanes(rng.fold_in(rng.fold_in(kt, site), torch.from_numpy(sid)), n)
+    for ids in (torch.from_numpy(sid), torch.from_numpy(sid).to(torch.int64)):
+        got = rng.draw_lanes(kt, site, ids, n)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), plain.numpy().view(np.uint32))
+    np.testing.assert_array_equal(plain.numpy().view(np.uint32), uj.view(np.uint32))
+
+
+def test_cpu_draws_take_the_plain_versions():
+    """On CPU tensors the draws run their plain versions: no kernel launch
+    and no plain call counted on the card."""
+    rng.reset_counts()
+    key = rng.fold_in(rng.PRNGKey(7), torch.arange(4))[2]
+    np.testing.assert_array_equal(rng.uniform(key, (9, 2), "cpu", start=6).numpy(),
+                                  rng.uniform_plain(key, (9, 2), "cpu", start=6).numpy())
+    sid = torch.arange(5, dtype=torch.int32)
+    np.testing.assert_array_equal(rng.draw_lanes(key, 2000, sid, 2).numpy(),
+                                  rng.draw_lanes_plain(key, 2000, sid, 2).numpy())
+    np.testing.assert_array_equal(rng.fold_in(key, sid).numpy(),
+                                  rng.fold_in_plain(key, sid).numpy())
+    assert rng.counts() == dict.fromkeys(rng.KERNELS + ("plain_on_cuda",), 0)
 
 
 @pytest.mark.parametrize("seed", [0, 1234])
@@ -91,3 +118,11 @@ def test_device_key_chain_from_tensor_inputs_bit_equal(seed):
         jax.random.fold_in(kj, 128), 896), 1), 1), 3)
     lj = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(rj, jnp.asarray(sid.numpy()))
     np.testing.assert_array_equal(_bits(lj), lanes.numpy())
+
+
+@pytest.mark.parametrize("a, b", [((), ()), ((4,), ()), ((), (7,)), ((416,), (416,)),
+                                  ((416, 1), (1, 11)), ((3, 1, 5), (4, 1)), ((0,), (1,))])
+def test_fold_in_kernel_broadcasts_as_torch(a, b):
+    """The kernel's fold_in broadcasts key and data as torch does, without
+    torch.broadcast_shapes (whose first call imports sympy)."""
+    assert rng._broadcast_shape(a, b) == tuple(torch.broadcast_shapes(a, b))
