@@ -1,5 +1,6 @@
 """The control of `correct` for the render cells, at a cell's own size:
-the plain reference put in the program's place and computed in
+the plain reference of the configuration's scene family
+(``harness/family.py``) put in the program's place and computed in
 bfloat16, the precision below the configuration's float32, judged by the
 same numbers against the float32 reference.  Its readings set the upper
 end of each limit in ``portbench/limits/<cell>.json``; the benchmark's

@@ -10,7 +10,12 @@ file of its own, found by the name ``BENCHMARK.json`` gives it:
   runner, ``portbench/harness/mode_<mode>.py``; the rest are its
   parameters);
 - ``portbench/limits/<cell>.json``: the limit of each number compared;
-- ``portbench/metrics/<metric>.py``: ``read(run) -> float | None``.
+- ``portbench/metrics/<metric>.py``: ``read(run) -> float | None``;
+- where the configuration names a scene family (``"scene": "<family>"``,
+  ``harness/family.py``), ``portbench/harness/scene_<family>.py``, which
+  builds its scene in the program, and ``portbench/reference/
+  render_<family>.py``, which renders it plainly (without ``"scene"``:
+  ``harness/scene.py`` and ``reference/render.py``).
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ Set-up renders one whole frame (which builds the kernels, warms up and
 captures the chunk program that every frame then replays, and runs the
 frame's host work once).  A traced run then re-renders `trace_tiles` tiles of
 the middle tile row under ``torch.profiler``, with ``stats=`` counting
-the chunk replays."""
+the chunk replays.  Where the configuration's scene family compares
+numbers besides the frame (``harness/family.py``), one more frame is then
+rendered with ``stats=`` for them to read."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import time
 
 import torch
 
-from . import scene as HS
+from . import family
 from . import trace as TR
 
 
@@ -28,10 +30,10 @@ class RenderCell:
         self.traffic = traffic
         self.width, self.height = data["size"]
         self.spp = traffic["spp"]
-        scene, self.camera, self.background = HS.build(T, data)
+        scene, self.camera, self.background, overrides = family.lookup(data).build(T, data)
         self.cfg = T.RenderConfig(device=device, samples=self.spp, seed=seed,
                                   tile=(traffic["tile"], traffic["tile"]),
-                                  max_rays_per_launch=traffic["launch_rays"])
+                                  max_rays_per_launch=traffic["launch_rays"], **overrides)
         self.tables = T.flatten_scene(scene, device)
         self.image = T.Image(None, self.width, self.height)
         self.tile = min(traffic["tile"], self.height), min(traffic["tile"], self.width)
@@ -89,6 +91,13 @@ class RenderCell:
         return dict(summary, wall_s=wall, chunks=len(stats),
                     rays=(x1 - x0 + 1) * (y1 - y0 + 1) * self.spp)
 
+    def counts(self) -> list:
+        """The TraceStats of each chunk of one whole frame, rendered after
+        the window (the window's frames are alike: one camera and seed)."""
+        stats = []
+        self.render(stats=stats)
+        return stats
+
     def frame(self):
         """The window's last frame: u8 [H, W, 3] on the host."""
         return self.last
@@ -97,9 +106,11 @@ class RenderCell:
 def run(T, data: dict, traffic: dict, seed: int, seconds: float, traced: bool, device,
         t_start: float) -> dict:
     """The cell's run: set-up, the window, with `traced` the traced
-    sample, and `compare`, which frees the program's state and returns
-    the numbers that judge the window's last frame against the
-    reference's (harness.check)."""
+    sample, where the family compares more than the frame the counts of
+    one more frame ("stats"), and `compare`, which frees the program's
+    state and returns the numbers that judge the window's last frame
+    against the reference's and the record by the family's numbers
+    (harness.check)."""
     from . import check
 
     cell = RenderCell(T, data, traffic, seed, device)
@@ -116,11 +127,13 @@ def run(T, data: dict, traffic: dict, seed: int, seconds: float, traced: bool, d
               "memory_peak_bytes": max(setup_peak, window_peak)}
     if traced:
         record["sample"] = cell.traced_sample()
+    if family.lookup(data).numbers is not None:
+        record["stats"] = cell.counts()
     frame = cell.frame()
     del cell
 
     def compare():
-        return check.compare_frames(frame, check.reference_frame(data, traffic, seed, device))
+        return check.compare(frame, data, traffic, seed, device, record)
 
     record["compare"] = compare
     return record

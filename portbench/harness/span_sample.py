@@ -5,7 +5,8 @@ builds, warms up and captures the stamped chunk program; the second, with
 
 The sample is taken the first time a reader of ``span_readings`` asks for
 it, that is after the run's window, traced sample and comparison, on a
-render cell built anew: nothing measured before it moves.  Its cell and
+render cell built anew (by the configuration's scene family, with its
+RenderConfig overrides): nothing measured before it moves.  Its cell and
 seed are the run's own, read from the command line (``--workload``,
 ``--seed``).  A program without ``Spans`` gives no sample, and the readers
 then read nothing."""

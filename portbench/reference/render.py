@@ -32,7 +32,7 @@ import math
 import torch
 
 from . import threefry as tf
-from .scene import BACKGROUNDS, KINDS, Tables
+from .scene import BACKGROUNDS, KINDS, Tables, tables
 
 EPS = 1e-5          # the upstream's EPSILON
 EPS_REL = 3e-4      # secondary ray start, relative to |p|
@@ -423,6 +423,13 @@ def render_u8(data: dict, sc: Tables, seed: int, spp: int, tiles=None, *, tile: 
                         torch.arange(H * W, device=dev) // W)
         acc = acc + trace(sc, rays, H * W, bg)
     return encode(acc / spp).reshape(H, W, 3)
+
+
+def reference_frame(data: dict, traffic: dict, seed: int, device, dtype=torch.float32):
+    """The frame of a cell of this family ([H, W, 3] u8): `data`'s tables in
+    `dtype`, the samples of `traffic`'s spp, tile and rays a launch."""
+    return render_u8(data, tables(data, device, dtype), seed, traffic["spp"],
+                     tile=traffic["tile"], launch=traffic["launch_rays"])
 
 
 def encode(mean):

@@ -5,8 +5,8 @@ pixel.  Only the tests cut a cell so."""
 from harness import bench
 
 
-def small_cell(workload: str, size=(48, 27), spp_max: int = 6):
-    spec = bench.Spec()
+def small_cell(workload: str, size=(48, 27), spp_max: int = 6, root: str = bench.ROOT):
+    spec = bench.Spec(root)
     cell = spec.cell(workload)
     data = spec.config(cell["config"])
     data["size"] = list(size)
