@@ -41,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 import types
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -75,11 +75,16 @@ class TraceStats(NamedTuple):
     by queue overflow as a fraction of the primary ray count; syncs, the
     host syncs of the live-count reads; lanes [max_depth+1] int32 (on the
     host), the lanes each round ran on (launched_lanes; 0 where it did not
-    run)."""
+    run); refr [max_depth+1] int32 (on the host), the refracted children
+    among the live rays entering each round (``refracted``; counted on the
+    device only where the scene has a refractive material, zeros
+    elsewhere; None where the trace does not count them, the fit
+    program's)."""
     live: torch.Tensor
     dropped_w: float
     syncs: int
     lanes: torch.Tensor
+    refr: Optional[torch.Tensor] = None
 
 
 class _Shadow(NamedTuple):
@@ -270,6 +275,14 @@ def _compact(child: _Queue, capacity: int, acc, bg):
 
     q = _Queue(*(place(x, _FILL[f]) for f, x in zip(_Queue._fields, child)))
     return q, acc, dropped, pos[-1]
+
+
+def refracted(sid: torch.Tensor) -> torch.Tensor:
+    """How many of the live lanes of a head slice of a queue that
+    ``_compact`` left are refracted children, from the slice's sample ids
+    `sid`, as an int32 device scalar: a refracted child's sample id is odd
+    (2 * sid + 1), and a dead slot holds sid 0 (_FILL)."""
+    return (sid & 1).sum(dtype=torch.int32)
 
 
 def slice_sizes(capacity: int, divs) -> tuple:
@@ -509,6 +522,8 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
     acc, q, dropped, n_live = first_round(rng.fold_in(key, 0), q, bg, n_pixels, st, cfg, pl,
                                           spp_contiguous)
     live = []  # live rays entering rounds 1.. (host ints)
+    count_refr = with_stats and st.any_refractive
+    refr = []  # refracted rays entering each bounce round that ran (device scalars)
 
     def read_live():
         live.append(int(n_live))
@@ -516,6 +531,8 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
 
     lanes = [R0] + [0] * pl.max_depth
     for ridx, k, next_cap, last in bounce_rounds(pl, cfg.queue_slice_divs, read_live):
+        if count_refr:
+            refr.append(refracted(q.sid[:k]))
         acc, q, dr, n_live = bounce_round(rng.fold_in(key, ridx), q, acc, bg, st, cfg, k,
                                           next_cap, last)
         dropped = dropped if last else dropped + dr
@@ -523,12 +540,17 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
 
     if not with_stats:
         return acc
-    # Round 0's live count costs one more host sync, only here.
+    # Round 0's live count costs one more host sync, only here; the
+    # refracted counts one more.
     lv = [int((w0 > 0.0).sum()) if w0 is not None else R0] + live
     lv = (lv + [0] * pl.max_depth)[:pl.max_depth + 1]
+    rf = [0] * (pl.max_depth + 1)
+    if refr:  # rounds 1, 2, ... as they ran
+        rf[1:1 + len(refr)] = torch.stack(refr).cpu().tolist()
     return acc, TraceStats(live=torch.tensor(lv, dtype=torch.int32),
                            dropped_w=float(dropped.detach()) / R0 if dropped is not None else 0.0,
-                           syncs=len(live), lanes=torch.tensor(lanes, dtype=torch.int32))
+                           syncs=len(live), lanes=torch.tensor(lanes, dtype=torch.int32),
+                           refr=torch.tensor(rf, dtype=torch.int32))
 
 
 class _CallableModule(types.ModuleType):

@@ -52,7 +52,8 @@ from .config import RenderConfig, GAMMA
 from .image_io import read_png, write_png
 from .ops import cuda_intersect
 from .ops.trace import (TraceStats, _Queue, at_round, bounce_round, first_round,
-                        launched_lanes, plan, primary_queue, round_shapes, rounds, slice_sel)
+                        launched_lanes, plan, primary_queue, refracted, round_shapes, rounds,
+                        slice_sel)
 from .reporter import Reporter, NullProgress
 from .scene.flatten import SceneTables, flatten_scene
 from .scene.node import Scene, bounding_volume_scene
@@ -111,7 +112,9 @@ class _ChunkProgram:
     ``bounce`` on the slice that ``slice_sel`` picks from the live count,
     through ``graphs.switch``; the chunk's radiance ends in `tile_acc`.
     Live rays per round and dropped throughput go to the per-row tables
-    `live` and `dropped`.  With `capture`, the chunk runs as one CUDA graph
+    `live` and `dropped`, and, where the scene has a refractive material,
+    the refracted children among the live rays to `refr` (None elsewhere:
+    nothing is counted).  With `capture`, the chunk runs as one CUDA graph
     (``graphs.Graph``, each round's slices its conditional bodies),
     captured at its first use; its steps meet only in the static buffers,
     allocated outside the graph.  A capturing program runs the looped
@@ -143,6 +146,7 @@ class _ChunkProgram:
         self.bg = torch.zeros_like(self.tile_acc)
         self.live = torch.zeros((n_rows, self.pl.max_depth + 1), dtype=torch.int32, device=dev)
         self.dropped = torch.zeros((n_rows,), dtype=dt, device=dev)
+        self.refr = torch.zeros_like(self.live) if st.any_refractive else None
         f32 = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
         i32 = lambda c: torch.zeros((c,), dtype=torch.int32, device=dev)
         self.queues = {c: _Queue(o=f32(c, 3), d=f32(c, 3), w=f32(c), pix=i32(c), t_min=f32(c),
@@ -212,16 +216,24 @@ class _ChunkProgram:
         for buf, x in zip(self.queues[cap], q):
             buf.copy_(x)
         self.n_live.copy_(n_live)
-        n = n_live.reshape(1).to(torch.int32)
-        if isinstance(ridx, int):
-            self.live[:, ridx].index_put_((self.row.reshape(1),), n)
-        else:
-            self.live.index_put_((self.row.reshape(1), ridx.reshape(1)), n)
+        self._put_row(self.live, ridx, n_live)
         self.dropped.index_add_(0, self.row.reshape(1), dropped.reshape(1))
+
+    def _put_row(self, table, ridx, n):
+        """table[row, ridx] = n, a device scalar, ridx an int or a 0-d index
+        on the device."""
+        n = n.reshape(1).to(table.dtype)
+        if isinstance(ridx, int):
+            table[:, ridx].index_put_((self.row.reshape(1),), n)
+        else:
+            table.index_put_((self.row.reshape(1), ridx.reshape(1)), n)
 
     def bounce(self, ridx, cap: int, k: int, next_cap, is_last: bool):
         """Bounce round ridx (an int, or in the loop the index r) on the
-        head k lanes of the capacity-cap queue."""
+        head k lanes of the capacity-cap queue; where counted, the
+        refracted rays among them go to refr[row, ridx]."""
+        if self.refr is not None:
+            self._put_row(self.refr, ridx, refracted(self.queues[cap].sid[:k]))
         acc, q, dropped, n_live = bounce_round(
             self._row_key(ridx + 1), self.queues[cap], self.acc, self.bg, self.st, self.cfg, k,
             next_cap, is_last)
@@ -312,6 +324,8 @@ class _ChunkProgram:
         self.tile_acc.zero_()
         self.live.zero_()
         self.dropped.zero_()
+        if self.refr is not None:
+            self.refr.zero_()
         if self.stamps is not None:
             self.stamps.zero_()
 
@@ -392,11 +406,12 @@ def _read_counts(prog: _ChunkProgram, rows: np.ndarray, syncs, stats, spans, fra
     n = len(rows)
     live = prog.live[:n].cpu()
     lanes = launched_lanes(prog.pl, prog.cfg.queue_slice_divs, live)
+    refr = prog.refr[:n].cpu() if prog.refr is not None else torch.zeros_like(live)
     if stats is not None:
         dropped = prog.dropped[:n].cpu().tolist()
         R0 = prog.P * prog.spp
         stats.extend(TraceStats(live=live[i], dropped_w=dropped[i] / R0, syncs=syncs[i],
-                                lanes=lanes[i]) for i in range(n))
+                                lanes=lanes[i], refr=refr[i]) for i in range(n))
     if spans is None:
         return
     stamps = prog.stamps[:n].cpu().tolist()
@@ -404,15 +419,15 @@ def _read_counts(prog: _ChunkProgram, rows: np.ndarray, syncs, stats, spans, fra
     frame.set(clock_offset_ns=offset, clock_unc_ns=unc)
     D = prog.pl.max_depth
     k_min = [prog.P * prog.spp] + [rd.sizes[0] for rd in prog.rounds]
-    for i, ((x0, y0, _, ci), t, lv, ks) in enumerate(zip(rows.tolist(), stamps, live.tolist(),
-                                                         lanes.tolist())):
+    for i, ((x0, y0, _, ci), t, lv, ks, rf) in enumerate(zip(
+            rows.tolist(), stamps, live.tolist(), lanes.tolist(), refr.tolist())):
         t = [v - offset for v in t]
         chunk = spans.add("chunk", t[0], t[D + 2], frame.rec.id, row=i, tile=[x0, y0],
                           chunk=ci)
         for r, k in enumerate(ks):
             if k:
                 spans.add(f"round {r}", t[r], t[r + 1], chunk.id, r=r, k=k, k_min=k_min[r],
-                          live=lv[r])
+                          live=lv[r], refr=rf[r])
 
 
 def _render_common(scene_or_tables, camera, size, background, cfg, region, as_u8,

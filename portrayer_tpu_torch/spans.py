@@ -18,11 +18,13 @@ The render then keeps one record a span in it, in memory:
   (``graphs.stamp``; inside the captured chunk graph on the card): one
   ``chunk`` a (tile x sample-chunk), and in it ``round 0`` and each
   bounce round ``round r`` that ran, with the lanes it ran on (``k``, the
-  smallest of its head slices ``k_min``) and the live rays entering it
-  (``live``).  They are mapped onto the host clock by a stamp taken once
-  a frame, after the frame, while the device is idle: the offset is
-  the stamp less the midpoint of the host times around it, and half
-  their distance is its uncertainty (the ``frame`` span's ``clock_unc_ns``).
+  smallest of its head slices ``k_min``), the live rays entering it
+  (``live``) and the refracted children among them (``refr``, 0 in a
+  scene without a refractive material).  They are mapped onto the host
+  clock by a stamp taken once a frame, after the frame, while the device
+  is idle: the offset is the stamp less the midpoint of the host times
+  around it, and half their distance is its uncertainty (the ``frame``
+  span's ``clock_unc_ns``).
 
 With ``spans=None`` the chunk program holds no stamp.  Under an active
 ``torch.profiler`` each host span site also opens
