@@ -213,6 +213,19 @@ FOLD_ROUNDS = 11
 THREEFRY_ITERS = 20
 GLOSSY_TILE = ((384, 128), (511, 255))
 THREEFRY_SPP = 8
+# The round kernels (csrc/round.cu), not a TPU kernel: the lane work of a
+# round, which the JAX package leaves to XLA.  Timed on the round-1 queue
+# of one chunk (ROUND_TILE x ROUND_TILE pixels x ROUND_SPP spp) of each
+# scene at the tile origin given, on each head slice of it, against the
+# plain chain; held within ROUND_RTOL (float atomics, CUDA's pow, atan2
+# and acos under other flags than PyTorch's kernels).
+ROUND_SOURCE = "portrayer_tpu_torch/csrc/round.cu"
+ROUND_REPLACES = "none: the lane work of portrayer_tpu/ops/trace.py's rounds, fused by XLA"
+ROUND_CASES = (("glossy-reflection", (384, 128)), ("water-glass", (384, 256)))
+ROUND_TILE = 128
+ROUND_SPP = 8
+ROUND_ITERS = 20
+ROUND_RTOL = 1e-5
 FULL_FRAME_SPP = 16
 # Main paths whose captured render (its tail one loop) is also held
 # against the eager loop (every round unrolled) bit for bit, under
@@ -929,10 +942,164 @@ def phase_threefry(dev):
           f"{rounds} bounce rounds ran): threefry launches "
           f"{', '.join(f'{k} {counts[k]}' for k in rng.KERNELS)}; plain calls on CUDA "
           f"tensors {counts['plain_on_cuda']}", flush=True)
-    if counts["plain_on_cuda"] or not counts["draw_lanes"] or counts["uniform"] != len(stats):
+    if counts["plain_on_cuda"] or counts["uniform"] != len(stats):
         raise AssertionError(f"threefry: a captured glossy chunk drew {counts}")
     fields["glossy_chunk_launches"] = {k: counts[k] for k in rng.KERNELS}
     return fields, calls
+
+
+def _round_bytes(st, R, cap):
+    """Bytes a bounce round's two kernels need on R lanes of a queue whose
+    children go to a queue of `cap` lanes, each read or written once
+    (csrc/round.cu's note): shade_round reads the queue (48 B a lane), the
+    hits (12 B), the node and triangle tables and a texel of each atlas a
+    lane, and writes L shadow rays (37 B), lc (12 B a light), two children
+    (48 B each), their take flags and acc's terms (read and written,
+    12 B); resolve_round reads the occlusion (4 B), lc, the children and
+    their prefix (4 B), and writes the next queue (48 B a slot) and acc."""
+    L = st.n_lights
+    tables = st.rec.numel() * 4 + (st.trec.numel() * 4 if st.any_reflective else 0)
+    texels = R * 3 * (int(st.any_image_tex) + int(st.any_normal_map))
+    shade = R * (48 + 12 + 24) + tables + texels + L * R * (37 + 12) + 2 * R * (48 + 4)
+    resolve = L * R * (4 + 12) + 2 * R * (48 + 4) + cap * 48 + R * 24
+    return shade, resolve
+
+
+def phase_round(dev):
+    """The round kernels (csrc/round.cu through ops/cuda_round.py) at the
+    main path's shapes: a real round-1 queue of ROUND_TILE's chunk (128 x
+    128 pixels x ROUND_SPP spp, 131,072 primary lanes) of each scene of
+    ROUND_CASES, a bounce round on each head slice of it through the
+    kernels and through the plain chain (ops/trace.py's, routed by
+    cuda_round.takes_kernels), held against each other (the next queue's
+    integer fields and live count equal, its floats and acc within
+    ROUND_RTOL of 1 + |value|), and a whole round's time on each route
+    (CUDA events over ROUND_ITERS rounds, both sweeps included) beside the
+    two kernels' bound (_round_bytes over PEAK_BYTES).  Returns the line
+    fields and, per case, the kernel round and the plain round whose
+    kernels' device times and launches phase 8 reads."""
+    import os
+    import tempfile
+    import torch
+    from portrayer_tpu_torch import RenderConfig, flatten_scene, rng, scenes
+    from portrayer_tpu_torch.camera import Camera
+    from portrayer_tpu_torch.ops import cuda_round, trace as tr
+    from portrayer_tpu_torch.render import _tile_rays
+    from _torch_assets import write_standins
+
+    fields, calls = {"by_case": {}}, {}
+    old = os.environ.get("PORTRAYER_ASSETS")
+    tmp = tempfile.mkdtemp()
+    write_standins(tmp, seed=STANDIN_SEED)
+    os.environ["PORTRAYER_ASSETS"] = tmp
+    try:
+        for name, (x0, y0) in ROUND_CASES:
+            spec = scenes.load(name)
+            st = flatten_scene(spec.scene, dev)
+            # The benchmark's queues: RenderConfig's default caps (4x with
+            # a refractive material, else 1x).
+            cfg = RenderConfig(device=dev, samples=ROUND_SPP)
+            key = rng.PRNGKey(21)
+            o, d, pix, bg, w0 = _tile_rays(
+                key, Camera(spec.camera, spec.size, dev), x0, y0, 0, cfg=cfg,
+                background=spec.background, tile_h=ROUND_TILE, tile_w=ROUND_TILE,
+                spp=ROUND_SPP, samples=ROUND_SPP)
+            P = ROUND_TILE * ROUND_TILE
+            pl = tr.plan(P * ROUND_SPP, st, cfg)
+            acc, q, _, n_live = tr.first_round(rng.fold_in(key, 0), tr.primary_queue(
+                o, d, pix, w0, cfg), bg, P, st, cfg, pl, ROUND_SPP)
+            for k in tr.slice_sizes(pl.cap[1], cfg.queue_slice_divs):
+                label = f"{name}, round 1 on {k} lanes of {pl.cap[1]}"
+                rk = rng.fold_in(key, 1)
+                kern = lambda k=k: tr.bounce_round(rk, q, acc.clone(), bg, st, cfg, k,
+                                                   pl.cap[2], False)
+
+                def plain(k=k, real=cuda_round.takes_kernels):
+                    cuda_round.takes_kernels = lambda *a, **kw: False
+                    try:
+                        return tr.bounce_round(rk, q, acc.clone(), bg, st, cfg, k, pl.cap[2],
+                                               False)
+                    finally:
+                        cuda_round.takes_kernels = real
+
+                got, ref = kern(), plain()
+                apart = _round_apart(got, ref)
+                ms, plain_ms = _time_ms(kern, ROUND_ITERS), _time_ms(plain, ROUND_ITERS)
+                shade_b, resolve_b = _round_bytes(st, k, pl.cap[2])
+                shade_bound = shade_b / PEAK_BYTES * 1e3
+                resolve_bound = resolve_b / PEAK_BYTES * 1e3
+                print(f"[2 round] {label}: live {int(n_live)} entering, {int(ref[3])} "
+                      f"children kept; {apart}; a round {ms:.4f} ms through the kernels, "
+                      f"{plain_ms:.4f} ms through the plain chain (CUDA events over "
+                      f"{ROUND_ITERS}, both sweeps in each); bound shade_round "
+                      f"{shade_bound:.5f} ms, resolve_round {resolve_bound:.5f} ms (bytes: "
+                      f"{shade_b}, {resolve_b})", flush=True)
+                fields["by_case"][label] = {
+                    "lanes": k, "ms": ms, "plain_ms": plain_ms, "apart": apart,
+                    "shade_bound_ms": shade_bound, "resolve_bound_ms": resolve_bound,
+                    "bound_by": "bytes"}
+                calls[label] = (kern, plain)
+    finally:
+        if old is None:
+            os.environ.pop("PORTRAYER_ASSETS", None)
+        else:
+            os.environ["PORTRAYER_ASSETS"] = old
+    return fields, calls
+
+
+def _round_apart(got, ref):
+    """(acc, queue, dropped, n_live) of a bounce round through the kernels
+    against the plain chain's: raises where an integer field or the live
+    count differs or a float is further than ROUND_RTOL of 1 + |value|;
+    returns the largest float gap, as text."""
+    if int(got[3]) != int(ref[3]):
+        raise AssertionError(f"round kernels: live {int(got[3])} against {int(ref[3])}")
+    worst = {}
+    pairs = [("acc", got[0], ref[0])] + [(f, getattr(got[1], f), getattr(ref[1], f))
+                                         for f in got[1]._fields]
+    for f, a, b in pairs:
+        if a.dtype == b.dtype and not a.is_floating_point():
+            if not bool((a == b).all()):
+                raise AssertionError(f"round kernels: {f} differs")
+            continue
+        a, b = a.double(), b.double()
+        fin = b.isfinite()
+        gap = ((a - b).abs()[fin] / (1.0 + b.abs()[fin])).max() if fin.any() else a.new_zeros(())
+        worst[f] = float(gap)
+        if worst[f] > ROUND_RTOL or not bool((a.isfinite() == fin).all()):
+            raise AssertionError(f"round kernels: {f} apart by {worst[f]}")
+    return "integer fields equal, floats within " + ", ".join(
+        f"{f} {v:.2g}" for f, v in worst.items())
+
+
+def _round_device_times(fields, calls):
+    """Phase 8's part for the round kernels: each case's shade_round and
+    resolve_round device times (_device_ms) and the device launches of one
+    round on each route (_launches)."""
+    for label, (kern, plain) in calls.items():
+        f = fields["by_case"][label]
+        f["shade_device_ms"] = _device_ms(kern, ROUND_ITERS, "shade_round_kernel")
+        f["resolve_device_ms"] = _device_ms(kern, ROUND_ITERS, "resolve_round_kernel")
+        f["launches"], f["plain_launches"] = _launches(kern), _launches(plain)
+        print(f"[8 device] round {label}: shade_round {_fmt(f['shade_device_ms'])}, "
+              f"resolve_round {_fmt(f['resolve_device_ms'])} on the device; a round launches "
+              f"{f['launches']} kernels through them, {f['plain_launches']} through the plain "
+              f"chain", flush=True)
+
+
+def _launches(fn):
+    """The kernels (and memsets and copies) one call of fn runs on the
+    device, from a torch.profiler trace; None where it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
 
 
 def _graph_kernel_ms(fields, replay, kernel, label):
@@ -1170,6 +1337,7 @@ def _main_path(dev, spec, path_counts, accel="cuda", spp=FULL_FRAME_SPP, size=No
     if counts["plain_on_cuda"] != 0:
         raise AssertionError(f"{label}: plain version ran on CUDA tensors: {counts}")
     _check_draws(label, counts, st)
+    _check_rounds(label, counts, st)
     chunks = len(stats)  # every chunk traces the same number of rays
     if list(graphs) != ["chunk"] or graphs["chunk"].replays != chunks:
         raise AssertionError(f"{label}: graphs {list(graphs)}, {replays} replays for {chunks} "
@@ -2066,45 +2234,67 @@ def _train_rays(dev, spec, size):
 
 
 def _reset_counts():
-    """Zero the sweep module's and the threefry kernel's launch counts."""
+    """Zero the sweep module's, the threefry kernel's and the round
+    kernels' launch counts."""
     from portrayer_tpu_torch import rng
-    from portrayer_tpu_torch.ops import cuda_intersect
+    from portrayer_tpu_torch.ops import cuda_intersect, cuda_round
 
     cuda_intersect.reset_counts()
     rng.reset_counts()
+    cuda_round.reset_counts()
 
 
 def _counts() -> dict:
-    """The launch counts since _reset_counts: cuda_intersect.counts(), and
+    """The launch counts since _reset_counts: cuda_intersect.counts(),
     rng.counts() under threefry_<name> (the threefry kernel's launches per
-    entry point, and threefry_plain_on_cuda)."""
+    entry point, and threefry_plain_on_cuda) and cuda_round.counts() under
+    round_<name> (shade_round, resolve_round, plain_rounds_cuda)."""
     from portrayer_tpu_torch import rng
-    from portrayer_tpu_torch.ops import cuda_intersect
+    from portrayer_tpu_torch.ops import cuda_intersect, cuda_round
 
     return {**cuda_intersect.counts(),
-            **{f"threefry_{k}": n for k, n in rng.counts().items()}}
+            **{f"threefry_{k}": n for k, n in rng.counts().items()},
+            **{f"round_{k}": n for k, n in cuda_round.counts().items()}}
 
 
 def _restore_counts(saved):
     """Set the counts back to `saved` (_counts()), what ran since left out."""
     from portrayer_tpu_torch import rng
-    from portrayer_tpu_torch.ops import cuda_intersect
+    from portrayer_tpu_torch.ops import cuda_intersect, cuda_round
 
     _reset_counts()
     cuda_intersect.COUNTS.update({k: saved[k] for k in cuda_intersect.COUNTS})
     rng.COUNTS.update({k: saved[f"threefry_{k}"] for k in rng.COUNTS})
+    cuda_round.COUNTS.update({k: saved[f"round_{k}"] for k in cuda_round.COUNTS})
 
 
 def _check_draws(label, counts, st=None):
-    """Every threefry draw went through the kernel (0 plain calls on CUDA
+    """Every threefry draw went through a kernel (0 plain calls on CUDA
     tensors), and on the tables `st` of a scene that draws per lane (a
-    glossy material or an area light) draw_lanes ran."""
+    glossy material or an area light) draw_lanes (the plain chain's draws)
+    or shade_round (which draws in its lanes) ran."""
     if counts["threefry_plain_on_cuda"]:
         raise AssertionError(f"{label}: a threefry draw ran its plain version on the card: "
                              f"{counts}")
     if (st is not None and (st.any_glossy or any(st.area_flags))
-            and not counts["threefry_draw_lanes"]):
-        raise AssertionError(f"{label}: the scene draws per lane, but draw_lanes never ran: "
+            and not (counts["threefry_draw_lanes"] or counts["round_shade_round"])):
+        raise AssertionError(f"{label}: the scene draws per lane, but neither draw_lanes nor "
+                             f"shade_round ran: {counts}")
+
+
+def _check_rounds(label, counts, st=None):
+    """A render's rounds on the card took the round kernels (csrc/round.cu),
+    one shade_round and one resolve_round each, and none the plain chain,
+    unless the scene has a procedural texture (a torch callable that no
+    kernel can run)."""
+    if st is not None and st.fn_textures:
+        if counts["round_shade_round"] or not counts["round_plain_rounds_cuda"]:
+            raise AssertionError(f"{label}: a scene with procedural textures took the round "
+                                 f"kernels: {counts}")
+        return
+    if (counts["round_plain_rounds_cuda"] or not counts["round_shade_round"]
+            or counts["round_shade_round"] != counts["round_resolve_round"]):
+        raise AssertionError(f"{label}: a render's rounds did not all take the round kernels: "
                              f"{counts}")
 
 
@@ -2121,12 +2311,17 @@ def _timed(dev, fn):
     return out, secs, _counts(), _peak_gib(dev)
 
 
-def _check_counts(label, counts, dev, st=None):
+def _check_counts(label, counts, dev, st=None, render=True):
+    """Both sweep modes ran as kernels alone and the draws through theirs;
+    a render's rounds took the round kernels (a fit's, `render` False, the
+    plain chain)."""
     if dev.type == "cuda" and (counts["nearest"] == 0 or counts["any_hit"] == 0
                                or counts["plain_on_cuda"]):
         raise AssertionError(f"{label} did not run through both kernel modes alone: {counts}")
     if dev.type == "cuda":
         _check_draws(label, counts, st)
+        if render:
+            _check_rounds(label, counts, st)
 
 
 def _allreduce_ms(dev, n_pixels, group=None):
@@ -2186,7 +2381,7 @@ def _md_run(dev, mesh, size, spp, spec, st, bg, target, label):
                                   MD_TRAIN_SPP, target, st0, tcfg, fields=MD_FIELDS)
     tcold = _timed(dev, step)[1]
     (loss, grads), tsecs, tcounts, tpeak = _timed(dev, step)
-    _check_counts(f"{label} train_step", tcounts, dev)
+    _check_counts(f"{label} train_step", tcounts, dev, render=False)
     _, esecs, _, epeak = _timed(dev, lambda: par.train_step(
         mesh, rng.PRNGKey(MD_TRAIN_KEY), to, td, tpix, bg, w * h, MD_TRAIN_SPP, target, st0,
         dataclasses.replace(tcfg, cuda_graphs=False), fields=MD_FIELDS))
@@ -2649,6 +2844,7 @@ def main():
         print(f"chip_smoke: cannot import the port ({e})", file=sys.stderr)
         return 1
     from portrayer_tpu_torch import RenderConfig, rng
+    from portrayer_tpu_torch.ops import cuda_round
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2667,6 +2863,7 @@ def main():
     conditional, cond_replay = phase_conditional(dev)
     loop, loop_replay = phase_loop(dev)
     threefry, threefry_calls = phase_threefry(dev)
+    round_fields, round_calls = phase_round(dev)
     phase_goldens(dev)
     mesh, textured = _inline("procedural-meshes"), _inline("normal-mapping-numpy")
     for spec in ("big-scene", "torus-showcase", "glossy-reflection", mesh, "single-triangle",
@@ -2695,6 +2892,7 @@ def main():
         ms = _device_ms(call, THREEFRY_ITERS, kernel)
         threefry["by_call"][label]["device_ms"] = ms
         print(f"[8 device] threefry {label}: {_fmt(ms)} a call on the device", flush=True)
+    _round_device_times(round_fields, round_calls)
     backward_kernels("after phases 2 to 7 in this process", check=False)
 
     kernels = []
@@ -2739,6 +2937,13 @@ def main():
         "launches_by_entry": {k: sum(c[f"threefry_{k}"] for c in path_counts.values())
                               for k in rng.KERNELS},
         **threefry})
+    for entry in cuda_round.KERNELS:
+        kernels.append({
+            "name": entry, "route": "cuda", "source": ROUND_SOURCE,
+            "replaces": ROUND_REPLACES, "library_ms": None,
+            "launches": sum(c[f"round_{entry}"] for c in path_counts.values()),
+            "launches_by_path": {p: c[f"round_{entry}"] for p, c in path_counts.items()},
+            **round_fields})
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
@@ -2749,6 +2954,22 @@ def main():
     return 0
 
 
+def round_kernels_alone() -> int:
+    """Phase 2's round-kernel part and its phase-8 device times, alone
+    (python3 chip_smoke.py --round-kernels)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    dev = torch.device("cuda", 0)
+    phase_card(dev)
+    fields, calls = phase_round(dev)
+    _round_device_times(fields, calls)
+    print(json.dumps({"round_kernels": fields}))
+    return 0
+
+
 if __name__ == "__main__":
     sys.exit(exempt_backward_alone() if sys.argv[1:] == ["--exempt-backward-kernels"]
+             else round_kernels_alone() if sys.argv[1:] == ["--round-kernels"]
              else main())

@@ -2,10 +2,10 @@
 
 At first use, ``nvcc`` compiles each of ``csrc/*.cu`` (all at once, one
 process a source) and links them into one shared library with a plain C
-interface under ``build/`` (keyed by a hash of the sources and flags),
-which ctypes then loads.  Nothing is built when a module is
-imported, and nothing comes from outside the checkout but the CUDA
-toolkit.
+interface under ``build/`` (keyed by a hash of the sources, the headers
+``csrc/*.cuh`` they share and the flags), which ctypes then loads.
+Nothing is built when a module is imported, and nothing comes from
+outside the checkout but the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -90,6 +90,12 @@ def _bind(lib):
     lib.threefry_uniform.restype = i
     lib.threefry_draw_lanes.argtypes = [p, ll, u, u, u, p, i, ll, ll, i, p, p, p]
     lib.threefry_draw_lanes.restype = i
+    lib.shade_round.argtypes = [p, i, p]
+    lib.shade_round.restype = i
+    lib.resolve_round.argtypes = [p, p]
+    lib.resolve_round.restype = i
+    lib.round_args_sizes.argtypes = [p]
+    lib.round_args_sizes.restype = i
     return lib
 
 
@@ -99,8 +105,9 @@ def load():
     if _lib is not None:
         return _lib
     sources = sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as fh:
             h.update(fh.read())
     so = os.path.join(_BUILD_DIR, f"libportrayer_kernels_{h.hexdigest()[:16]}.so")

@@ -38,7 +38,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
+
+using tf::threefry;
+using tf::unit;
 
 constexpr int MAX_DIMS = 4;
 constexpr int THREADS = 256;
@@ -48,41 +53,6 @@ struct Layout {
   long long key[MAX_DIMS];
   long long data[MAX_DIMS];
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
-
-#define MIX(r)  \
-  x1 += x2;     \
-  x2 = rotl(x2, r) ^ x1;
-
-// (x1, x2) <- threefry2x32 of the counter words (x1, x2) under (k1, k2).
-__device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t& x1, uint32_t& x2) {
-  const uint32_t k3 = k1 ^ k2 ^ 0x1BD11BDAu;
-  x1 += k1;
-  x2 += k2;
-  MIX(13) MIX(15) MIX(26) MIX(6)
-  x1 += k2;
-  x2 += k3 + 1u;
-  MIX(17) MIX(29) MIX(16) MIX(24)
-  x1 += k3;
-  x2 += k1 + 2u;
-  MIX(13) MIX(15) MIX(26) MIX(6)
-  x1 += k1;
-  x2 += k2 + 3u;
-  MIX(17) MIX(29) MIX(16) MIX(24)
-  x1 += k2;
-  x2 += k3 + 4u;
-  MIX(13) MIX(15) MIX(26) MIX(6)
-  x1 += k3;
-  x2 += k1 + 5u;
-}
-
-#undef MIX
-
-// 32 random bits -> f32 in [1, 2) by mantissa fill, minus 1.
-__device__ __forceinline__ float unit(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
 
 __device__ __forceinline__ void load_key(const long long* key, long long at, long long word,
                                          uint32_t k1v, uint32_t k2v, uint32_t& k1,
@@ -152,15 +122,9 @@ __global__ void draw_lanes_kernel(const long long* key, long long key_word, uint
   if (i >= lanes) return;
   uint32_t k1, k2;
   load_key(key, 0, key_word, k1v, k2v, k1, k2);
-  uint32_t s1 = 0u, s2 = site;
-  threefry(k1, k2, s1, s2);
-  uint32_t l1 = 0u, l2 = load_word(sid, sid_64, i * sid_stride);
-  threefry(s1, s2, l1, l2);
-  for (int j = 0; j < n; ++j) {
-    uint32_t y1 = 0u, y2 = (uint32_t)j;
-    threefry(l1, l2, y1, y2);
-    out[i * n + j] = unit(y1 ^ y2);
-  }
+  uint32_t l1, l2;
+  tf::lane_key(k1, k2, site, load_word(sid, sid_64, i * sid_stride), l1, l2);
+  for (int j = 0; j < n; ++j) out[i * n + j] = tf::lane_draw(l1, l2, (uint32_t)j);
 }
 
 unsigned int blocks(long long n) { return (unsigned int)((n + THREADS - 1) / THREADS); }

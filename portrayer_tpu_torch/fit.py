@@ -442,7 +442,8 @@ class _FitProgram:
         q = primary_queue(x["o0"], x["d0"], x["pix0"], x["w0"], cfg)
         sweeps = _Sweeps()
         acc, q1, dropped, n_live = first_round(
-            v["keys"][0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c, sweeps=sweeps)
+            v["keys"][0], q, x["bg"], self.P, st, cfg, self.pl, self.spp_c, sweeps=sweeps,
+            plain=True)
         self._put("head", self.R0, _kept_fields(sweeps))
         self.acc.copy_(acc)
         if q1 is not None:
@@ -465,7 +466,7 @@ class _FitProgram:
         sweeps = _Sweeps()
         acc, q2, dropped, n_live = bounce_round(
             at_round(self.state.views["keys"], ridx), q, self.acc, self.inputs["bg"], self.st,
-            self.cfg, k, next_cap, is_last, sweeps=sweeps)
+            self.cfg, k, next_cap, is_last, sweeps=sweeps, plain=True)
         self._put(ridx, k, _kept_fields(sweeps))
         self.acc.copy_(acc)
         if not is_last:

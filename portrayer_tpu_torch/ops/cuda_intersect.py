@@ -598,6 +598,20 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
         return intersect_scene_sweep_ref(o, d, t_min, t_max, st, cfg, active=active,
                                          src_node=src_node, src_tri=src_tri,
                                          any_hit=any_hit)
+    out, active = sweep_launch(o, d, t_min, t_max, st, cfg, active, src_node, src_tri, any_hit)
+    if any_hit:
+        return _any_hit_result((out != 0) & active)
+    t, node, tri = out
+    hit = torch.isfinite(t) & active
+    return Hit(t=t, node=node, tri=tri, hit=hit)
+
+
+def sweep_launch(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig, active=None,
+                 src_node=None, src_tri=None, any_hit=False):
+    """One launch of the sweep kernel on CUDA tensors: (its outputs, the
+    active mask [R] bool it ran under).  The outputs are (t, node, tri) [R],
+    node and tri -1 where nothing is hit, or with any_hit found [R] int32,
+    0 on inactive rays."""
     R = o.shape[0]
     if R >= MAX_LAUNCH_RAYS:
         raise ValueError(f"sweep kernel: {R} rays in one launch; it indexes rays with a "
@@ -654,7 +668,4 @@ def intersect_scene_cuda(o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
         count_on_device(o.device, mode)
     elif R:
         COUNTS[mode] += 1
-    if any_hit:
-        return _any_hit_result((found != 0) & active)
-    hit = torch.isfinite(t) & active
-    return Hit(t=t, node=node, tri=tri, hit=hit)
+    return (found if any_hit else (t, node, tri)), active

@@ -5,7 +5,9 @@ ray.rs) as rounds over ray queues.
 A round: nearest-hit launch, hit detail, deferred shading, one any-hit
 launch over every light's shadow rays, accumulation per pixel, and the
 reflect/refract children packed by ``_compact`` into the next round's
-queue.  Queues have the JAX package's static shapes: a capacity per round
+queue.  On the card a round that autograd never sees does the work
+between the sweeps in two kernels (``ops/cuda_round.py``); the chain of
+ops here is their plain version (``_round``).  Queues have the JAX package's static shapes: a capacity per round
 from ``RenderConfig.queue_caps``, the live lanes compacted in order to the
 front and the dead slots filled with fixed values.  On overflow the
 lowest-throughput children end in the background colour (exact for the
@@ -47,6 +49,7 @@ import torch
 import torch.utils.checkpoint
 
 from .. import rng
+from . import cuda_round
 from ..config import RenderConfig
 from ..scene.flatten import SceneTables
 from .intersect import intersect_scene, hit_detail, occluded
@@ -251,15 +254,8 @@ def _compact(child: _Queue, capacity: int, acc, bg):
     nothing is read on the host."""
     w = child.w
     dropped = torch.zeros((), dtype=w.dtype, device=w.device)
-    if w.shape[0] <= capacity:
-        take = w > 0.0
-    else:
-        kth = torch.topk(w, capacity).values[-1]
-        take_gt = w > kth
-        quota = capacity - take_gt.sum()
-        eq = w == kth
-        eq_rank = torch.cumsum(eq.to(torch.int32), dim=0)
-        take = (take_gt | (eq & (eq_rank <= quota))) & (w > 0.0)
+    take = take_flags(w, capacity)
+    if w.shape[0] > capacity:
         dropped_w = torch.where(take, 0.0, w)
         pix = child.pix.long()
         acc = acc.index_add(0, pix, dropped_w[:, None] * bg[pix])
@@ -275,6 +271,21 @@ def _compact(child: _Queue, capacity: int, acc, bg):
 
     q = _Queue(*(place(x, _FILL[f]) for f, x in zip(_Queue._fields, child)))
     return q, acc, dropped, pos[-1]
+
+
+def take_flags(w, capacity: int):
+    """Which of the children of throughput `w` a queue of `capacity` lanes
+    takes (bool): the live ones (w > 0) or, where they may outnumber it,
+    those above the capacity-th largest weight, and of those equal to it
+    as many as are left, first come first."""
+    if w.shape[0] <= capacity:
+        return w > 0.0
+    kth = torch.topk(w, capacity).values[-1]
+    take_gt = w > kth
+    quota = capacity - take_gt.sum()
+    eq = w == kth
+    eq_rank = torch.cumsum(eq.to(torch.int32), dim=0)
+    return (take_gt | (eq & (eq_rank <= quota))) & (w > 0.0)
 
 
 def refracted(sid: torch.Tensor) -> torch.Tensor:
@@ -444,12 +455,31 @@ def primary_queue(o0, d0, pix0, w0, cfg: RenderConfig) -> _Queue:
 
 
 def _round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, is_last: bool,
-           next_cap, spp_c: int, sweeps):
+           next_cap, spp_c: int, sweeps, n_pixels: int = 0, out=None, plain: bool = False):
     """A round on queue q (as it runs, sliced): the nearest-hit sweep,
     shading, the any-hit sweep, the accumulation and, unless it is the
     last, the compaction of its children into next_cap lanes: (acc, queue
     or None, dropped or None, n_live or None).  Its sweeps go through
-    `sweeps` (a _Sweeps)."""
+    `sweeps` (a _Sweeps).  acc None starts a fresh one of n_pixels.
+
+    Where ``cuda_round.takes_kernels`` says so (a float32 round on the
+    card that autograd never has to see), the lane work is two kernels
+    (``cuda_round.round_``): the next queue is then written into `out`
+    where given, a round with acc adds to it in place, and dropped is
+    None where no child can be dropped.  Elsewhere, and with `plain` (the
+    fit program's forward, whose backward replays its rounds' ops under
+    autograd on tables that require grad), it is the plain chain below."""
+    inputs_grad = any(x is not None and x.requires_grad for x in (*q, acc, bg))
+    if not plain and cuda_round.takes_kernels(q.o.device.type, q.o.dtype, grad_fields(st),
+                                              cfg.soft_visibility, st.fn_textures,
+                                              inputs_grad):
+        q = _Queue(*(x.contiguous() for x in q))
+        return cuda_round.round_(rkey, q, acc, bg.contiguous(), st, cfg, is_last, next_cap,
+                                 spp_c, sweeps, n_pixels, out)
+    if q.o.is_cuda:
+        cuda_round.COUNTS["plain_rounds_cuda"] += 1
+    if acc is None:
+        acc = torch.zeros((n_pixels, 3), dtype=q.o.dtype, device=q.o.device)
     hit = sweeps(lambda: _nearest(q, st, cfg))
     acc, child, sh = _round_shade(q, hit, acc, bg, st, cfg, rkey, is_last=is_last, spp_c=spp_c)
     acc = _apply_shadows(sh, acc, st, cfg, spp_c, sweeps)
@@ -460,18 +490,20 @@ def _round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, is_last
 
 
 def first_round(rkey, q: _Queue, bg, n_pixels: int, st: SceneTables, cfg: RenderConfig,
-                pl: Plan, spp_c: int = 0, sweeps=None):
+                pl: Plan, spp_c: int = 0, sweeps=None, out=None, plain: bool = False):
     """Round 0 on the primary queue, its draws keyed rkey (the trace key
     folded with 0): (acc [P,3], the queue of round 1 or None without
-    bounces, dropped, n_live), the last two device scalars.  Under
-    autograd it runs checkpointed (the module docstring); `sweeps` (a
-    _Sweeps) runs it directly, the fit program's way."""
+    bounces, dropped, n_live), the last two device scalars (dropped None
+    where the kernels run and drop nothing).  Under autograd it runs
+    checkpointed (the module docstring); `sweeps` (a _Sweeps) runs it
+    directly, the fit program's way.  `out`: the round-1 queue's buffers,
+    which the kernels fill; `plain`: the plain chain (_round)."""
     is_last = pl.max_depth == 0
     next_cap = None if is_last else pl.cap[1]
 
     def body(sw):
-        acc = torch.zeros((n_pixels, 3), dtype=q.o.dtype, device=q.o.device)
-        return _round(rkey, q, acc, bg, st, cfg, is_last, next_cap, spp_c, sw)
+        return _round(rkey, q, None, bg, st, cfg, is_last, next_cap, spp_c, sw, n_pixels, out,
+                      plain)
 
     if sweeps is not None:
         return sweeps.run(body)
@@ -479,13 +511,15 @@ def first_round(rkey, q: _Queue, bg, n_pixels: int, st: SceneTables, cfg: Render
 
 
 def bounce_round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, k: int,
-                 next_cap: int, is_last: bool, sweeps=None):
+                 next_cap: int, is_last: bool, sweeps=None, out=None, plain: bool = False):
     """A bounce round, its draws keyed rkey (the trace key folded with the
     round's index), on the head slice of k lanes of its queue: (acc, the
     queue of next_cap lanes of the next round or, after the last round,
     None, dropped, n_live).  Under autograd it runs checkpointed when k >=
     cfg.remat_min_lanes; `sweeps` (a _Sweeps) runs it directly, the fit
-    program's way."""
+    program's way.  Where the kernels run (_round; not with `plain`) it
+    adds to acc in place and fills `out`, the next queue's buffers, where
+    given."""
     q = _Queue(*(x[:k] for x in q))
     remat = sweeps is None and _remat(st, k, cfg, q.o, q.d, q.w, q.t_min, acc, bg)
     if remat:
@@ -493,7 +527,8 @@ def bounce_round(rkey, q: _Queue, acc, bg, st: SceneTables, cfg: RenderConfig, k
         q = _Queue(*(x.clone() for x in q))
 
     def body(sw):
-        return _round(rkey, q, acc, bg, st, cfg, is_last, next_cap, 0, sw)
+        return _round(rkey, q, acc, bg, st, cfg, is_last, next_cap, 0, sw, out=out,
+                      plain=plain)
 
     if sweeps is not None:
         return sweeps.run(body)
@@ -535,7 +570,8 @@ def trace(key, o0, d0, pix0, bg, n_pixels: int, st: SceneTables, cfg: RenderConf
             refr.append(refracted(q.sid[:k]))
         acc, q, dr, n_live = bounce_round(rng.fold_in(key, ridx), q, acc, bg, st, cfg, k,
                                           next_cap, last)
-        dropped = dropped if last else dropped + dr
+        if dr is not None:
+            dropped = dr if dropped is None else dropped + dr
         lanes[ridx] = k
 
     if not with_stats:

@@ -201,7 +201,8 @@ class _ChunkProgram:
             torch.int32))
         acc, q, dropped, n_live = first_round(
             self._row_key(1), primary_queue(o, d, pix, w0, self.cfg), bg, self.P, self.st,
-            self.cfg, self.pl, self.spp)
+            self.cfg, self.pl, self.spp,
+            out=self.queues[self.pl.cap[1]] if self.pl.max_depth else None)
         self._stamp(1)
         if q is None:
             self.tile_acc.add_(acc)
@@ -211,13 +212,16 @@ class _ChunkProgram:
         self._queue_out(q, self.pl.cap[1], dropped, n_live, 1)
 
     def _queue_out(self, q, cap, dropped, n_live, ridx):
-        """The queue, live count (at live[row, ridx], ridx an int or a 0-d
-        index on the device) and dropped throughput of round ridx."""
+        """The queue (unless the round wrote it into its buffers), live
+        count (at live[row, ridx], ridx an int or a 0-d index on the device)
+        and dropped throughput (None: nothing dropped) of round ridx."""
         for buf, x in zip(self.queues[cap], q):
-            buf.copy_(x)
+            if x is not buf:
+                buf.copy_(x)
         self.n_live.copy_(n_live)
         self._put_row(self.live, ridx, n_live)
-        self.dropped.index_add_(0, self.row.reshape(1), dropped.reshape(1))
+        if dropped is not None:
+            self.dropped.index_add_(0, self.row.reshape(1), dropped.reshape(1))
 
     def _put_row(self, table, ridx, n):
         """table[row, ridx] = n, a device scalar, ridx an int or a 0-d index
@@ -236,8 +240,9 @@ class _ChunkProgram:
             self._put_row(self.refr, ridx, refracted(self.queues[cap].sid[:k]))
         acc, q, dropped, n_live = bounce_round(
             self._row_key(ridx + 1), self.queues[cap], self.acc, self.bg, self.st, self.cfg, k,
-            next_cap, is_last)
-        self.acc.copy_(acc)
+            next_cap, is_last, out=None if is_last else self.queues[next_cap])
+        if acc is not self.acc:
+            self.acc.copy_(acc)
         if not is_last:
             self._queue_out(q, next_cap, dropped, n_live, ridx + 1)
         self._stamp(ridx, 1)

@@ -49,8 +49,8 @@ def _time(root: str) -> dict:
     cfg = RenderConfig(device=dev)
     inf = float("inf")
     out = {"root": root, "device_ms": {}}
-    for name, n_rays, scene, camset, size in cs._scene_cases():
-        if name not in cs.TIMED:
+    for name, n_rays, scene, camset, size, packing in cs._scene_cases():
+        if name not in cs.TIMED or packing != "sah":
             continue
         w, h = size
         st = flatten_scene(scene, dev)

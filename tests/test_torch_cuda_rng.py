@@ -193,8 +193,11 @@ def test_captured_render_through_the_kernel_equals_the_plain_draws(dev, monkeypa
     """A captured render of one tile through the kernel against the same
     render with rng's plain versions patched in, on fresh tables each:
     bit-equal linear images and live counts; the kernel's render makes
-    no plain call on CUDA tensors, and draws per lane (draw_lanes) only
-    where the scene has a glossy material."""
+    no plain call on CUDA tensors, and draws per lane inside the round
+    kernel (shade_round, csrc/threefry.cuh's hash), with no draw_lanes
+    launch."""
+    from portrayer_tpu_torch.ops import cuda_round
+
     spec = scenes.load(name)
     cfg = RenderConfig(device=dev, samples=spp, max_rays_per_launch=131072,
                        queue_caps=spec.queue_caps)
@@ -203,12 +206,13 @@ def test_captured_render_through_the_kernel_equals_the_plain_draws(dev, monkeypa
         st = flatten_scene(spec.scene, dev)
         stats = []
         rng.reset_counts()
+        cuda_round.reset_counts()
         with _deterministic():
             img = T.render_linear(st, spec.camera, size, spec.background, cfg, region=region,
                                   stats=stats)
         (prog,) = st.chunk_programs.values()
         assert prog.graphs["chunk"].replays == len(stats)
-        return img, [s.live.tolist() for s in stats], rng.counts()
+        return img, [s.live.tolist() for s in stats], {**rng.counts(), **cuda_round.counts()}
 
     img, live, counts = render()
     with monkeypatch.context() as m:
@@ -220,5 +224,6 @@ def test_captured_render_through_the_kernel_equals_the_plain_draws(dev, monkeypa
     assert live == ref_live
     assert counts["plain_on_cuda"] == 0 and plain["plain_on_cuda"] > 0
     assert counts["fold_in"] > 0 and counts["uniform"] > 0
-    assert (counts["draw_lanes"] > 0) == (name == "glossy-reflection")
+    assert counts["draw_lanes"] == 0 and counts["shade_round"] > 0
+    assert counts["plain_rounds_cuda"] == 0
     assert all(plain[k] == 0 for k in rng.KERNELS)
